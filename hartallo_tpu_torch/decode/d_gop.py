@@ -1,0 +1,179 @@
+"""GOP-batched decode through the dense per-MB buffer (torch).
+
+Port of ``hartallo_tpu/decode/d_gop.py``: residual decode and boundary
+strengths are computed batched over the K pictures up front, then a
+Python loop walks the pictures in decode order with the DPB held as a
+ring of reference slots, each slot the four half-pel grids [G, b, h, j]
+of one picture plus its padded chroma.  This is the route of the pictures
+the whole-GOP kernel (``d_gop_fast``) refuses, as in the JAX package.
+
+Reference counterpart: the per-picture decode driver
+``hl_codec_264_decode_avc.c:55-263``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hartallo_tpu.core.tables import QP_SCALE_CHROMA
+from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
+from hartallo_tpu_torch.decode.intra_recon import PAD, intra_reconstruct
+from hartallo_tpu_torch.ops.deblock import deblock_frame_s1
+from hartallo_tpu_torch.ops.wide import (_edge_pad, compute_bs_grids,
+                                         halfpel_planes, mc_chroma_plane,
+                                         mc_grids, mc_luma_plane,
+                                         residual_planes_wide)
+
+_OFF = {}
+_o = 0
+for _name, _shape in DEC_FIELDS:
+    _w = int(np.prod(_shape, dtype=int)) if _shape else 1
+    _OFF[_name] = (_o, _o + _w, _shape)
+    _o += _w
+WORDS = _o
+
+
+def _field(packed, name, gw, gh):
+    """packed (K, Nmb, WORDS) -> (K, gh, gw) + field shape."""
+    o0, o1, shape = _OFF[name]
+    return packed[:, :, o0:o1].reshape((packed.shape[0], gh, gw) + shape)
+
+
+def ring_shapes(gw: int, gh: int, S: int):
+    """DPB ring shapes (S slots), over-allocated like the JAX package's
+    (+32 rows, width rounded up to 128 plus 128) so that rings compare
+    like for like; only [:Hp, :Wp] / [:Hcp, :Wcp] of a slot is read."""
+    Hp, Wp = gh * 16 + 2 * PAD, gw * 16 + 2 * PAD
+    Hc, Wc = gh * 8 + 2 * PAD, gw * 8 + 2 * PAD
+
+    def rnd(n):
+        return ((n + 127) // 128) * 128 + 128
+
+    return ((S, 4, Hp + 32, rnd(Wp)), (S, Hc + 32, rnd(Wc)),
+            (S, Hc + 32, rnd(Wc)))
+
+
+def _edge_pad2(x: torch.Tensor, n: int) -> torch.Tensor:
+    return _edge_pad(_edge_pad(x, n, n, 0), n, n, 1)
+
+
+def decode_gop(packed, write_slot, has_intra, ringY, ringU, ringV,
+               *, gw: int, gh: int, chroma_qp_off: int):
+    """Decode K pictures from their dense buffers.
+
+    packed (K, gh*gw, WORDS) int16 (``d_fused.pack_slice_arrays``);
+    write_slot (K,) ring slot of each recon (the last slot is the
+    non-reference trash slot); has_intra (K,) bool; ringY (S, 4, Hr, Wr),
+    ringU/ringV (S, Hcr, Wcr) uint8 on the decoder's device.
+
+    The ring is state: it is updated IN PLACE, picture by picture (slot
+    write_slot[k] after picture k), and returned.  Returns (out (K,
+    H*3//2, W) uint8 with U and V side by side per row, ringY, ringU,
+    ringV)."""
+    dev = ringY.device
+    packed = torch.as_tensor(np.asarray(packed), device=dev).to(torch.int32)
+    write_slot = [int(s) for s in np.asarray(write_slot)]
+    has_intra = [bool(h) for h in np.asarray(has_intra)]
+    K = packed.shape[0]
+    H, W = gh * 16, gw * 16
+    M = K * gh * gw
+    N = gh * gw * 16
+    qpc_table = torch.as_tensor(QP_SCALE_CHROMA, dtype=torch.int32,
+                                device=dev)
+
+    def fld(name):
+        return _field(packed, name, gw, gh)
+
+    def sl(name):
+        return packed[:, :, slice(*_OFF[name][:2])]
+
+    qp, kind = fld("qp"), fld("kind")
+    res_y, res_c = residual_planes_wide(
+        sl("luma_ac").reshape(M, 16, 16), sl("luma_dc").reshape(M, 16),
+        sl("chroma_ac").reshape(M, 2, 4, 16), sl("chroma_dc").reshape(M, 2, 4),
+        qp.reshape(M), (kind == 1).reshape(M), chroma_qp_off, qpc_table,
+        gw, gh)
+
+    mb_is_intra = (kind <= 2) | (kind == 8)
+    nnz = fld("nnz").permute(0, 1, 3, 2, 4).reshape(K, 4 * gh, 4 * gw)
+    mv = fld("mv")                                     # (K,gh,gw,4,4,2)
+    mvg = mv.permute(0, 1, 3, 2, 4, 5).reshape(K, 4 * gh, 4 * gw, 2)
+    ref44 = fld("ref_idx").reshape(K, gh, gw, 2, 2) \
+        .repeat_interleave(2, 3).repeat_interleave(2, 4)
+    refg = ref44.permute(0, 1, 3, 2, 4).reshape(K, 4 * gh, 4 * gw)
+    bs_vg, bs_hg = compute_bs_grids(mb_is_intra, nnz, mvg, refg,
+                                    fld("fmb_v") != 0, fld("fmb_h") != 0,
+                                    fld("fint") != 0)
+    bs_v = bs_vg.reshape(K, gh, 4, gw, 4).permute(0, 1, 3, 4, 2)
+    bs_h = bs_hg.reshape(K, gh, 4, gw, 4).permute(0, 1, 3, 2, 4)
+    qpc = qpc_table[torch.clamp(qp + chroma_qp_off, 0, 51)]
+    qp_l = torch.cat([qp[:, :, :1], qp[:, :, :-1]], dim=2)
+    qp_t = torch.cat([qp[:, :1, :], qp[:, :-1, :]], dim=1)
+    qpc_l = torch.cat([qpc[:, :, :1], qpc[:, :, :-1]], dim=2)
+    qpc_t = torch.cat([qpc[:, :1, :], qpc[:, :-1, :]], dim=1)
+
+    bx, by, cbx, cby = mc_grids(gw, gh, dev)
+    inter_mask = (kind >= 3) & (kind != 8)
+    my_ = inter_mask.repeat_interleave(16, -2).repeat_interleave(16, -1)
+    mc_ = inter_mask.repeat_interleave(8, -2).repeat_interleave(8, -1)
+    wp_l = fld("wp_l").reshape(K, gh, gw, 2, 2, 3) \
+        .repeat_interleave(2, 3).repeat_interleave(2, 4).reshape(K, N, 3)
+    wp_c = fld("wp_c").reshape(K, gh, gw, 2, 2, 2, 3) \
+        .repeat_interleave(2, 3).repeat_interleave(2, 4).reshape(K, N, 2, 3)
+    mvf_all = mv.reshape(K, N, 2)
+    slot_all = ref44.reshape(K, N)
+    kint_all = torch.where(kind == 0, 0, torch.where(kind == 1, 1, 2))
+
+    outs = []
+    Hp, Wp = H + 2 * PAD, W + 2 * PAD
+    Hcp, Wcp = H // 2 + 2 * PAD, W // 2 + 2 * PAD
+    for k in range(K):
+        mvf, slot = mvf_all[k], slot_all[k]
+        ry, rc = res_y[k], res_c[k]
+        pY = mc_luma_plane(ringY, slot, bx, by, mvf[:, 0], mvf[:, 1],
+                           wp_l[k], gw, gh)
+        pU = mc_chroma_plane(ringU, slot, cbx, cby, mvf[:, 0], mvf[:, 1],
+                             wp_c[k][:, 0], gw, gh)
+        pV = mc_chroma_plane(ringV, slot, cbx, cby, mvf[:, 0], mvf[:, 1],
+                             wp_c[k][:, 1], gw, gh)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        planes = tuple(
+            torch.nn.functional.pad(
+                torch.where(msk, torch.clamp(p + r, 0, 255), zero),
+                (PAD, PAD, PAD, PAD))
+            for p, r, msk in ((pY, ry, my_[k]), (pU, rc[0], mc_[k]),
+                              (pV, rc[1], mc_[k])))
+        if has_intra[k]:
+            planes = intra_reconstruct(
+                planes, ry.reshape(gh, 16, gw, 16).permute(0, 2, 1, 3),
+                rc.reshape(2, gh, 8, gw, 8).permute(1, 3, 0, 2, 4),
+                kint_all[k], fld("i16_mode")[k], fld("i4_modes")[k],
+                fld("chroma_mode")[k], fld("avail_l")[k] != 0,
+                fld("avail_t")[k] != 0, fld("avail_tr")[k] != 0,
+                gw=gw, gh=gh)
+        y2p, u2p, v2p = deblock_frame_s1(
+            planes, bs_v[k], bs_h[k], qp[k], qp_l[k], qp_t[k], qpc[k],
+            qpc_l[k], qpc_t[k], fld("alpha_off")[k], fld("beta_off")[k],
+            gw=gw, gh=gh)
+        y2 = y2p[PAD:PAD + H, PAD:PAD + W]
+        u2 = u2p[PAD:PAD + H // 2, PAD:PAD + W // 2]
+        v2 = v2p[PAD:PAD + H // 2, PAD:PAD + W // 2]
+        uv = torch.stack([u2, v2], dim=1).reshape(H // 2, W)
+        outs.append(torch.cat([y2, uv], dim=0).to(torch.uint8))
+
+        ws = write_slot[k]
+        ringY[ws].zero_()
+        ringY[ws, :, :Hp, :Wp] = halfpel_planes(_edge_pad2(y2, PAD)) \
+            .to(torch.uint8)
+        for ring, c in ((ringU, u2), (ringV, v2)):
+            ring[ws].zero_()
+            ring[ws, :Hcp, :Wcp] = _edge_pad2(c, PAD).to(torch.uint8)
+    return torch.stack(outs), ringY, ringU, ringV
+
+
+def split_gop_out(a: np.ndarray, gw: int, gh: int) -> np.ndarray:
+    """Host: one (H*3//2, W) uint8 row of the batch -> packed I420."""
+    H, W = gh * 16, gw * 16
+    y = a[:H]
+    uv = a[H:].reshape(H // 2, 2, W // 2)
+    return np.concatenate([y.ravel(), uv[:, 0].ravel(), uv[:, 1].ravel()])

@@ -63,3 +63,9 @@ def ref_tables_header():
     if not p.exists():
         pytest.skip("reference headers unavailable")
     return p.read_text(errors="replace")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit; "
+        "skipped where torch sees no CUDA device")

@@ -1,0 +1,106 @@
+"""Whole-decode tests of the PyTorch port against the JAX package.
+
+- A 64x48x5 stream encoded by ``hartallo_tpu`` decodes to the same bytes
+  through both packages.
+- The fixtures in tests/data/port (written by tools/make_port_fixtures.py
+  from ``hartallo_tpu``) decode to the recorded per-frame MD5s.
+- A port decode runs without jax in ``sys.modules``.
+
+Tolerance: exact equality, since this is an integer codec.
+"""
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from _torch_port import cuda_device, encode_clip, load_fixture  # noqa: F401
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _port_decode(stream, device="cpu"):
+    from hartallo_tpu_torch.api import Codec, CodecConfig
+    codec = Codec(CodecConfig(), device=device)
+    return codec.decode_annexb(stream, tolerant=False), codec.decoder.stats
+
+
+def test_port_decode_equals_jax_decode():
+    from hartallo_tpu.api import Codec, CodecConfig
+    stream = encode_clip()
+    want = Codec(CodecConfig()).decode_annexb(stream, tolerant=False)
+    got, stats = _port_decode(stream)
+    assert len(got) == len(want) == 5
+    # every picture (the I picture and intra-in-P included) takes the
+    # kernel route, here its plain twin on the CPU
+    assert stats == {"kernel_pictures": 5, "scan_pictures": 0}
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert (a.width, a.height, a.poc) == (b.width, b.height, b.poc)
+        np.testing.assert_array_equal(a.frame, b.frame, err_msg=f"frame {i}")
+
+
+# the bench clip, then the stream classes of the batched path (slices,
+# FMO, no deblocking across slice edges, non-reference pictures)
+SMALL = ["qcif_8", "cif_16", "qcif_6_slices3", "qcif_6_fmo1",
+         "qcif_6_idc2", "qcif_6_tl2"]
+
+
+@pytest.mark.parametrize("name", SMALL)
+def test_fixture_decodes_to_recorded_md5(name):
+    from hartallo_tpu.util.checks import plane_md5
+    stream, meta = load_fixture(name)
+    out, stats = _port_decode(stream)
+    assert [plane_md5(r.frame) for r in out] == meta["frame_md5"]
+    assert stats == {"kernel_pictures": meta["frames"], "scan_pictures": 0}
+
+
+def test_scan_route_decodes_fixture(monkeypatch):
+    """With the kernel refusing every picture, the GOP scan decodes the
+    whole stream to the same bytes."""
+    from hartallo_tpu.util.checks import plane_md5
+    from hartallo_tpu_torch.decode import d_pool
+    monkeypatch.setattr(d_pool, "eligible", lambda sd, wp: "refused")
+    stream, meta = load_fixture("qcif_6_slices3")
+    out, stats = _port_decode(stream)
+    assert [plane_md5(r.frame) for r in out] == meta["frame_md5"]
+    assert stats == {"kernel_pictures": 0, "scan_pictures": meta["frames"]}
+
+
+def test_port_decode_imports_no_jax():
+    code = (
+        "import sys\n"
+        "from hartallo_tpu_torch.api import Codec, CodecConfig\n"
+        "s = open('tests/data/port/qcif_8.264', 'rb').read()\n"
+        "out = Codec(CodecConfig(), device='cpu').decode_annexb(s)\n"
+        "assert len(out) == 8, len(out)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib']\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_unported_paths_raise():
+    from hartallo_tpu_torch.api import Codec, CodecConfig
+    codec = Codec(CodecConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder not ported"):
+        codec.encode(np.zeros(6 * 16 * 16 // 4, np.uint8), 16, 16)
+    # an SVC subset SPS raises even in tolerant mode
+    with pytest.raises(NotImplementedError, match="SVC"):
+        codec.decode_annexb(b"\x00\x00\x00\x01\x6f\x53\x00\x1e\xab",
+                            tolerant=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SMALL + ["720p_8"])
+def test_cuda_decode_matches_recorded_md5(cuda_device, name):
+    from hartallo_tpu.util.checks import plane_md5
+    stream, meta = load_fixture(name)
+    out, stats = _port_decode(stream, cuda_device)
+    assert [plane_md5(r.frame) for r in out] == meta["frame_md5"]
+    assert stats["kernel_pictures"] >= 1
+    assert sum(stats.values()) == meta["frames"]
