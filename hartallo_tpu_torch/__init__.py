@@ -2,11 +2,12 @@
 PyTorch and CUDA.
 
 The module paths mirror ``hartallo_tpu``'s.  Host code that imports no
-JAX (bit I/O, CAVLC, the C slice parser, parameter sets, slice headers,
-MV derivation, DPB, POC, FMO, the API dataclasses) is imported from
-``hartallo_tpu``; pixel work runs on torch tensors on an explicit device,
-and the whole-GOP decode kernel is hand-written CUDA for Hopper
-(``csrc/``, built by ``kernels``).  This package never imports jax.
+JAX (bit I/O, CAVLC, the C slice parser and packer, parameter sets,
+slice headers, MV derivation, DPB, POC, FMO, rate control, the API
+dataclasses) is imported from ``hartallo_tpu``; pixel work runs on torch
+tensors on an explicit device, and the whole-GOP decode kernel and the
+frame deblock kernel are hand-written CUDA for Hopper (``csrc/``, built by
+``kernels``).  This package never imports jax.
 
 Public API: ``hartallo_tpu_torch.api.Codec(config, device=...)``.
 """

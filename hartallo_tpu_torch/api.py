@@ -1,8 +1,8 @@
-"""Public API of the port: the decode side of ``hartallo_tpu.api.Codec``.
+"""Public API of the port: ``hartallo_tpu.api.Codec`` for single-layer AVC.
 
-``CodecConfig`` and ``DecodeResult`` are the JAX package's own
-dataclasses.  The device is explicit: every tensor the codec makes lives
-on ``device``.
+``CodecConfig``, ``DecodeResult`` and ``EncodeResult`` are the JAX
+package's own dataclasses.  The device is explicit: every tensor the codec
+makes lives on ``device``.
 """
 from __future__ import annotations
 
@@ -17,8 +17,9 @@ class Codec:
     """H.264 AVC codec instance on one torch device.
 
     ``decode(nal)`` consumes one NAL unit (no start code);
-    ``decode_annexb(stream)`` a whole Annex-B stream.  Encoding is not
-    ported yet."""
+    ``decode_annexb(stream)`` a whole Annex-B stream; ``encode(frame)``
+    one I420 frame and ``encode_frames(frames)`` a sequence of them.  SVC
+    (several spatial or quality layers) is not ported yet."""
 
     def __init__(self, config: Optional[CodecConfig] = None, *, device):
         self.config = config or CodecConfig()
@@ -26,6 +27,7 @@ class Codec:
             raise NotImplementedError("SVC decode window not ported")
         self.device = device
         self._decoder = None
+        self._encoder = None
 
     @property
     def decoder(self):
@@ -47,10 +49,25 @@ class Codec:
         return self.decoder.decode_annexb(data, tolerant=tolerant)
 
     # -- encode -----------------------------------------------------------
+    @property
+    def encoder(self):
+        if self._encoder is None:
+            if len(self.config.layers) >= 2 or \
+                    self.config.quality_layers >= 2:
+                raise NotImplementedError("SVC encoder not ported yet")
+            from hartallo_tpu_torch.encode.encoder import Encoder
+            self._encoder = Encoder(self.config, device=self.device)
+        return self._encoder
+
     def encode(self, frame: np.ndarray, width: int = 0,
                height: int = 0) -> EncodeResult:
-        raise NotImplementedError("encoder not ported yet")
+        return self.encoder.encode_frame(frame, width or self.config.width,
+                                         height or self.config.height)
 
     def encode_frames(self, frames, width: int = 0,
                       height: int = 0) -> List[EncodeResult]:
-        raise NotImplementedError("encoder not ported yet")
+        """Multi-frame encode: the device work of every picture is issued
+        before the host packs the first one."""
+        return self.encoder.encode_frames(frames,
+                                          width or self.config.width,
+                                          height or self.config.height)

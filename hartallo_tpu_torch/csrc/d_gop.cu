@@ -19,12 +19,12 @@
 //            depends on the ones before it, and the 16 Intra4x4 blocks of
 //            an MB on each other); __syncwarp orders the steps.  Integer
 //            mode tables, no float.
-//   deblock  one block of 1024 threads walks the MB anti-diagonals
-//            d = mx + my; per diagonal every thread filters whole lines of
-//            the V edges of its MB (edges in order), __syncthreads, then
-//            the H edges, __syncthreads.  One block and a barrier per
-//            phase costs far less than two launches per diagonal (the
-//            other way to order the phases): 720p has 124 diagonals.
+//   deblock  k_deblock of deblock_wavefront.cuh: one block of 1024
+//            threads walks the MB anti-diagonals d = mx + my, V edges then
+//            H edges of a diagonal with a __syncthreads after each phase.
+//            One block and a barrier per phase costs far less than two
+//            launches per diagonal (the other way to order the phases):
+//            720p has 124 diagonals.
 //   half-pel one thread per sample of the padded luma plane computes G and
 //            the b/h/j 6-tap grids straight from the deblocked picture
 //            with clamped coordinates, and writes them to the ring slot.
@@ -37,13 +37,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "deblock_filters.cuh"
+#include "deblock_wavefront.cuh"
 
 namespace {
 
-constexpr int PAD = 32;
-constexpr int NAUX = 62;
-constexpr int AUX_BS = 30;
+using hl::NAUX;
+using hl::PAD;
 __constant__ int TAPS[6] = {1, -5, 20, 20, -5, 1};
 
 // stage bits (the Python wrapper maps the stage letters onto them)
@@ -280,76 +279,6 @@ __global__ void k_intra(const int32_t* __restrict__ sf,
 }
 
 // ---------------------------------------------------------------------------
-// Deblock: slope-1 wavefront, V phase then H phase per diagonal.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ int tc0_of(const int16_t* a, int it, int bs) {
-  return bs <= 0 ? 0 : a[it + (bs >= 3 ? 2 : bs - 1)];
-}
-
-__device__ void deblock_line(int32_t* P, int stride, int y0, int x0,
-                             int line, bool vertical, bool luma,
-                             const int16_t* a) {
-  // (dy, dx): step along the line's samples; the line sits at `line`
-  const int sy = vertical ? 0 : 1, sx = vertical ? 1 : 0;
-  const int ly = vertical ? line : 0, lx = vertical ? 0 : line;
-  const int bsb = AUX_BS + (vertical ? 0 : 16);
-  if (luma) {
-    const int seg = line >> 2;
-    for (int e = 0; e < 4; ++e) {
-      const int ia = e == 0 ? (vertical ? 0 : 2) : 4;
-      const int it = e == 0 ? (vertical ? 12 : 15) : 18;
-      const int bs = a[bsb + 4 * e + seg];
-      int v[8];
-      int32_t* base = P + (size_t)(y0 + ly + sy * (4 * e - 4)) * stride +
-                      (x0 + lx + sx * (4 * e - 4));
-      const size_t step = (size_t)sy * stride + sx;
-      for (int k = 0; k < 8; ++k) v[k] = base[k * step];
-      hl::filter_luma(v, v + 4, bs, a[ia], a[ia + 1], tc0_of(a, it, bs));
-      for (int k = 1; k < 7; ++k) base[k * step] = v[k];
-    }
-  } else {
-    const int seg = line >> 1;
-    for (int e = 0; e < 2; ++e) {
-      const int ia = e == 0 ? (vertical ? 6 : 8) : 10;
-      const int it = e == 0 ? (vertical ? 21 : 24) : 27;
-      const int bs = a[bsb + 8 * e + seg];
-      int v[4];
-      int32_t* base = P + (size_t)(y0 + ly + sy * (4 * e - 2)) * stride +
-                      (x0 + lx + sx * (4 * e - 2));
-      const size_t step = (size_t)sy * stride + sx;
-      for (int k = 0; k < 4; ++k) v[k] = base[k * step];
-      hl::filter_chroma(v, v + 2, bs, a[ia], a[ia + 1], tc0_of(a, it, bs));
-      base[step] = v[1];
-      base[2 * step] = v[2];
-    }
-  }
-}
-
-__global__ void k_deblock(const int16_t* __restrict__ aux, int32_t* py,
-                          int32_t* pu, int32_t* pv, Geo g) {
-  const int D = g.gw + g.gh - 1;
-  for (int d = 0; d < D; ++d) {
-    const int my_lo = d - (g.gw - 1) > 0 ? d - (g.gw - 1) : 0;
-    const int my_hi = d < g.gh - 1 ? d : g.gh - 1;
-    const int items = (my_hi - my_lo + 1) * 32;
-    for (int phase = 0; phase < 2; ++phase) {
-      const bool vertical = phase == 0;
-      for (int t = threadIdx.x; t < items; t += blockDim.x) {
-        const int my = my_lo + t / 32, sub = t % 32, mx = d - my;
-        const int16_t* a = aux + (size_t)(my * g.gw + mx) * NAUX;
-        if (sub < 16)
-          deblock_line(py, g.Wp, PAD + my * 16, PAD + mx * 16, sub,
-                       vertical, true, a);
-        else
-          deblock_line(sub < 24 ? pu : pv, g.Wcp, PAD + my * 8,
-                       PAD + mx * 8, (sub - 16) & 7, vertical, false, a);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Half-pel stack [G, b, h, j] of the edge-padded luma, and the padded
 // chroma, into ring slot wslot; cropped output row.
 // ---------------------------------------------------------------------------
@@ -480,8 +409,8 @@ extern "C" int hl_decode_gop(
       HL_CHECK();
     }
     if (stages & ST_DEBLOCK) {
-      k_deblock<<<1, 1024, 0, stream>>>(aux + (size_t)k * nMB * NAUX, py, pu,
-                                        pv, g);
+      hl::k_deblock<<<1, 1024, 0, stream>>>(aux + (size_t)k * nMB * NAUX, py,
+                                            pu, pv, gw, gh, g.Wp, g.Wcp);
       HL_CHECK();
     }
     k_halfpel<<<blocks((long)g.Hp * g.Wp, T), T, 0, stream>>>(

@@ -6,6 +6,10 @@ Python loop walks the pictures in decode order with the DPB held as a
 ring of reference slots, each slot the four half-pel grids [G, b, h, j]
 of one picture plus its padded chroma.  This is the route of the pictures
 the whole-GOP kernel (``d_gop_fast``) refuses, as in the JAX package.
+Each picture's deblock is ``ops/deblock_fast.deblock_frame_fast``: one
+launch of the CUDA wavefront kernel on a CUDA device (the JAX package
+runs the Pallas ``deblock_frame_pl`` here on a TPU), its plain twin on
+the CPU.
 
 Reference counterpart: the per-picture decode driver
 ``hl_codec_264_decode_avc.c:55-263``.
@@ -18,10 +22,10 @@ import torch
 from hartallo_tpu.core.tables import QP_SCALE_CHROMA
 from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
 from hartallo_tpu_torch.decode.intra_recon import PAD, intra_reconstruct
-from hartallo_tpu_torch.ops.deblock import deblock_frame_s1
-from hartallo_tpu_torch.ops.wide import (_edge_pad, compute_bs_grids,
-                                         halfpel_planes, mc_chroma_plane,
-                                         mc_grids, mc_luma_plane,
+from hartallo_tpu_torch.ops.deblock_fast import deblock_frame_fast
+from hartallo_tpu_torch.ops.wide import (compute_bs_grids, halfpel_planes,
+                                         mc_chroma_plane, mc_grids,
+                                         mc_luma_plane, pad_edge,
                                          residual_planes_wide)
 
 _OFF = {}
@@ -51,10 +55,6 @@ def ring_shapes(gw: int, gh: int, S: int):
 
     return ((S, 4, Hp + 32, rnd(Wp)), (S, Hc + 32, rnd(Wc)),
             (S, Hc + 32, rnd(Wc)))
-
-
-def _edge_pad2(x: torch.Tensor, n: int) -> torch.Tensor:
-    return _edge_pad(_edge_pad(x, n, n, 0), n, n, 1)
 
 
 def decode_gop(packed, write_slot, has_intra, ringY, ringU, ringV,
@@ -151,7 +151,7 @@ def decode_gop(packed, write_slot, has_intra, ringY, ringU, ringV,
                 fld("chroma_mode")[k], fld("avail_l")[k] != 0,
                 fld("avail_t")[k] != 0, fld("avail_tr")[k] != 0,
                 gw=gw, gh=gh)
-        y2p, u2p, v2p = deblock_frame_s1(
+        y2p, u2p, v2p = deblock_frame_fast(
             planes, bs_v[k], bs_h[k], qp[k], qp_l[k], qp_t[k], qpc[k],
             qpc_l[k], qpc_t[k], fld("alpha_off")[k], fld("beta_off")[k],
             gw=gw, gh=gh)
@@ -163,11 +163,11 @@ def decode_gop(packed, write_slot, has_intra, ringY, ringU, ringV,
 
         ws = write_slot[k]
         ringY[ws].zero_()
-        ringY[ws, :, :Hp, :Wp] = halfpel_planes(_edge_pad2(y2, PAD)) \
+        ringY[ws, :, :Hp, :Wp] = halfpel_planes(pad_edge(y2)) \
             .to(torch.uint8)
         for ring, c in ((ringU, u2), (ringV, v2)):
             ring[ws].zero_()
-            ring[ws, :Hcp, :Wcp] = _edge_pad2(c, PAD).to(torch.uint8)
+            ring[ws, :Hcp, :Wcp] = pad_edge(c).to(torch.uint8)
     return torch.stack(outs), ringY, ringU, ringV
 
 

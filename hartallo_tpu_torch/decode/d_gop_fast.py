@@ -39,8 +39,8 @@ from hartallo_tpu_torch.ops import intra as _intra
 from hartallo_tpu_torch.ops.deblock import NAUX, deblock_filter
 from hartallo_tpu_torch.ops.intra import (pred16x16_all, pred4x4_all,
                                           pred_chroma_all)
-from hartallo_tpu_torch.ops.wide import _RASTER_TO_BLK, _edge_pad, \
-    halfpel_planes
+from hartallo_tpu_torch.ops.wide import _RASTER_TO_BLK, halfpel_planes, \
+    pad_edge
 
 SF = 8               # sf words per picture
 SI = 4               # ilist words per intra MB
@@ -312,10 +312,6 @@ def _intra_plain(ilist_k, ivals_k, n_imb, py, pu, pv, gw):
             plane[y0c:y0c + 8, x0c:x0c + 8] = torch.clamp(pred + res, 0, 255)
 
 
-def _edge_pad2(x: torch.Tensor, n: int) -> torch.Tensor:
-    return _edge_pad(_edge_pad(x, n, n, 0), n, n, 1)
-
-
 def decode_gop_fast_plain(smb, aux, sf, tags, vals, ilist, ivals,
                           ringY, ringU, ringV, *, gw: int, gh: int,
                           stages: str = "mriwdsoh"):
@@ -345,7 +341,7 @@ def decode_gop_fast_plain(smb, aux, sf, tags, vals, ilist, ivals,
             _intra_plain(ilist[k], ivals[k], n_imb, py, pu, pv, gw)
         if mask & 8:
             deblock_filter((py, pu, pv), aux[k], gw=gw, gh=gh)
-        G = _edge_pad2(py[PAD:PAD + H, PAD:PAD + W], PAD)
+        G = pad_edge(py[PAD:PAD + H, PAD:PAD + W])
         if mask & 16:
             hp = halfpel_planes(G)
         else:
@@ -355,8 +351,7 @@ def decode_gop_fast_plain(smb, aux, sf, tags, vals, ilist, ivals,
         ringY[wslot, :, :Hp, :Wp] = hp.to(torch.uint8)
         for ring, plane in ((ringU, pu), (ringV, pv)):
             ring[wslot, :Hcp, :Wcp] = \
-                _edge_pad2(plane[PAD:PAD + Hc, PAD:PAD + Wc], PAD) \
-                .to(torch.uint8)
+                pad_edge(plane[PAD:PAD + Hc, PAD:PAD + Wc]).to(torch.uint8)
         out[k, :H] = py[PAD:PAD + H, PAD:PAD + W].to(torch.uint8)
         out[k, H:, :Wc] = pu[PAD:PAD + Hc, PAD:PAD + Wc].to(torch.uint8)
         out[k, H:, Wc:] = pv[PAD:PAD + Hc, PAD:PAD + Wc].to(torch.uint8)

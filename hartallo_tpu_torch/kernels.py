@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
-Hopper (``sm_90a``) into a shared library with a plain C interface,
-``build/kernels/libhl_kernels.so`` in the checkout, and loaded with
-``ctypes`` (the way ``hartallo_tpu/native`` loads its C parser).  A build
-that exists and is newer than every source is reused.  A failed build
-raises; there is no fallback.
+Each source under ``csrc/`` is compiled at first use with its own ``nvcc``
+for Hopper (``sm_90a``), all of them at once, and the objects are linked
+into one shared library with a plain C interface,
+``build/kernels/libhl_kernels.so`` in the checkout, loaded with ``ctypes``
+(the way ``hartallo_tpu/native`` loads its C parser).  A build that exists
+and is newer than every source is reused.  A failed build raises; there
+is no fallback.
 """
 from __future__ import annotations
 
@@ -19,9 +20,9 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "kernels"
 LIB = BUILD_DIR / "libhl_kernels.so"
-SOURCES = ("d_gop.cu",)
+SOURCES = ("d_gop.cu", "deblock.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 BUILD_LOG = ""       # nvcc's output of the last build in this process
 _lib = None
@@ -38,6 +39,15 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or in /usr/local/cuda/bin)")
 
 
+def _run(cmds):
+    """Run the commands in parallel; returns their (returncode, output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    return [(p.returncode, out) for p, out in
+            ((p, p.communicate()[0]) for p in procs)]
+
+
 def build() -> pathlib.Path:
     """Compile csrc/ into LIB unless an up-to-date build exists."""
     global BUILD_LOG
@@ -46,14 +56,27 @@ def build() -> pathlib.Path:
                             for p in inputs):
         return LIB
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB.with_name(f"{LIB.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(_CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, LIB)
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f"{s}.{tag}.o" for s in SOURCES]
+    results = _run([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                     str(o), str(_CSRC / s)]
+                    for s, o in zip(SOURCES, objs)])
+    BUILD_LOG = "".join(f"== {s}\n{out}" for s, (_, out) in
+                        zip(SOURCES, results))
+    tmp = LIB.with_name(f"{LIB.name}.{tag}.tmp")
+    try:
+        for s, (rc, _) in zip(SOURCES, results):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({rc}):\n{BUILD_LOG}")
+        [(rc, out)] = _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                             *map(str, objs)]])
+        BUILD_LOG += f"== link\n{out}"
+        if rc != 0:
+            raise RuntimeError(f"nvcc link failed ({rc}):\n{BUILD_LOG}")
+        os.replace(tmp, LIB)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return LIB
 
 
@@ -65,6 +88,8 @@ def load():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.hl_decode_gop.restype = I
         lib.hl_decode_gop.argtypes = [P] * 15 + [I] * 10 + [P]
+        lib.hl_deblock_frame.restype = I
+        lib.hl_deblock_frame.argtypes = [P] * 4 + [I] * 2 + [P]
         lib.hl_cuda_error_string.restype = ctypes.c_char_p
         lib.hl_cuda_error_string.argtypes = [I]
         _lib = lib

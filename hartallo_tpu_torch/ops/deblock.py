@@ -21,12 +21,14 @@ package's tests pin it equal to the slope-1 schedule.
 """
 from __future__ import annotations
 
-import numpy as np
+from functools import lru_cache
+
 import torch
 
 from hartallo_tpu.core.tables import DEBLOCK_ALPHA, DEBLOCK_BETA, \
     DEBLOCK_TC0
 from hartallo_tpu_torch.ops.wavefront import skew1_geometry
+from hartallo_tpu_torch.ops.wide import compute_bs_grids
 
 PAD = 32
 NAUX = 62
@@ -96,8 +98,34 @@ def _filter_chroma_line(p1, p0, q0, q1, bs, alpha, beta, tc0):
 
 
 # ---------------------------------------------------------------------------
+# Boundary strengths (per-MB form)
+# ---------------------------------------------------------------------------
+
+def compute_bs(mb_is_intra, nnz, mv, ref, filter_mb_edge_v, filter_mb_edge_h,
+               filter_internal):
+    """bS per 4x4-block edge, the JAX ``compute_bs``: mb_is_intra and the
+    filter flags (gh, gw) bool; nnz, ref (4gh, 4gw); mv (4gh, 4gw, 2).
+    Returns bs_v, bs_h (gh, gw, 4, 4) [edge][segment].  It is
+    ``ops/wide.compute_bs_grids`` with its grids regrouped per MB."""
+    gh, gw = mb_is_intra.shape
+    bs_vg, bs_hg = compute_bs_grids(mb_is_intra, nnz, mv, ref,
+                                    filter_mb_edge_v, filter_mb_edge_h,
+                                    filter_internal)
+    return (bs_vg.reshape(gh, 4, gw, 4).permute(0, 2, 3, 1),
+            bs_hg.reshape(gh, 4, gw, 4).permute(0, 2, 1, 3))
+
+
+# ---------------------------------------------------------------------------
 # Parameter gather
 # ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _threshold_tables(device):
+    """(alpha, beta, tc0) tables of 8.7.2.2 as int32 on ``device``, made
+    once per device.  Shared: never written."""
+    return tuple(torch.as_tensor(t, dtype=torch.int32, device=device)
+                 for t in (DEBLOCK_ALPHA, DEBLOCK_BETA, DEBLOCK_TC0))
+
 
 def edge_params(bs_v, bs_h, qp_y, qp_left, qp_top, qpc_cur, qpc_left,
                 qpc_top, alpha_off, beta_off) -> torch.Tensor:
@@ -111,10 +139,7 @@ def edge_params(bs_v, bs_h, qp_y, qp_left, qp_top, qpc_cur, qpc_left,
     e0v/e0h are the MB's left/top edge (averaged QP), i its internal
     edges; t* are tc0 for bS 1, 2, 3.  bs_v/bs_h (gh, gw, 4, 4)
     [edge][segment]; the QP and offset maps (gh, gw)."""
-    dev = qp_y.device
-    alpha_t = torch.as_tensor(DEBLOCK_ALPHA, dtype=torch.int32, device=dev)
-    beta_t = torch.as_tensor(DEBLOCK_BETA, dtype=torch.int32, device=dev)
-    tc0_t = torch.as_tensor(DEBLOCK_TC0, dtype=torch.int32, device=dev)
+    alpha_t, beta_t, tc0_t = _threshold_tables(qp_y.device)
     offa = alpha_off.to(torch.int32)
     offb = beta_off.to(torch.int32)
 

@@ -9,6 +9,8 @@ computed directly.  All math is int32.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -111,6 +113,16 @@ def _mode_tables():
 _IDX, _WGT, _RND, _SHT = _mode_tables()
 
 
+@lru_cache(maxsize=None)
+def _mode_bank(device):
+    """(index int64, weight, round, shift) tables on ``device``, made once
+    per device.  Shared: never written."""
+    return (torch.as_tensor(_IDX, dtype=torch.long, device=device),
+            torch.as_tensor(_WGT, device=device),
+            torch.as_tensor(_RND, device=device),
+            torch.as_tensor(_SHT, device=device))
+
+
 def _dc(at, al, tsum, lsum, both_sh, one_sh):
     """DC rule shared by the three banks: the average of the available
     edges, 128 when neither is available."""
@@ -128,13 +140,10 @@ def _flag(a, like: torch.Tensor) -> torch.Tensor:
 def pred4x4_all(top, left, tl, avail_top, avail_left) -> torch.Tensor:
     """All 9 Intra4x4 modes; top (..., 8) with the top-right already
     substituted, left (..., 4), tl (...,).  Returns (..., 9, 4, 4)."""
-    dev = top.device
+    idx, wgt, rnd, sht = _mode_bank(top.device)
     s = torch.cat([left.flip(-1), tl[..., None], top], dim=-1) \
         .to(torch.int32)
-    g = s[..., torch.as_tensor(_IDX, dtype=torch.long, device=dev)]
-    bank = ((g * torch.as_tensor(_WGT, device=dev)).sum(-1) +
-            torch.as_tensor(_RND, device=dev)) >> \
-        torch.as_tensor(_SHT, device=dev)
+    bank = ((s[..., idx] * wgt).sum(-1) + rnd) >> sht
     tsum = top[..., :4].to(torch.int32).sum(-1)
     lsum = left.to(torch.int32).sum(-1)
     dc = _dc(_flag(avail_top, top), _flag(avail_left, top), tsum, lsum, 3, 2)

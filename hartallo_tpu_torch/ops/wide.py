@@ -29,6 +29,11 @@ def _edge_pad(x: torch.Tensor, before: int, after: int,
     return x.index_select(dim, idx)
 
 
+def pad_edge(x: torch.Tensor, n: int = PAD) -> torch.Tensor:
+    """Edge-replicate pad of a 2-D plane by n on every side."""
+    return _edge_pad(_edge_pad(x, n, n, 0), n, n, 1)
+
+
 def _conv6(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Unrounded 6-tap along ``dim``; x (..., n+5, ...) -> (..., n, ...)."""
     n = x.shape[dim] - 5

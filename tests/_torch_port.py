@@ -55,3 +55,14 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is "
                     "False")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's eager torch work on one CPU thread: the port's
+    encoder is thousands of small ops, which several test workers with a
+    thread pool each slow down many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

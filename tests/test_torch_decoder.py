@@ -4,7 +4,7 @@
   through both packages.
 - The fixtures in tests/data/port (written by tools/make_port_fixtures.py
   from ``hartallo_tpu``) decode to the recorded per-frame MD5s.
-- A port decode runs without jax in ``sys.modules``.
+- A port encode and decode run without jax in ``sys.modules``.
 
 Tolerance: exact equality, since this is an integer codec.
 """
@@ -70,10 +70,15 @@ def test_scan_route_decodes_fixture(monkeypatch):
 def test_port_decode_imports_no_jax():
     code = (
         "import sys\n"
+        "from bench import make_clip\n"
         "from hartallo_tpu_torch.api import Codec, CodecConfig\n"
-        "s = open('tests/data/port/qcif_8.264', 'rb').read()\n"
+        "s = open('tests/data/port/qcif_6.264', 'rb').read()\n"
+        "enc = Codec(CodecConfig(width=176, height=144, qp=30, gop_size=6,\n"
+        "                        deblock=True, me_range=12), device='cpu')\n"
+        "res = enc.encode_frames(make_clip(176, 144, 6))\n"
+        "assert b''.join(r.headers + r.data for r in res) == s\n"
         "out = Codec(CodecConfig(), device='cpu').decode_annexb(s)\n"
-        "assert len(out) == 8, len(out)\n"
+        "assert len(out) == 6, len(out)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib']\n"
         "assert not bad, bad\n"
@@ -86,9 +91,12 @@ def test_port_decode_imports_no_jax():
 
 def test_unported_paths_raise():
     from hartallo_tpu_torch.api import Codec, CodecConfig
+    svc = Codec(CodecConfig(width=16, height=16, quality_layers=2),
+                device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="SVC encoder not ported yet"):
+        svc.encode(np.zeros(6 * 16 * 16 // 4, np.uint8), 16, 16)
     codec = Codec(CodecConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder not ported"):
-        codec.encode(np.zeros(6 * 16 * 16 // 4, np.uint8), 16, 16)
     # an SVC subset SPS raises even in tolerant mode
     with pytest.raises(NotImplementedError, match="SVC"):
         codec.decode_annexb(b"\x00\x00\x00\x01\x6f\x53\x00\x1e\xab",
