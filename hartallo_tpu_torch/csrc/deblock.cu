@@ -1,4 +1,4 @@
-// Standalone frame deblock for Hopper (sm_90a): the slope-1 wavefront of
+// Standalone frame deblock for Hopper (sm_90a): the row wavefront of
 // deblock_wavefront.cuh over one picture's PAD-padded int32 planes.
 //
 // Replaces the Pallas TPU kernel deblock_frame_pl / _kernel of
@@ -9,22 +9,23 @@
 // per-MB `aux` rows of hartallo_tpu_torch/ops/deblock.edge_params (the
 // pre-gather of _edge_params), as int16.
 //
-// What bounds it on the H100: one block and 2 (gw + gh - 1) barriers, so
-// latency, not bytes: a 720p picture is 124 diagonals, 1080p 187.
+// What bounds it on the H100: bytes (the planes read and written once,
+// about 13.6 MB a 720p frame with aux, 4 us); the design that meets
+// latency instead (one warp per MB row, a lag of two MBs between rows,
+// each MB filtered in shared memory) is described in
+// deblock_wavefront.cuh.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "deblock_wavefront.cuh"
 
-// Plain C entry point (loaded with ctypes).  aux (gh, gw, NAUX) int16 and
+// Plain C entry point (loaded with ctypes).  aux (gh, gw, NAUX) int16,
 // the planes Y (16 gh + 64, 16 gw + 64), U and V (8 gh + 64, 8 gw + 64)
-// int32 are device memory the caller allocated and checked; the planes
-// are filtered in place.  Returns 0 or the CUDA error code of the launch.
+// int32 and prog (gh zeroed ints) are device memory the caller allocated
+// and checked; the planes are filtered in place.  Returns 0 or the CUDA
+// error code of the launch.
 extern "C" int hl_deblock_frame(const int16_t* aux, int32_t* py, int32_t* pu,
-                                int32_t* pv, int gw, int gh,
+                                int32_t* pv, int* prog, int gw, int gh,
                                 cudaStream_t stream) {
-  hl::k_deblock<<<1, 1024, 0, stream>>>(aux, py, pu, pv, gw, gh,
-                                        gw * 16 + 2 * hl::PAD,
-                                        gw * 8 + 2 * hl::PAD);
-  return (int)cudaGetLastError();
+  return (int)hl::launch_deblock(aux, py, pu, pv, prog, gw, gh, stream);
 }

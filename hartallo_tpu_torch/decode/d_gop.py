@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hartallo_tpu.core.tables import QP_SCALE_CHROMA
+from hartallo_tpu_torch.core.tables import QP_SCALE_CHROMA
 from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
 from hartallo_tpu_torch.decode.intra_recon import PAD, intra_reconstruct
 from hartallo_tpu_torch.ops.deblock_fast import deblock_frame_fast

@@ -44,6 +44,10 @@ from hartallo_tpu_torch.ops.wide import _RASTER_TO_BLK, halfpel_planes, \
 
 SF = 8               # sf words per picture
 SI = 4               # ilist words per intra MB
+# the kernel's intra schedule holds gw + 2 gh - 2 slope-2 steps and gw gh
+# intra MBs in shared memory (1920x1088: 254 and 8160)
+MAX_STEPS = 256
+MAX_INTRA = 8192
 
 LAUNCHES = 0         # pictures decoded by the CUDA kernel in this process
 
@@ -70,7 +74,8 @@ def stack_payload(frames, nr: int = 0, ni: int = 0):
     vals, ilist, ivals.  nr/ni: residual-pool and intra-list capacity;
     at least each picture's count (default: the batch maximum, >= 1).
     The Pallas kernel needs the JAX package's capacities (256 or
-    ``d_pool.nrmax``, 32 or ``d_pool.nimax``); the CUDA kernel takes any."""
+    ``hartallo_tpu.decode.d_pool.nrmax``, 32 or ``nimax``); the CUDA
+    kernel and its twin take any."""
     K = len(frames)
     nr = max(nr, 1, *(f.tags.shape[0] for f in frames))
     ni = max(ni, 1, *(f.ilist.shape[0] for f in frames))
@@ -142,6 +147,9 @@ def _check_payload(named, gw: int, gh: int):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     K, nMB = named["smb"].shape[0], gw * gh
+    if gw + 2 * gh - 2 > MAX_STEPS or nMB > MAX_INTRA:
+        raise ValueError(f"a {gw}x{gh}-MB frame exceeds the intra "
+                         f"schedule ({MAX_STEPS} steps, {MAX_INTRA} MBs)")
     NR, NI = named["tags"].shape[1], named["ilist"].shape[1]
     S = named["ringY"].shape[0]
     Hp, Wp = gh * 16 + 2 * PAD, gw * 16 + 2 * PAD
@@ -187,10 +195,11 @@ def _launch(smb, aux, sf, tags, vals, ilist, ivals, ringY, ringU, ringV,
     pu = torch.zeros((H // 2 + 2 * PAD, W // 2 + 2 * PAD),
                      dtype=torch.int32, device=dev)
     pv = torch.zeros_like(pu)
+    prog = torch.zeros(K * gh, dtype=torch.int32, device=dev)  # deblock rows
     i4tab = _i4tab(dev)
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in
            (smb, aux, sf, tags, vals, ilist, ivals, i4tab, ringY, ringU,
-            ringV, out, py, pu, pv)]
+            ringV, out, py, pu, pv, prog)]
     lib = kernels.load()
     with torch.cuda.device(dev):
         rc = lib.hl_decode_gop(
@@ -270,11 +279,21 @@ def _blocks_to_tile(blocks: torch.Tensor, n: int) -> torch.Tensor:
     return blocks.reshape(q, q, 4, 4).permute(0, 2, 1, 3).reshape(n, n)
 
 
-def _intra_plain(ilist_k, ivals_k, n_imb, py, pu, pv, gw):
-    """Intra MBs in raster order on the work planes, one MB at a time."""
+def intra_step(m: int, gw: int) -> int:
+    """The slope-2 step t = mx + 2 my of MB address m, the CUDA kernel's
+    ``step_of``: it runs the intra MBs of one step at once, in no fixed
+    order, and the steps in order.  An intra MB reads its left, top,
+    top-left and top-right neighbours, all of lower steps."""
+    return m % gw + 2 * (m // gw)
+
+
+def _intra_plain(ilist_k, ivals_k, n_imb, py, pu, pv, gw, order=None):
+    """Intra MBs on the work planes, one MB at a time, in raster order
+    (the list's order, the reference) or in ``order`` (list positions)."""
     rows = ilist_k[:n_imb].cpu().tolist()
     raster = torch.as_tensor(_RASTER_TO_BLK, device=py.device)
-    for i, (m, w, i4a, i4b) in enumerate(rows):
+    for i in range(n_imb) if order is None else order:
+        m, w, i4a, i4b = rows[i]
         my, mx = divmod(m, gw)
         is16, i16m, cmode = w & 1, (w >> 1) & 3, (w >> 3) & 3
         alf, atf, atrf = bool((w >> 5) & 1), bool((w >> 6) & 1), \

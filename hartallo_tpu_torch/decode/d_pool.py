@@ -2,11 +2,15 @@
 
 Copy of ``hartallo_tpu/decode/d_pool.py`` (pure numpy) that takes the
 quarter-pel case table ``_QPT`` from the port's ``ops/wide.py``, since
-the JAX package's ``ops/wide.py`` imports jax.  ``eligible, ``nimax``, ``nrmax`` and
-``pack_fast`` are unchanged, so a picture takes the kernel in the port
-exactly when it does in the JAX package.  The kernel's batch cap ``kmax``
-(a TPU scalar-memory limit) is dropped, and so are the SVC residual
-helpers, which only the general decode path uses.
+the JAX package's ``ops/wide.py`` imports jax.  ``pack_fast`` is
+unchanged.  The Pallas kernel's static capacities are dropped: the batch
+cap ``kmax`` (a TPU scalar-memory limit), the intra-list capacity
+``nimax`` (its SMEM list) and the residual-pool capacity ``nrmax``.  The
+CUDA kernel and its twin take each batch's own intra and residual
+counts, so ``eligible`` keeps every rule of the JAX package's but the
+intra count, and every 720p and 1080p IDR picture takes the kernel.  The
+SVC residual helpers, which only the general decode path uses, are
+dropped too.
 
 The payload per picture:
 
@@ -29,10 +33,10 @@ from typing import Optional
 
 import numpy as np
 
-from hartallo_tpu.core import tables as T
-from hartallo_tpu.core.tables import (DEBLOCK_ALPHA, DEBLOCK_BETA,
-                                      DEBLOCK_TC0, LUMA_4x4_BLK_XY,
-                                      QP_SCALE_CHROMA)
+from hartallo_tpu_torch.core import tables as T
+from hartallo_tpu_torch.core.tables import (DEBLOCK_ALPHA, DEBLOCK_BETA,
+                                            DEBLOCK_TC0, LUMA_4x4_BLK_XY,
+                                            QP_SCALE_CHROMA)
 
 PAD = 32
 MAX_RES = 16000          # |residual| bound for int16 work planes
@@ -237,22 +241,11 @@ def _aux_np(sd, fmb_v, fmb_h, fint, chroma_qp_off: int):
     return np.concatenate([ab, ts, bs], axis=-1).astype(np.int16)
 
 
-def nrmax(gw: int, gh: int) -> int:
-    """Static residual-pool capacity per frame (compile-stable)."""
-    return 2048 if gw * gh <= 1600 else \
-        (4096 if gw * gh <= 4000 else 6144)
-
-
-def nimax(gw: int, gh: int) -> int:
-    """Static intra-MB list capacity per frame (compile-stable).  At CIF
-    and below this covers whole I pictures; at HD only intra-in-P."""
-    return 512 if gw * gh <= 1600 else 768
-
-
 def eligible(sd, wp_l) -> Optional[str]:
     """Why this picture can NOT take the fast path (None = it can).
 
-    Fast path scope: all-inter P pictures, per-8x8-quadrant-uniform MVs
+    Fast path scope: I and P pictures with any number of intra MBs (no
+    PCM or I_BL), per-8x8-quadrant-uniform MVs
     (including after the MC window edge clamp), one reference slot for
     the whole frame, no weighted prediction, residual magnitudes within
     the int16 work-plane budget.
@@ -260,8 +253,6 @@ def eligible(sd, wp_l) -> Optional[str]:
     kind = sd.mb_kind
     if ((kind < 0) | (kind == 2) | (kind == 8)).any():
         return "PCM/IBL macroblocks"
-    if int((kind <= 1).sum()) > nimax(sd.gw, sd.gh):
-        return "too many intra macroblocks for the SMEM list"
     if wp_l is not None:
         return "weighted prediction"
     if sd.gw * 16 > 1920 or sd.gh * 16 > 1088:

@@ -3,17 +3,19 @@ pixel pipeline on the decoder's device -> output frames.
 
 Port of the AVC batched path of ``hartallo_tpu/decode/decoder.py``.  The
 host parse (``native`` CAVLC, ``mv``, ``dpb``, ``poc``, ``fmo``, the
-parameter sets and slice headers) is the JAX package's own code, which
-imports no JAX.  Completed pictures are queued and decoded a batch at a
-time, with the DPB held on the device as a ring of half-pel reference
-stacks:
+parameter sets and slice headers) is the port's copy of the JAX
+package's host modules.  Completed pictures are queued and decoded a
+batch at a time, with the DPB held on the device as a ring of half-pel
+reference stacks:
 
 - a picture ``d_pool.eligible`` accepts (the rule is the JAX package's)
   goes to ``d_gop_fast.decode_gop_fast``: the CUDA kernel on a CUDA
   device, its plain torch twin on the CPU;
 - any other picture goes to the GOP scan ``d_gop.decode_gop``, as in the
-  JAX package (for example a 720p IDR picture, whose intra MBs overflow
-  ``d_pool.nimax``).
+  JAX package (for example a P picture with explicit weighted
+  prediction).  Unlike the JAX package, the kernel takes a picture with
+  any number of intra MBs or residual blocks (every 720p and 1080p IDR
+  picture, which the Pallas kernel's capacities send to the scan).
 
 ``stats`` counts the pictures of each route.  PCM, I_BL, scaling lists,
 residual prediction, quality refinement and SVC NAL units need the
@@ -31,17 +33,18 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from hartallo_tpu.api import DecodeResult
-from hartallo_tpu.bitio import BitReader, find_nal_units, \
+from hartallo_tpu_torch.api import DecodeResult
+from hartallo_tpu_torch.bitio import BitReader, find_nal_units, \
     strip_emulation_prevention
-from hartallo_tpu.decode import nal as N
-from hartallo_tpu.decode.dpb import DPB, Frame
-from hartallo_tpu.decode.params import PPS, SPS, effective_weight4x4
-from hartallo_tpu.decode.poc import PocDecoder
-from hartallo_tpu.decode.slice_decode import (MB_IBL, MB_PCM, SliceData,
-                                              SliceDecoder)
-from hartallo_tpu.decode.sliceheader import SliceHeader, parse_slice_header
-from hartallo_tpu.util import log
+from hartallo_tpu_torch.decode import nal as N
+from hartallo_tpu_torch.decode.dpb import DPB, Frame
+from hartallo_tpu_torch.decode.params import PPS, SPS, effective_weight4x4
+from hartallo_tpu_torch.decode.poc import PocDecoder
+from hartallo_tpu_torch.decode.slice_decode import (MB_IBL, MB_PCM,
+                                                    SliceData, SliceDecoder)
+from hartallo_tpu_torch.decode.sliceheader import SliceHeader, \
+    parse_slice_header
+from hartallo_tpu_torch.util import log
 from hartallo_tpu_torch.decode import d_pool
 from hartallo_tpu_torch.decode.d_fused import pack_slice_arrays
 from hartallo_tpu_torch.decode.d_gop import (decode_gop, ring_shapes,
@@ -123,7 +126,8 @@ class Decoder:
     """Single-layer AVC decoder whose pixel pipeline runs on ``device``
     (every tensor it makes lives there)."""
 
-    def __init__(self, device, batch_k: int = BATCH_K, tid_max: int = -1):
+    def __init__(self, device="cuda", batch_k: int = BATCH_K,
+                 tid_max: int = -1):
         self.device = torch.device(device)
         self.batch_k = max(1, batch_k)
         self.tid_max = tid_max
@@ -231,7 +235,7 @@ class Decoder:
         sd = layer.cur
         scan_order = None
         if pps.num_slice_groups_minus1 > 0:
-            from hartallo_tpu.decode.fmo import (mb_to_slice_group_map,
+            from hartallo_tpu_torch.decode.fmo import (mb_to_slice_group_map,
                                                  slice_scan_order)
             key = (pps.pic_parameter_set_id, sps.seq_parameter_set_id,
                    sh.slice_group_change_cycle)
@@ -282,7 +286,7 @@ class Decoder:
 
         has_inter = bool(((sd.mb_kind >= 3) & (sd.mb_kind != MB_IBL)).any())
         if has_inter:
-            from hartallo_tpu.decode.mv import derive_mvs
+            from hartallo_tpu_torch.decode.mv import derive_mvs
             derive_mvs(sd)
             layer.dpb.max_refs = sps.max_num_ref_frames
             reflist = layer.dpb.ref_list_p(
@@ -334,11 +338,9 @@ class Decoder:
         fast = None
         if d_pool.eligible(sd, wp_l) is None:
             try:
-                ff = d_pool.pack_fast(sd, fmb_v, fmb_h, filter_internal,
-                                      wslot, pps.chroma_qp_index_offset,
-                                      al=al, at=at, atr=atr)
-                if ff.tags.shape[0] <= d_pool.nrmax(gw, gh):
-                    fast = ff
+                fast = d_pool.pack_fast(sd, fmb_v, fmb_h, filter_internal,
+                                        wslot, pps.chroma_qp_index_offset,
+                                        al=al, at=at, atr=atr)
             except OverflowError:
                 fast = None
         packed = None if fast is not None else pack_slice_arrays(

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hartallo_tpu.core.tables import LUMA_4x4_BLK_XY
+from hartallo_tpu_torch.core.tables import LUMA_4x4_BLK_XY
 from hartallo_tpu_torch.ops.intra import (pred16x16_all, pred4x4_all,
                                           pred_chroma_all)
 from hartallo_tpu_torch.ops.wavefront import (plane_to_tiles, shift_k, skew,

@@ -4,9 +4,9 @@ deblocked recon kept on the device as the next picture's reference.
 
 Port of class ``Encoder`` of ``hartallo_tpu/encode/encoder.py`` (reference
 ``hl_codec_264.c:404-1104`` and ``hl_codec_264_encode.c``).  The host code
-is the JAX package's own, which imports no JAX: parameter sets, slice
-headers, NAL writing, ``FramePacker`` and ``native`` (CAVLC), MVD and skip
-derivation, FMO maps and ``RateControl``.  The SVC-only helpers
+is the port's copy of the JAX package's host modules: parameter sets,
+slice headers, NAL writing, ``FramePacker`` and ``native`` (CAVLC), MVD
+and skip derivation, FMO maps and ``RateControl``.  The SVC-only helpers
 (``_deblock_recon``, ``_planes_from_mbs``) and the uncalled ``_encode_p``
 are not ported.
 """
@@ -17,12 +17,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hartallo_tpu.api import CodecConfig, EncodeResult
-from hartallo_tpu.bitio import BitWriter, insert_emulation_prevention
-from hartallo_tpu.decode import nal as N
-from hartallo_tpu.decode.params import PPS, SPS
-from hartallo_tpu.decode.sliceheader import SliceHeader, write_slice_header
-from hartallo_tpu.encode.slice_encode import FramePacker
+from hartallo_tpu_torch.api import CodecConfig, EncodeResult
+from hartallo_tpu_torch.bitio import BitWriter, insert_emulation_prevention
+from hartallo_tpu_torch.decode import nal as N
+from hartallo_tpu_torch.decode.params import PPS, SPS
+from hartallo_tpu_torch.decode.sliceheader import SliceHeader, \
+    write_slice_header
+from hartallo_tpu_torch.encode.slice_encode import FramePacker
 from hartallo_tpu_torch.decode.intra_recon import (PAD, availability_masks,
                                                    availability_tl,
                                                    availability_tr)
@@ -63,7 +64,7 @@ class Encoder:
     # package, so both split a GOP the same way
     P_CHUNKS = (8, 4, 2, 1)
 
-    def __init__(self, config: CodecConfig, *, device):
+    def __init__(self, config: CodecConfig, *, device="cuda"):
         self.cfg = config
         self.device = torch.device(device)
         self.frame_idx = 0
@@ -210,7 +211,7 @@ class Encoder:
         the frame's slices."""
         if self.cfg.num_slice_groups > 1:
             # FMO: one slice per group, MBs visited in NextMbAddress order
-            from hartallo_tpu.decode.fmo import mb_to_slice_group_map
+            from hartallo_tpu_torch.decode.fmo import mb_to_slice_group_map
             sg = mb_to_slice_group_map(
                 self.sps, self.pps,
                 slice_group_change_cycle=self._fmo_change_cycle())
@@ -313,7 +314,7 @@ class Encoder:
         # rate control (JVT-G012 frame-level) or fixed QP
         if self.cfg.rc_bitrate and self.cfg.rc_bitrate > 0:
             if self._rc is None:
-                from hartallo_tpu.encode.ratecontrol import RateControl
+                from hartallo_tpu_torch.encode.ratecontrol import RateControl
                 fnum, fden = self.cfg.fps
                 self._rc = RateControl(
                     bitrate=float(self.cfg.rc_bitrate),
@@ -416,8 +417,8 @@ class Encoder:
                                         poc_lsb=pend["poc_lsb"],
                                         ref_idc=3)
         else:
-            from hartallo_tpu.decode.mv import compute_mvds_and_skip
-            from hartallo_tpu.decode.slice_decode import (
+            from hartallo_tpu_torch.decode.mv import compute_mvds_and_skip
+            from hartallo_tpu_torch.decode.slice_decode import (
                 MB_P16X16, MB_P16X8, MB_P8X16, MB_P8X8)
             arrays = unpack(buf, P_FIELDS, gh, gw)
             choice_np = arrays["choice"]
@@ -505,7 +506,7 @@ class Encoder:
         N.write_nal_header(w, ref_idc, ntype)
         write_slice_header(w, hdr, sps, pps, nal_ref_idc=ref_idc,
                            is_idr=is_idr)
-        from hartallo_tpu import native
+        from hartallo_tpu_torch import native
         if native.available() and order is None:
             r0, r1 = rng
             hdr_bytes, hdr_bits = w.partial()

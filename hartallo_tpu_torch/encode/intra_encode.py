@@ -17,7 +17,7 @@ from functools import lru_cache
 import torch
 import torch.nn.functional as F
 
-from hartallo_tpu.core.tables import LUMA_4x4_BLK_XY, QP_SCALE_CHROMA
+from hartallo_tpu_torch.core.tables import LUMA_4x4_BLK_XY, QP_SCALE_CHROMA
 from hartallo_tpu_torch.decode.intra_recon import (PAD, _neighbor_tile17x25,
                                                    _neighbor_tile9x9)
 from hartallo_tpu_torch.encode.me import BIG

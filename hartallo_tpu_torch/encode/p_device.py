@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from hartallo_tpu.core.tables import ZIGZAG_4x4_INV
+from hartallo_tpu_torch.core.tables import ZIGZAG_4x4_INV
 from hartallo_tpu_torch.decode.inter_recon import (inter_predict_frame,
                                                    mbs_to_plane, plane_to_mbs)
 from hartallo_tpu_torch.decode.intra_recon import PAD

@@ -87,9 +87,9 @@ def load():
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.hl_decode_gop.restype = I
-        lib.hl_decode_gop.argtypes = [P] * 15 + [I] * 10 + [P]
+        lib.hl_decode_gop.argtypes = [P] * 16 + [I] * 10 + [P]
         lib.hl_deblock_frame.restype = I
-        lib.hl_deblock_frame.argtypes = [P] * 4 + [I] * 2 + [P]
+        lib.hl_deblock_frame.argtypes = [P] * 5 + [I] * 2 + [P]
         lib.hl_cuda_error_string.restype = ctypes.c_char_p
         lib.hl_cuda_error_string.argtypes = [I]
         _lib = lib

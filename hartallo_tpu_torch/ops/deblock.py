@@ -25,7 +25,7 @@ from functools import lru_cache
 
 import torch
 
-from hartallo_tpu.core.tables import DEBLOCK_ALPHA, DEBLOCK_BETA, \
+from hartallo_tpu_torch.core.tables import DEBLOCK_ALPHA, DEBLOCK_BETA, \
     DEBLOCK_TC0
 from hartallo_tpu_torch.ops.wavefront import skew1_geometry
 from hartallo_tpu_torch.ops.wide import compute_bs_grids

@@ -5,8 +5,9 @@ a drop-in for ``deblock_frame_s1``).  ``deblock_frame_fast`` has the
 ``deblock_frame_s1`` contract: PAD-padded int32 planes (Y, U, V) in,
 new filtered planes out, the inputs untouched.  It gathers the per-MB
 parameters with ``ops/deblock.edge_params`` (int16 is lossless: alpha <=
-255, beta <= 18, tc0 <= 25, bS <= 4) and launches the slope-1 wavefront
-kernel of ``csrc/deblock.cu`` on the planes' current CUDA stream.  On CPU
+255, beta <= 18, tc0 <= 25, bS <= 4) and launches the row-wavefront
+kernel of ``csrc/deblock.cu`` (one warp per MB row, a cooperative
+launch) on the planes' current CUDA stream.  On CPU
 tensors it runs ``deblock_frame_fast_plain``.  There is no other branch:
 a failed build or launch raises.
 """
@@ -61,15 +62,19 @@ def _launch(aux, planes, *, gw: int, gh: int):
                              f"expected {shape}")
         if p.device != dev:
             raise ValueError(f"plane {name} is on {p.device}, Y on {dev}")
-    if tuple(aux.shape) != (gh, gw, 62) or aux.device != dev:
-        raise ValueError(f"aux {tuple(aux.shape)} on {aux.device} does not "
-                         f"match ({gh}, {gw}, 62) on {dev}")
+    if tuple(aux.shape) != (gh, gw, 62) or aux.device != dev or \
+            aux.dtype != torch.int16 or not aux.is_contiguous():
+        raise ValueError(f"aux {tuple(aux.shape)} {aux.dtype} on "
+                         f"{aux.device} is not a contiguous int16 "
+                         f"({gh}, {gw}, 62) tensor on {dev}")
     out = tuple(p.to(torch.int32).clone(memory_format=torch.contiguous_format)
                 for p in planes)
+    prog = torch.zeros(gh, dtype=torch.int32, device=dev)   # row progress
     lib = kernels.load()
     with torch.cuda.device(dev):
         rc = lib.hl_deblock_frame(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (aux, *out)), gw, gh,
+            *(ctypes.c_void_p(t.data_ptr()) for t in (aux, *out, prog)), gw,
+            gh,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"hl_deblock_frame: CUDA error {rc} "

@@ -12,7 +12,7 @@ from functools import lru_cache
 
 import torch
 
-from hartallo_tpu.core import tables as T
+from hartallo_tpu_torch.core import tables as T
 
 
 @lru_cache(maxsize=None)

@@ -13,8 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hartallo_tpu.core import tables as T
-from hartallo_tpu.core.tables import LUMA_4x4_BLK_XY
+from hartallo_tpu_torch.core import tables as T
+from hartallo_tpu_torch.core.tables import LUMA_4x4_BLK_XY
 
 PAD = 32
 _TAPS = (1, -5, 20, 20, -5, 1)

@@ -24,6 +24,59 @@ def load_fixture(name):
             json.loads((DATA / f"{name}.json").read_text()))
 
 
+def weighted_rewrite(stream: bytes) -> bytes:
+    """Every P slice of ``stream`` moves to a second PPS that sets
+    weighted_pred_flag, with an explicit weight table of its own (the
+    slice data bits are copied verbatim).  tools/make_port_fixtures.py
+    stores this rewrite of qcif_6 as the qcif_6_wp fixture."""
+    from hartallo_tpu.bitio import BitReader, BitWriter, find_nal_units, \
+        strip_emulation_prevention
+    from hartallo_tpu.decode import nal as N
+    from hartallo_tpu.decode.params import PPS, SPS
+    from hartallo_tpu.decode.sliceheader import (PredWeightTable,
+                                                 parse_slice_header,
+                                                 write_slice_header)
+
+    from _rewrite import annexb, copy_payload_bits
+    out = b""
+    sps = pps = wpps = None
+    i = 0
+    for s0, e0 in find_nal_units(stream):
+        nal = stream[s0:e0]
+        data = strip_emulation_prevention(nal)
+        r = BitReader(data)
+        hdr = N.parse_nal_header(r)
+        out_nal = b"\x00\x00\x00\x01" + nal
+        if hdr.type == N.NAL_SPS:
+            sps = SPS.parse(r)
+        elif hdr.type == N.NAL_PPS:
+            pps = PPS.parse(r)
+            wpps = PPS.parse(BitReader(data[1:]))
+            wpps.pic_parameter_set_id = 1
+            wpps.weighted_pred_flag = 1
+            w = BitWriter()
+            N.write_nal_header(w, 3, N.NAL_PPS)
+            wpps.write(w)
+            out_nal += annexb(w.getvalue())
+        elif hdr.type == N.NAL_SLICE:
+            sh = parse_slice_header(r, sps, pps, nal_ref_idc=hdr.ref_idc,
+                                    is_idr=False)
+            sh.pic_parameter_set_id = 1
+            sh.pred_weights = PredWeightTable(
+                luma_log2_denom=5, chroma_log2_denom=2, luma_w=[20 + 3 * i],
+                luma_o=[13 - 5 * i], chroma_w=[(3 + i, 7 - i)],
+                chroma_o=[(-9 + 2 * i, 4)])
+            i += 1
+            w = BitWriter()
+            N.write_nal_header(w, hdr.ref_idc, N.NAL_SLICE)
+            write_slice_header(w, sh, sps, wpps, nal_ref_idc=hdr.ref_idc,
+                               is_idr=False)
+            copy_payload_bits(w, data, r.pos)
+            out_nal = annexb(w.getvalue())
+        out += out_nal
+    return out
+
+
 def queued_jobs(stream: bytes, device="cpu", eligible=None):
     """Parse a stream with the port's decoder without decoding it; returns
     (jobs, (gw, gh, S, chroma_qp_off)).  ``eligible`` replaces

@@ -16,17 +16,11 @@ from functools import partial
 import numpy as np
 import pytest
 
-from hartallo_tpu.bitio import BitReader, BitWriter, find_nal_units, \
-    strip_emulation_prevention
-from hartallo_tpu.decode import nal as N
-from hartallo_tpu.decode.params import PPS, SPS
-from hartallo_tpu.decode.sliceheader import (MMCO, PredWeightTable,
-                                             RefPicListMod,
-                                             parse_slice_header,
-                                             write_slice_header)
+from hartallo_tpu.decode.sliceheader import MMCO, RefPicListMod
 
-from _rewrite import annexb, copy_payload_bits, rewrite_stream
-from _torch_port import cuda_device, load_fixture  # noqa: F401
+from _rewrite import rewrite_stream
+from _torch_port import (cuda_device, load_fixture,  # noqa: F401
+                         weighted_rewrite)
 
 NF = 6
 
@@ -93,48 +87,6 @@ def _mmco5_last(sh, hdr, i):
         sh.mmcos.append(MMCO(op=5))
 
 
-def _weighted(stream):
-    """Every P slice moves to a second PPS that sets weighted_pred_flag,
-    with an explicit weight table of its own."""
-    out = b""
-    sps = pps = wpps = None
-    i = 0
-    for s0, e0 in find_nal_units(stream):
-        nal = stream[s0:e0]
-        data = strip_emulation_prevention(nal)
-        r = BitReader(data)
-        hdr = N.parse_nal_header(r)
-        out_nal = b"\x00\x00\x00\x01" + nal
-        if hdr.type == N.NAL_SPS:
-            sps = SPS.parse(r)
-        elif hdr.type == N.NAL_PPS:
-            pps = PPS.parse(r)
-            wpps = PPS.parse(BitReader(data[1:]))
-            wpps.pic_parameter_set_id = 1
-            wpps.weighted_pred_flag = 1
-            w = BitWriter()
-            N.write_nal_header(w, 3, N.NAL_PPS)
-            wpps.write(w)
-            out_nal += annexb(w.getvalue())
-        elif hdr.type == N.NAL_SLICE:
-            sh = parse_slice_header(r, sps, pps, nal_ref_idc=hdr.ref_idc,
-                                    is_idr=False)
-            sh.pic_parameter_set_id = 1
-            sh.pred_weights = PredWeightTable(
-                luma_log2_denom=5, chroma_log2_denom=2, luma_w=[20 + 3 * i],
-                luma_o=[13 - 5 * i], chroma_w=[(3 + i, 7 - i)],
-                chroma_o=[(-9 + 2 * i, 4)])
-            i += 1
-            w = BitWriter()
-            N.write_nal_header(w, hdr.ref_idc, N.NAL_SLICE)
-            write_slice_header(w, sh, sps, wpps, nal_ref_idc=hdr.ref_idc,
-                               is_idr=False)
-            copy_payload_bits(w, data, r.pos)
-            out_nal = annexb(w.getvalue())
-        out += out_nal
-    return out
-
-
 def _dpb(edit_slice, edit_sps=_two_refs):
     return partial(rewrite_stream, edit_sps=edit_sps, edit_slice=edit_slice)
 
@@ -147,7 +99,7 @@ VARIANTS = {
     "mmco6_longterm_chain": _dpb(_mmco6_chain),
     "reflist_mod_identity": _dpb(_reflist_identity),
     "mmco5_reset": _dpb(_mmco5_last, edit_sps=None),
-    "weighted_pred": _weighted,
+    "weighted_pred": weighted_rewrite,
 }
 
 

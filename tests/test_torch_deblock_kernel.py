@@ -85,12 +85,34 @@ def test_inputs_stay_untouched_and_devices_must_agree():
                              *(torch.tensor(a) for a in rest), gw=3, gh=2)
 
 
-# CIF, 720p and 1080p (1088 coded rows) MB grids
+def slice_edge_flags(rest, gh, seed):
+    """The inputs with the filter flags of a picture cut into slices of a
+    few MB rows each: disable_deblocking_filter_idc 2 (no filtering across
+    a slice edge: the H edge 0 of each slice's first row gets bS 0) on
+    every other slice, idc 1 (no filtering at all) on some MBs."""
+    bs_v, bs_h = rest[0].copy(), rest[1].copy()
+    rng = np.random.default_rng(seed)
+    first = np.unique(np.r_[0, np.sort(rng.choice(np.arange(1, gh), gh // 3,
+                                                  replace=False))])
+    for k, y in enumerate(first):
+        if k % 2:
+            bs_h[y, :, 0] = 0
+    off = rng.random(bs_v.shape[:2]) < 0.1
+    bs_v[off] = 0
+    bs_h[off] = 0
+    return (bs_v, bs_h, *rest[2:])
+
+
+# CIF, 720p and 1080p (1088 coded rows) MB grids, and the 720p grid with
+# slice-edge and idc 1 filter flags
 @pytest.mark.cuda
-@pytest.mark.parametrize("gw,gh", [(22, 18), (80, 45), (120, 68)])
-def test_cuda_kernel_equals_plain_twin(cuda_device, gw, gh):
+@pytest.mark.parametrize("gw,gh,flags", [(22, 18, False), (80, 45, False),
+                                         (120, 68, False), (80, 45, True)])
+def test_cuda_kernel_equals_plain_twin(cuda_device, gw, gh, flags):
     from hartallo_tpu_torch.ops import deblock_fast as F
     planes, rest = _inputs(gw, gh, gw + gh)
+    if flags:
+        rest = slice_edge_flags(rest, gh, gw)
     before = F.LAUNCHES
     got = _run(F.deblock_frame_fast, planes, rest, gw, gh, cuda_device)
     assert F.LAUNCHES == before + 1

@@ -4,7 +4,10 @@
   through both packages.
 - The fixtures in tests/data/port (written by tools/make_port_fixtures.py
   from ``hartallo_tpu``) decode to the recorded per-frame MD5s.
-- A port encode and decode run without jax in ``sys.modules``.
+- A port encode and decode run without jax, and without any module of
+  ``hartallo_tpu``, in ``sys.modules``.
+- The 720p and 1080p IDR pictures, which the JAX package's Pallas kernel
+  refuses, are eligible for the port's GOP kernel.
 
 Tolerance: exact equality, since this is an integer codec.
 """
@@ -79,9 +82,12 @@ def test_port_decode_imports_no_jax():
         "assert b''.join(r.headers + r.data for r in res) == s\n"
         "out = Codec(CodecConfig(), device='cpu').decode_annexb(s)\n"
         "assert len(out) == 6, len(out)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'jaxlib']\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'hartallo_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'hartallo_tpu.'))]\n"
         "assert not bad, bad\n"
+        "from hartallo_tpu_torch import native\n"
+        "assert native.available()\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -103,12 +109,44 @@ def test_unported_paths_raise():
                             tolerant=True)
 
 
+@pytest.mark.parametrize("name", ["720p_8", "1080p_8"])
+def test_hd_idr_picture_is_eligible(name):
+    """Parse only: every picture of the 720p and 1080p fixtures, the IDR
+    picture (3,600 and 8,160 intra MBs) included, gets a kernel payload."""
+    from _torch_port import queued_jobs
+    from hartallo_tpu.decode import d_pool as J
+    stream, meta = load_fixture(name)
+    jobs, (gw, gh, _, _) = queued_jobs(stream)
+    assert len(jobs) == meta["frames"]
+    assert all(j.fast is not None for j in jobs)
+    assert jobs[0].fast.ilist.shape[0] == gw * gh > J.nimax(gw, gh)
+
+
+def test_weighted_fixture_is_the_rewrite():
+    """qcif_6_wp is tests/_torch_port.weighted_rewrite of qcif_6, and the
+    port decodes it to the JAX package's MD5s: 1 kernel, 5 scan pictures."""
+    from _torch_port import weighted_rewrite
+    from hartallo_tpu.util.checks import plane_md5
+    stream, meta = load_fixture("qcif_6_wp")
+    assert weighted_rewrite(load_fixture("qcif_6")[0]) == stream
+    out, stats = _port_decode(stream)
+    assert [plane_md5(r.frame) for r in out] == meta["frame_md5"]
+    assert stats == {"kernel_pictures": 1, "scan_pictures": 5}
+
+
+# every fixture on the card through Codec's default device: all pictures
+# through the GOP kernel, except the weighted P pictures of qcif_6_wp
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SMALL + ["720p_8"])
+@pytest.mark.parametrize("name", SMALL + ["720p_8", "1080p_8", "qcif_6_wp"])
 def test_cuda_decode_matches_recorded_md5(cuda_device, name):
     from hartallo_tpu.util.checks import plane_md5
+    from hartallo_tpu_torch.api import Codec, CodecConfig
     stream, meta = load_fixture(name)
-    out, stats = _port_decode(stream, cuda_device)
+    codec = Codec(CodecConfig())
+    out, stats = codec.decode_annexb(stream, tolerant=False), \
+        codec.decoder.stats
+    assert codec.decoder.device.type == "cuda"
     assert [plane_md5(r.frame) for r in out] == meta["frame_md5"]
-    assert stats["kernel_pictures"] >= 1
-    assert sum(stats.values()) == meta["frames"]
+    scan = 5 if name == "qcif_6_wp" else 0
+    assert stats == {"kernel_pictures": meta["frames"] - scan,
+                     "scan_pictures": scan}

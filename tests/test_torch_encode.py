@@ -80,26 +80,29 @@ def test_rate_control_matches_jax_encoder(monkeypatch):
     """Frame-level RC with basic-unit (MB-row) QPs closes its loop through
     the packed bits, so frame QPs and bytes must agree picture by
     picture."""
-    from hartallo_tpu.api import Codec as JCodec
-    from hartallo_tpu.api import CodecConfig
-    from hartallo_tpu.encode.ratecontrol import RateControl
-    from hartallo_tpu_torch.api import Codec
+    from hartallo_tpu import api as J
+    from hartallo_tpu.encode.ratecontrol import RateControl as JRC
+    from hartallo_tpu_torch import api as P
+    from hartallo_tpu_torch.encode.ratecontrol import RateControl as PRC
     W, H, NF = 64, 48, 6
     qps = []
-    frame_qp = RateControl.frame_qp
 
-    def record(self, is_idr):
-        qps.append(frame_qp(self, is_idr))
-        return qps[-1]
-    monkeypatch.setattr(RateControl, "frame_qp", record)
+    def recorder(frame_qp):
+        def record(self, is_idr):
+            qps.append(frame_qp(self, is_idr))
+            return qps[-1]
+        return record
+    # each package's own RateControl (the port's is a copy)
+    for cls in (JRC, PRC):
+        monkeypatch.setattr(cls, "frame_qp", recorder(cls.frame_qp))
 
-    def cfg():
-        return CodecConfig(width=W, height=H, gop_size=4, deblock=True,
-                           me_range=8, rc_bitrate=60000, fps=(1, 30))
+    def cfg(api):
+        return api.CodecConfig(width=W, height=H, gop_size=4, deblock=True,
+                               me_range=8, rc_bitrate=60000, fps=(1, 30))
     clip = make_clip(W, H, NF)
-    want = JCodec(cfg()).encode_frames(clip, W, H)
+    want = J.Codec(cfg(J)).encode_frames(clip, W, H)
     want_qps, qps[:] = list(qps), []
-    got = Codec(cfg(), device="cpu").encode_frames(clip, W, H)
+    got = P.Codec(cfg(P), device="cpu").encode_frames(clip, W, H)
     assert qps == want_qps and len(set(qps)) > 1, (qps, want_qps)
     assert len(got) == len(want) == NF
     for i, (a, b) in enumerate(zip(got, want)):

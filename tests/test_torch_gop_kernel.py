@@ -20,14 +20,14 @@ STAGES = ["m", "mr", "mri", "mriwdsoh"]
 
 @pytest.fixture(scope="module")
 def batch():
-    from hartallo_tpu_torch.decode import d_pool
+    from hartallo_tpu.decode import d_pool
     from hartallo_tpu_torch.decode.d_gop_fast import stack_payload
     jobs, (gw, gh, S, cqoff) = queued_jobs(encode_clip())
     frames = [j.fast for j in jobs]
     assert len(frames) == 5 and all(f is not None for f in frames)
     assert any(f.ilist.shape[0] for f in frames)       # intra MBs present
-    # the JAX package's capacity rule (decoder._flush_fast), which the
-    # Pallas kernel needs
+    # the JAX package's capacity rule (decoder._flush_fast) and its
+    # capacities, which the Pallas kernel needs
     mt = max(f.tags.shape[0] for f in frames)
     mi = max(f.ilist.shape[0] for f in frames)
     pay = stack_payload(frames,
@@ -105,6 +105,34 @@ def test_cuda_kernel_equals_plain_twin(cuda_device, qcif_batch, stages):
     before = F.LAUNCHES
     got = _decode_fast(pay, rings, gw, gh, stages, cuda_device)
     assert F.LAUNCHES == before + pay["smb"].shape[0]
+    p = F.payload_to(pay, cuda_device)
+    r = F.rings_from_numpy(*rings, cuda_device)
+    ref = F.decode_gop_fast_plain(p["smb"], p["aux"], p["sf"], p["tags"],
+                                  p["vals"], p["ilist"], p["ivals"], *r,
+                                  gw=gw, gh=gh, stages=stages)
+    torch.cuda.synchronize()
+    _assert_same([t.cpu().numpy() for t in got],
+                 [t.cpu().numpy() for t in ref], gw, gh)
+
+
+@pytest.fixture(scope="module")
+def hd_idr_batch():
+    """The payload of the 720p_8 fixture's IDR picture: 3,600 intra MBs,
+    which the Pallas kernel's list cannot hold and the CUDA kernel takes."""
+    from hartallo_tpu_torch.decode.d_gop_fast import stack_payload
+    jobs, (gw, gh, S, cqoff) = queued_jobs(load_fixture("720p_8")[0])
+    assert jobs[0].fast.ilist.shape[0] == gw * gh == 3600
+    pay = stack_payload([jobs[0].fast])
+    return pay, gw, gh, S, cqoff, seeded_rings(gw, gh, S, seed=13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", ["mri", "mriwdsoh"])
+def test_cuda_kernel_equals_plain_twin_720p_idr(cuda_device, hd_idr_batch,
+                                                stages):
+    from hartallo_tpu_torch.decode import d_gop_fast as F
+    pay, gw, gh, S, cqoff, rings = hd_idr_batch
+    got = _decode_fast(pay, rings, gw, gh, stages, cuda_device)
     p = F.payload_to(pay, cuda_device)
     r = F.rings_from_numpy(*rings, cuda_device)
     ref = F.decode_gop_fast_plain(p["smb"], p["aux"], p["sf"], p["tags"],

@@ -1,0 +1,111 @@
+"""The port's host modules are its own copies of the JAX package's, and the
+port imports nothing of the JAX package.
+
+- An AST scan of every module under ``hartallo_tpu_torch/`` and of
+  ``chip_smoke.py``: none imports ``hartallo_tpu``, ``jax`` or ``jaxlib``
+  (at module level or inside a function).
+- One case per copied module: its text equals the original's once the
+  import lines are rewritten from ``hartallo_tpu`` to
+  ``hartallo_tpu_torch``, and ``slicec.c`` is byte-equal.  The stated
+  exception is ``native/__init__.py``, which builds its library under
+  ``build/native/`` of the checkout, atomically, instead of next to its
+  source (``NATIVE_EDITS``).
+- The port's ``api.py`` holds the JAX package's ``CodecConfig``,
+  ``DecodeResult`` and ``EncodeResult`` source for source.
+"""
+import ast
+import pathlib
+import re
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SRC = REPO / "hartallo_tpu"
+DST = REPO / "hartallo_tpu_torch"
+
+COPIES = ["core/__init__.py", "core/tables.py",
+          "bitio/__init__.py", "bitio/annexb.py", "bitio/reader.py",
+          "bitio/writer.py",
+          "entropy/__init__.py", "entropy/cavlc.py",
+          "entropy/cavlc_tables.py",
+          *(f"decode/{m}.py" for m in ("nal", "params", "sliceheader",
+                                       "slice_decode", "mv", "poc", "dpb",
+                                       "fmo")),
+          "encode/ratecontrol.py", "encode/slice_encode.py",
+          "util/__init__.py", "util/log.py",
+          "native/__init__.py", "native/slicec.c"]
+
+_IMPORT = re.compile(r"^(\s*(?:from|import)\s+)hartallo_tpu\b(?!_torch)",
+                     re.M)
+
+# (original text, the port's text) in native/__init__.py
+NATIVE_EDITS = [
+    ("(cached next to the source).  Falls back silently — callers check\n"
+     "``available()``",
+     "(cached in ``build/native/`` of the checkout).  Falls back silently "
+     "—\ncallers check ``available()``"),
+    ("import ctypes\nimport pathlib\n", "import ctypes\nimport os\n"
+     "import pathlib\n"),
+    ('_SO = _DIR / "slicec.so"\n',
+     '_SO = _DIR.parent.parent / "build" / "native" / "slicec.so"\n'),
+    ('    try:\n'
+     '        subprocess.run(["gcc", "-O3", "-shared", "-fPIC", "-o",\n'
+     '                        str(_SO), str(_SRC)],\n'
+     '                       check=True, capture_output=True, timeout=300)\n'
+     '        return True\n',
+     '    try:\n'
+     '        _SO.parent.mkdir(parents=True, exist_ok=True)\n'
+     '        tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")\n'
+     '        subprocess.run(["gcc", "-O3", "-shared", "-fPIC", "-o",\n'
+     '                        str(tmp), str(_SRC)],\n'
+     '                       check=True, capture_output=True, timeout=300)\n'
+     '        os.replace(tmp, _SO)\n'
+     '        return True\n'),
+]
+
+
+def rewrite_imports(text: str) -> str:
+    """The rewrite a copy went through: hartallo_tpu -> hartallo_tpu_torch
+    in the module path of every import line."""
+    return _IMPORT.sub(r"\1hartallo_tpu_torch", text)
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    files = sorted(DST.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 40
+    bad = [(str(f.relative_to(REPO)), mod) for f in files
+           for mod in _imported(ast.parse(f.read_text()))
+           if mod.split(".")[0] in ("hartallo_tpu", "jax", "jaxlib")]
+    assert not bad
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_host_copy_equals_original(rel):
+    if rel.endswith(".c"):
+        assert (DST / rel).read_bytes() == (SRC / rel).read_bytes()
+        return
+    want = rewrite_imports((SRC / rel).read_text())
+    if rel == "native/__init__.py":
+        for old, new in NATIVE_EDITS:
+            assert want.count(old) == 1, old
+            want = want.replace(old, new)
+    assert (DST / rel).read_text() == want
+
+
+def test_api_dataclasses_equal_original():
+    def classes(path):
+        text = path.read_text()
+        return {n.name: ast.get_source_segment(text, n)
+                for n in ast.parse(text).body if isinstance(n, ast.ClassDef)
+                and n.name in ("CodecConfig", "DecodeResult", "EncodeResult")}
+    want = classes(SRC / "api.py")
+    assert len(want) == 3
+    assert classes(DST / "api.py") == want

@@ -117,7 +117,8 @@ def main(names) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    for name in names or ("qcif_8", "cif_16", "720p_8"):
+    for name in names or ("qcif_8", "cif_16", "720p_8", "1080p_8",
+                          "qcif_6_wp"):
         print(json.dumps({"card": card, **stages(name)}), flush=True)
         print(json.dumps({"card": card, **device_split(name)}), flush=True)
 
