@@ -18,8 +18,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel and its plain torch version on the card; outputs and ring slots
    must be byte-equal;
 4. deblock kernel phase: seeded planes, bS in 0..4, QPs and nonzero
-   alpha/beta offsets at the CIF, 720p and 1080p MB grids, and at the
-   720p grid with slice-edge (idc 2) and idc 1 filter flags, go through
+   alpha/beta offsets at the CIF, 4CIF, 720p and 1080p MB grids, and at
+   the 720p grid with slice-edge (idc 2) and idc 1 filter flags, go through
    the frame deblock kernel and its plain twin; the planes must be
    byte-equal;
 5. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
@@ -37,13 +37,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    byte for byte, the deblock kernel must have run once per picture, and
    the port's decoder must decode the port's streams to the recorded
    MD5s;
-8. timings (not claims), CUDA events for kernels and host clocks around
+8. SVC phase (the SVC round trip), launch counts set to 0 just before
+   it: the three layers of ``svc3_4cif_8`` (176x144, 352x288 and
+   704x576, 8 pictures each, two temporal layers; the 4CIF
+   ``bench.make_clip`` and its dyadic downsamplings) are encoded through
+   ``Codec.encode`` on the card, byte-equal to the JAX package's fixture;
+   the fixture decodes to its MD5s for every DQId, and so do its
+   ``dqid_max=0`` and ``tid_max=0`` decodes; the GOP kernel must have run
+   once per kernel-route picture, the deblock kernel once per encoded
+   picture of every layer and once per general-route picture of the
+   decodes; in the encode and the full decode every call of either
+   kernel is held against its plain twin on the same inputs, at the
+   path's own shapes (QCIF, CIF and 4CIF), tolerance 0;
+9. timings (not claims), CUDA events for kernels and host clocks around
    synchronised runs: kernel and plain time per CIF picture and the
    kernel's time on the 720p IDR picture; per deblocked frame, the
    wrapper with its parameter gather, the launch alone and the plain
-   twin; each beside its bound (``gop_bound``, ``deblock_bound``); encode
-   fps at CIF and 720p and decode fps at CIF, 720p and 1080p, best and
-   worst of 3 after a warm-up (for the encode, the encode phase's run).
+   twin (each twin timed on its check run); each beside its bound (``gop_bound``, ``deblock_bound``); encode
+   fps at CIF and 720p, decode fps at CIF, 720p and 1080p, and the SVC
+   clip's encode and decode rates, best and worst of 3 after a warm-up
+   (for the encodes, the encode and SVC phases' runs).
 
 The second-to-last line is one JSON object describing the kernels, and
 the last line ``{"ok": true, "device": {...}}``.
@@ -61,10 +74,11 @@ REPO = pathlib.Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "data" / "port"
 STAGES = ("m", "mr", "mri", "mriwdsoh")
 SEED = 1234
-# the deblock grids: CIF, 720p, 1080p (1088 coded rows) and 720p with
-# slice-edge and idc 1 filter flags
-DEBLOCK_GRIDS = (("CIF", 22, 18, False), ("720p", 80, 45, False),
-                 ("1080p", 120, 68, False), ("720p slices", 80, 45, True))
+# the deblock grids: CIF, 4CIF (the SVC clip's top layer), 720p, 1080p
+# (1088 coded rows) and 720p with slice-edge and idc 1 filter flags
+DEBLOCK_GRIDS = (("CIF", 22, 18, False), ("4CIF", 44, 36, False),
+                 ("720p", 80, 45, False), ("1080p", 120, 68, False),
+                 ("720p slices", 80, 45, True))
 # NVIDIA's data sheet for the H100 SXM at 700 W: HBM3 rate, and the
 # float32 rate outside the tensor cores, the nearest published rate for
 # the kernels' int32 arithmetic (their integer rate is no higher, so the
@@ -143,9 +157,11 @@ def fast_frames(name: str, device):
     return [j.fast for j in jobs], gw, gh, S
 
 
-def event_ms(torch, fn, reps):
-    """Mean ms of fn() over reps calls after one warm-up, CUDA events."""
-    fn()
+def event_ms(torch, fn, reps, warm=True):
+    """Mean ms of fn() over reps calls after one warm-up (none with
+    ``warm`` False), CUDA events."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -160,7 +176,8 @@ def event_ms(torch, fn, reps):
 def check_gop(torch, frames, gw, gh, S, stages_list, label):
     """The GOP kernel against its plain twin on the card for each stage
     set, on a seeded ring; returns (max_abs_err, numpy payload, the
-    kernel's and the twin's arguments and a fresh-ring maker)."""
+    kernel's arguments, a fresh-ring maker and the twin's ms per call of
+    the last stage set, timed on its check run)."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.decode.d_gop import ring_shapes
     import numpy as np
@@ -180,9 +197,11 @@ def check_gop(torch, frames, gw, gh, S, stages_list, label):
         rp = F.rings_from_numpy(*ring0, "cuda")
         ok_, *rk = F.decode_gop_fast(*args, *rk, gw=gw, gh=gh,
                                      stages=stages)
-        op, *rp = F.decode_gop_fast_plain(*args, *rp, gw=gw, gh=gh,
-                                          stages=stages)
-        torch.cuda.synchronize()
+        plain = []
+        plain_ms = event_ms(torch, lambda: plain.append(
+            F.decode_gop_fast_plain(*args, *rp, gw=gw, gh=gh,
+                                    stages=stages)), 1, warm=False)
+        op, *rp = plain[0]
         err = int((ok_.int() - op.int()).abs().max())
         same = torch.equal(ok_, op) and \
             torch.equal(rk[0][:, :, :Hp, :Wp], rp[0][:, :, :Hp, :Wp]) and \
@@ -193,28 +212,29 @@ def check_gop(torch, frames, gw, gh, S, stages_list, label):
         if not same:
             raise SystemExit(f"kernel != plain for {label}, stages {stages}")
         max_err = max(max_err, err)
-    return max_err, host, args, lambda: F.rings_from_numpy(*ring0, "cuda")
+    return (max_err, host, args,
+            lambda: F.rings_from_numpy(*ring0, "cuda"), plain_ms)
 
 
 def kernel_phase(torch, card):
     """The GOP kernel against its twin: the 16 pictures of cif_16 at every
     stage set, and the IDR picture of 720p_8 (3,600 intra MBs) at mri and
-    mriwdsoh; then kernel and twin times per CIF picture and the kernel's
-    time on the 720p IDR picture."""
+    mriwdsoh; then kernel and twin times per CIF picture (the twin's from
+    its mriwdsoh check run) and the kernel's time on the 720p IDR
+    picture."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
 
     frames, gw, gh, S = fast_frames("cif_16", "cuda")
-    err, host, args, rings = check_gop(torch, frames, gw, gh, S, STAGES,
-                                       "cif_16")
+    err, host, args, rings, plain_ms = check_gop(torch, frames, gw, gh, S,
+                                                 STAGES, "cif_16")
     hd, hgw, hgh, hS = fast_frames("720p_8", "cuda")
-    hd_err, _, hd_args, hd_rings = check_gop(
+    hd_err, _, hd_args, hd_rings, _ = check_gop(
         torch, hd[:1], hgw, hgh, hS, ("mri", "mriwdsoh"), "720p_8 IDR")
     K = len(frames)
-    rk, rp, rh = rings(), rings(), hd_rings()
+    plain_ms /= K
+    rk, rh = rings(), hd_rings()
     ms = event_ms(torch, lambda: F.decode_gop_fast(*args, *rk, gw=gw,
                                                    gh=gh), 10) / K
-    plain_ms = event_ms(torch, lambda: F.decode_gop_fast_plain(
-        *args, *rp, gw=gw, gh=gh), 1) / K
     hd_ms = event_ms(torch, lambda: F.decode_gop_fast(
         *hd_args, *rh, gw=hgw, gh=hgh), 3)
     bound_ms, bound_by = gop_bound(host, gw, gh)
@@ -259,10 +279,10 @@ def deblock_inputs(gw, gh, seed, flags=False):
 
 
 def deblock_phase(torch, card):
-    """The frame deblock kernel against its plain twin at DEBLOCK_GRIDS;
-    returns (max_abs_err, and at 720p, the geometry the encode path
-    deblocks most: the wrapper's and the twin's ms per frame and the
-    bound)."""
+    """The frame deblock kernel against its plain twin at DEBLOCK_GRIDS
+    (the twin timed on its check run); returns (max_abs_err, and at 720p,
+    the geometry the encode path deblocks most: the wrapper's and the
+    twin's ms per frame and the bound)."""
     from hartallo_tpu_torch.ops import deblock_fast as D
     from hartallo_tpu_torch.ops.deblock import edge_params
     max_err, at720 = 0, None
@@ -271,8 +291,11 @@ def deblock_phase(torch, card):
         tp = tuple(torch.tensor(p, device="cuda") for p in planes)
         ta = tuple(torch.tensor(a, device="cuda") for a in rest)
         got = D.deblock_frame_fast(tp, *ta, gw=gw, gh=gh)
-        want = D.deblock_frame_fast_plain(tp, *ta, gw=gw, gh=gh)
-        torch.cuda.synchronize()
+        plain = []
+        plain_ms = event_ms(torch, lambda: plain.append(
+            D.deblock_frame_fast_plain(tp, *ta, gw=gw, gh=gh)), 1,
+            warm=False)
+        want = plain[0]
         err = max(int((g - w).abs().max()) for g, w in zip(got, want))
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         print(f"deblock kernel phase {name} ({gw}x{gh} MBs): "
@@ -285,8 +308,6 @@ def deblock_phase(torch, card):
         aux = edge_params(*ta).to(torch.int16).contiguous()
         launch_ms = event_ms(torch, lambda: D._launch(aux, tp, gw=gw,
                                                       gh=gh), 20)
-        plain_ms = event_ms(torch, lambda: D.deblock_frame_fast_plain(
-            tp, *ta, gw=gw, gh=gh), 1)
         bound_ms, bound_by = deblock_bound(planes, rest)
         if name == "720p":
             at720 = (ms, plain_ms, bound_ms, bound_by)
@@ -320,6 +341,7 @@ def decode_fixture(torch, name):
 
 
 DECODE_MAIN = ("cif_16", "720p_8", "1080p_8")
+SVC = "svc3_4cif_8"
 
 
 def slice_phase(torch):
@@ -334,7 +356,8 @@ def slice_phase(torch):
           f"{launches}, deblock kernel launches {db}", flush=True)
     for name, st in stats.items():
         nf = load_fixture(name)[1]["frames"]
-        if st != {"kernel_pictures": nf, "scan_pictures": 0}:
+        if st != {"kernel_pictures": nf, "scan_pictures": 0,
+                  "general_pictures": 0}:
             raise SystemExit(f"{name}: expected {nf} kernel pictures and "
                              f"no scan picture, got {st}")
     if launches != sum(st["kernel_pictures"] for st in stats.values()):
@@ -358,7 +381,8 @@ def scan_phase(torch):
     launches, db = F.LAUNCHES, D.LAUNCHES
     print(f"scan phase: qcif_6_wp {st}, GOP kernel launches {launches}, "
           f"deblock kernel launches {db}", flush=True)
-    if st != {"kernel_pictures": 1, "scan_pictures": 5}:
+    if st != {"kernel_pictures": 1, "scan_pictures": 5,
+              "general_pictures": 0}:
         raise SystemExit(f"qcif_6_wp: expected 1 kernel / 5 scan pictures, "
                          f"got {st}")
     if launches != 1 or db != 5:
@@ -415,23 +439,238 @@ def encode_phase(torch):
     return launches
 
 
+def svc_clips(meta):
+    """The I420 clip of each layer of the SVC fixture, lowest first:
+    ``bench.make_clip`` at the top layer's size, each lower layer the
+    port's ``downsample_dyadic_np`` of the one above (the fixture's
+    layers are dyadic)."""
+    import numpy as np
+    from bench import make_clip
+    from hartallo_tpu_torch.svc.upsample import downsample_dyadic_np
+    layers, nf = meta["layers"], meta["frames"]
+    clips = [make_clip(*layers[-1], nf)]
+    for (w, h), (uw, uh) in zip(layers[-2::-1], layers[:0:-1]):
+        if (2 * w, 2 * h) != (uw, uh):
+            raise SystemExit(f"{SVC}: layer {w}x{h} is not dyadic")
+        frames = []
+        for f in clips[0]:
+            planes = (f[:uw * uh].reshape(uh, uw),
+                      f[uw * uh:uw * uh * 5 // 4].reshape(uh // 2, uw // 2),
+                      f[uw * uh * 5 // 4:].reshape(uh // 2, uw // 2))
+            frames.append(np.concatenate(
+                [downsample_dyadic_np(p).ravel() for p in planes]))
+        clips.insert(0, frames)
+    return clips
+
+
+def svc_encode(torch, meta, clips):
+    """Encode the SVC clips on the card through ``Codec.encode``, each
+    picture of every layer in turn; returns (stream, seconds)."""
+    from hartallo_tpu_torch.api import Codec, CodecConfig
+    cfg = CodecConfig(qp=meta["qp"], gop_size=meta["gop_size"],
+                      deblock=meta["deblock"], me_range=meta["me_range"],
+                      temporal_layers=meta["temporal_layers"])
+    for w, h in meta["layers"]:
+        cfg.add_layer(w, h)
+    codec = Codec(cfg)
+    t0 = time.perf_counter()
+    out = b""
+    for t in range(meta["frames"]):
+        for (w, h), clip in zip(meta["layers"], clips):
+            r = codec.encode(clip[t], w, h)
+            out += r.headers + r.data
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def svc_decode(torch, stream, **window):
+    """Decode the SVC fixture through ``Codec`` on the card; returns
+    (results, route stats, seconds)."""
+    from hartallo_tpu_torch.api import Codec, CodecConfig
+    codec = Codec(CodecConfig(**window))
+    t0 = time.perf_counter()
+    out = codec.decode_annexb(stream, tolerant=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if codec.decoder.device.type != "cuda":
+        raise SystemExit(f"{SVC}: Codec decoded on {codec.decoder.device}")
+    return out, codec.decoder.stats, dt
+
+
+class TwinChecks:
+    """While in effect, every call the path makes to either kernel's
+    wrapper, where the port calls it (``decoder.decode_gop_fast``, and
+    ``e_device.deblock_frame_fast`` for the encoder and the decoder's
+    general route), is held against the plain twin on the same inputs,
+    tolerance 0: the GOP kernel's output and ring (the ring cloned before
+    the call) and the deblocked planes.  The twins launch nothing, so the
+    launch counts stay the path's.  ``calls`` and ``err`` (max_abs_err)
+    per kernel, ``shapes`` the (gw, gh) grids seen."""
+
+    def __init__(self, torch):
+        from hartallo_tpu_torch.decode import decoder as DM
+        from hartallo_tpu_torch.encode import e_device as E
+        self.torch, self.DM, self.E = torch, DM, E
+        self.calls = {"gop": 0, "deblock": 0}
+        self.err = {"gop": 0, "deblock": 0}
+        self.shapes = {"gop": set(), "deblock": set()}
+
+    def _gop(self, *args, gw, gh, **kw):
+        from hartallo_tpu_torch.decode import d_gop_fast as F
+        torch = self.torch
+        rings = [r.clone() for r in args[7:]]
+        out, *rk = self.real_gop(*args, gw=gw, gh=gh, **kw)
+        op, *rp = F.decode_gop_fast_plain(*args[:7], *rings, gw=gw, gh=gh,
+                                          **kw)
+        Hp, Wp, Hcp, Wcp = gh * 16 + 64, gw * 16 + 64, gh * 8 + 64, \
+            gw * 8 + 64
+        same = torch.equal(out, op) and \
+            torch.equal(rk[0][:, :, :Hp, :Wp], rp[0][:, :, :Hp, :Wp]) and \
+            all(torch.equal(a[:, :Hcp, :Wcp], b[:, :Hcp, :Wcp])
+                for a, b in zip(rk[1:], rp[1:]))
+        self._record("gop", gw, gh, [(out, op)], same)
+        return (out, *rk)
+
+    def _deblock(self, planes, *rest, gw, gh):
+        from hartallo_tpu_torch.ops import deblock_fast as D
+        got = self.real_db(planes, *rest, gw=gw, gh=gh)
+        want = D.deblock_frame_fast_plain(planes, *rest, gw=gw, gh=gh)
+        same = all(self.torch.equal(g, w) for g, w in zip(got, want))
+        self._record("deblock", gw, gh, list(zip(got, want)), same)
+        return got
+
+    def _record(self, kernel, gw, gh, pairs, same):
+        err = max(int((a.int() - b.int()).abs().max()) for a, b in pairs)
+        if not same:
+            raise SystemExit(f"{SVC}: the {kernel} kernel differs from its "
+                             f"plain twin at {gw}x{gh} MBs on the path "
+                             f"(max_abs_err {err})")
+        self.calls[kernel] += 1
+        self.err[kernel] = max(self.err[kernel], err)
+        self.shapes[kernel].add((gw, gh))
+
+    def __enter__(self):
+        self.real_gop, self.real_db = self.DM.decode_gop_fast, \
+            self.E.deblock_frame_fast
+        self.DM.decode_gop_fast, self.E.deblock_frame_fast = self._gop, \
+            self._deblock
+        return self
+
+    def __exit__(self, *exc):
+        self.DM.decode_gop_fast, self.E.deblock_frame_fast = self.real_gop, \
+            self.real_db
+
+
+def svc_phase(torch):
+    """The SVC round trip, launch counts set to 0 just before it: encode
+    byte-equal to the fixture, every decode to its MD5s, the launches
+    matching the routes; in the encode and the full decode, every kernel
+    call held against its plain twin (``TwinChecks``).  Returns (GOP
+    kernel launches, deblock kernel launches, stream, clips, the twin
+    checks)."""
+    from hartallo_tpu_torch.decode import d_gop_fast as F
+    from hartallo_tpu_torch.ops import deblock_fast as D
+    stream, meta = load_fixture(SVC)
+    clips = svc_clips(meta)
+    twins = TwinChecks(torch)
+    F.LAUNCHES = D.LAUNCHES = 0
+    with twins:
+        mine, _ = svc_encode(torch, meta, clips)
+    enc_db = D.LAUNCHES
+    if mine != stream:
+        raise SystemExit(f"{SVC}: the port's stream ({len(mine)} bytes) "
+                         f"differs from the fixture ({len(stream)} bytes)")
+    routes, kernel_pictures = {}, 0
+    for key, window in (("frame_md5", {}), ("dqid_max0_md5",
+                                           {"dqid_max": 0}),
+                        ("tid_max0_md5", {"tid_max": 0})):
+        if window:
+            out, st, _ = svc_decode(torch, stream, **window)
+        else:
+            with twins:
+                out, st, _ = svc_decode(torch, stream)
+        if [frame_md5(r.frame) for r in out] != meta[key]:
+            raise SystemExit(f"{SVC} {window or 'full'} decode: MD5 "
+                             "mismatch")
+        if not window and [r.dqid for r in out] != meta["frame_dqid"]:
+            raise SystemExit(f"{SVC}: output DQIds differ")
+        routes[key] = st
+        kernel_pictures += st["kernel_pictures"]
+    launches, db = F.LAUNCHES, D.LAUNCHES
+    general = sum(st["general_pictures"] for st in routes.values())
+    encoded = meta["frames"] * len(meta["layers"])
+    print(f"SVC phase: {SVC} encoded byte-equal to the fixture "
+          f"({len(mine)} bytes, {encoded} pictures, {enc_db} deblock "
+          f"kernel launches); decodes (full, dqid_max=0, tid_max=0) equal "
+          f"to the MD5s; routes {routes}; GOP kernel launches {launches}, "
+          f"deblock kernel launches in the decodes {db - enc_db} for "
+          f"{general} general-route pictures", flush=True)
+    for kernel in ("gop", "deblock"):
+        print(f"SVC phase: {kernel} kernel == plain twin on "
+              f"{twins.calls[kernel]} calls of the encode and the full "
+              f"decode, MB grids {sorted(twins.shapes[kernel])}, "
+              f"max_abs_err {twins.err[kernel]}", flush=True)
+    if launches != kernel_pictures:
+        raise SystemExit(f"SVC: {launches} GOP kernel launches for "
+                         f"{kernel_pictures} kernel-route pictures")
+    if enc_db != encoded:
+        raise SystemExit(f"SVC: {enc_db} deblock kernel launches for "
+                         f"{encoded} encoded pictures")
+    if db - enc_db != general:
+        raise SystemExit(f"SVC: {db - enc_db} deblock kernel launches in "
+                         f"the decodes for {general} general-route pictures")
+    if twins.calls["deblock"] != encoded + routes["frame_md5"][
+            "general_pictures"] or not twins.calls["gop"]:
+        raise SystemExit(f"SVC: twin checks {twins.calls} do not cover the "
+                         "encode and the full decode")
+    return launches, db, stream, clips, twins
+
+
+def svc_fps(torch, card, stream, clips):
+    """Best and worst of 3 SVC encodes and decodes after a warm-up (the
+    SVC phase's runs), in access units (one picture of each layer) and in
+    pictures per second."""
+    meta = load_fixture(SVC)[1]
+    nl, nf = len(meta["layers"]), meta["frames"]
+    enc = [nf / svc_encode(torch, meta, clips)[1] for _ in range(3)]
+    dec = [nf / svc_decode(torch, stream)[2] for _ in range(3)]
+    for what, runs in (("encode", enc), ("decode", dec)):
+        print(f"[{card}] {SVC} port SVC {what}: access units/s best "
+              f"{max(runs):.2f} worst {min(runs):.2f} (pictures/s "
+              f"{max(runs) * nl:.2f} / {min(runs) * nl:.2f}; 3 runs after "
+              f"a warm-up)", flush=True)
+
+
+def encode_rates(torch, name, runs=3):
+    """Frames per second of ``runs`` encodes of a fixture's clip, each
+    stream equal to the fixture (no warm-up here)."""
+    rates = []
+    for _ in range(runs):
+        stream, dt, meta = encode_clip(torch, name)
+        if stream != load_fixture(name)[0]:
+            raise SystemExit(f"{name}: the encode differs from the fixture")
+        rates.append(meta["frames"] / dt)
+    return rates
+
+
+def decode_rates(torch, name, runs=3):
+    """Frames per second of ``runs`` decodes of a fixture after a warm-up
+    decode, every frame's MD5 checked."""
+    decode_fixture(torch, name)                                # warm-up
+    return [nf / dt for _, dt, nf in (decode_fixture(torch, name)
+                                      for _ in range(runs))]
+
+
 def encode_fps(torch, name, card):
     """Best and worst of 3 encodes; the encode phase's run was the
     warm-up."""
-    runs = []
-    for _ in range(3):
-        _, dt, meta = encode_clip(torch, name)
-        runs.append(meta["frames"] / dt)
+    runs = encode_rates(torch, name)
     print(f"[{card}] {name} port encode fps best {max(runs):.2f} worst "
           f"{min(runs):.2f} (3 runs after a warm-up)", flush=True)
 
 
 def fps(torch, name, card):
-    decode_fixture(torch, name)                                # warm-up
-    runs = []
-    for _ in range(3):
-        _, dt, nf = decode_fixture(torch, name)
-        runs.append(nf / dt)
+    runs = decode_rates(torch, name)
     print(f"[{card}] {name} port decode fps best {max(runs):.2f} worst "
           f"{min(runs):.2f} (3 runs after a warm-up)", flush=True)
 
@@ -466,23 +705,34 @@ def main() -> int:
     launches = slice_phase(torch)
     scan_phase(torch)
     db_launches = encode_phase(torch)
+    t_svc = time.perf_counter()
+    svc_launches, svc_db, svc_stream, clips, twins = svc_phase(torch)
+    svc_s = time.perf_counter() - t_svc
     encode_fps(torch, "cif_16", card)
     encode_fps(torch, "720p_8", card)
     for name in DECODE_MAIN:
         fps(torch, name, card)
+    t_svc = time.perf_counter()
+    svc_fps(torch, card, svc_stream, clips)
+    svc_s += time.perf_counter() - t_svc
     print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - started:.1f} s", flush=True)
+          f"{time.perf_counter() - started:.1f} s (the SVC phase and its "
+          f"rates {svc_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": [
         {"name": "decode_gop_fast", "route": "cuda",
          "source": "hartallo_tpu_torch/csrc/d_gop.cu",
          "replaces": "hartallo_tpu/decode/d_gop_pallas.py:1048",
-         "launches": launches, "max_abs_err": max_err,
+         "launches": launches + svc_launches,
+         "launches_by_path": {"decode": launches, "svc": svc_launches},
+         "max_abs_err": max(max_err, twins.err["gop"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
         {"name": "deblock_frame_fast", "route": "cuda",
          "source": "hartallo_tpu_torch/csrc/deblock.cu",
          "replaces": "hartallo_tpu/ops/deblock_pallas.py:349",
-         "launches": db_launches, "max_abs_err": db_err,
+         "launches": db_launches + svc_db,
+         "launches_by_path": {"encode": db_launches, "svc": svc_db},
+         "max_abs_err": max(db_err, twins.err["deblock"]),
          "ms": db_ms, "plain_ms": db_plain_ms, "bound_ms": db_bound_ms,
          "bound_by": db_bound_by, "library_ms": None}]}))
     print(card)

@@ -1,5 +1,5 @@
-"""Public API of the port: ``Codec`` for single-layer AVC on a torch
-device (the card by default).
+"""Public API of the port: ``Codec`` for AVC and SVC on a torch device
+(the card by default).
 
 ``CodecConfig``, ``DecodeResult`` and ``EncodeResult`` are the port's own
 copies of the dataclasses of ``hartallo_tpu/api.py``, field for field.
@@ -95,19 +95,19 @@ class EncodeResult:
 
 
 class Codec:
-    """H.264 AVC codec instance on one torch device.
+    """H.264 AVC/SVC codec instance on one torch device.
 
     ``decode(nal)`` consumes one NAL unit (no start code);
     ``decode_annexb(stream)`` a whole Annex-B stream; ``encode(frame)``
-    one I420 frame and ``encode_frames(frames)`` a sequence of them.  SVC
-    (several spatial or quality layers) is not ported yet.  ``device`` is
-    the card unless the caller names another (the tests pass "cpu")."""
+    one I420 frame and ``encode_frames(frames)`` a sequence of them.  With
+    two or more spatial layers (``config.layers``) or ``quality_layers``
+    2 the encoder is ``encode.svc.SvcEncoder``, fed one picture of each
+    layer in turn, lowest layer first.  ``device`` is the card unless the
+    caller names another (the tests pass "cpu")."""
 
     def __init__(self, config: Optional[CodecConfig] = None, *,
                  device="cuda"):
         self.config = config or CodecConfig()
-        if self.config.dqid_min >= 0 or self.config.dqid_max >= 0:
-            raise NotImplementedError("SVC decode window not ported")
         self.device = device
         self._decoder = None
         self._encoder = None
@@ -117,7 +117,9 @@ class Codec:
         if self._decoder is None:
             from hartallo_tpu_torch.decode.decoder import Decoder
             self._decoder = Decoder(device=self.device,
-                                    tid_max=self.config.tid_max)
+                                    tid_max=self.config.tid_max,
+                                    dqid_min=self.config.dqid_min,
+                                    dqid_max=self.config.dqid_max)
         return self._decoder
 
     # -- decode -----------------------------------------------------------
@@ -137,9 +139,14 @@ class Codec:
         if self._encoder is None:
             if len(self.config.layers) >= 2 or \
                     self.config.quality_layers >= 2:
-                raise NotImplementedError("SVC encoder not ported yet")
-            from hartallo_tpu_torch.encode.encoder import Encoder
-            self._encoder = Encoder(self.config, device=self.device)
+                from hartallo_tpu_torch.encode.svc import SvcEncoder
+                if not self.config.layers:
+                    self.config.add_layer(self.config.width,
+                                          self.config.height)
+                self._encoder = SvcEncoder(self.config, device=self.device)
+            else:
+                from hartallo_tpu_torch.encode.encoder import Encoder
+                self._encoder = Encoder(self.config, device=self.device)
         return self._encoder
 
     def encode(self, frame: np.ndarray, width: int = 0,
@@ -149,8 +156,11 @@ class Codec:
 
     def encode_frames(self, frames, width: int = 0,
                       height: int = 0) -> List[EncodeResult]:
-        """Multi-frame encode: the device work of every picture is issued
-        before the host packs the first one."""
-        return self.encoder.encode_frames(frames,
-                                          width or self.config.width,
-                                          height or self.config.height)
+        """Multi-frame encode: for single-layer AVC the device work of every
+        picture is issued before the host packs the first one; the SVC
+        encoder takes the pictures one at a time."""
+        w = width or self.config.width
+        h = height or self.config.height
+        if hasattr(self.encoder, "encode_frames"):
+            return self.encoder.encode_frames(frames, w, h)
+        return [self.encoder.encode_frame(f, w, h) for f in frames]

@@ -9,8 +9,9 @@ cap ``kmax`` (a TPU scalar-memory limit), the intra-list capacity
 CUDA kernel and its twin take each batch's own intra and residual
 counts, so ``eligible`` keeps every rule of the JAX package's but the
 intra count, and every 720p and 1080p IDR picture takes the kernel.  The
-SVC residual helpers, which only the general decode path uses, are
-dropped too.
+SVC residual helpers of the general decode path and the SVC encoder,
+``accumulated_residual_planes_np`` and ``residual_planes_np``, are
+copied unchanged.
 
 The payload per picture:
 
@@ -426,3 +427,97 @@ def pack_fast(sd, fmb_v, fmb_h, fint, wslot: int, chroma_qp_off: int,
                      counts=counts, wslot=int(wslot),
                      ref_slot=int(sd.ref_idx.flat[0]),
                      ilist=ilist, ivals=ivals)
+
+
+def accumulated_residual_planes_np(coeffs0, coeffs1, chroma_qp_off: int):
+    """SVC quality refinement (G.8.5.1 family, tcoeff_level_prediction_
+    flag = 0): the scaled transform coefficients of the quality-base
+    picture and the refinement picture ACCUMULATE before one inverse
+    transform — sTCoeff = deq(L0, qp0) + deq(L1, qp1), residual =
+    IDCT(sTCoeff) (G-127..G-130; reference
+    _hl_codec_264_decode_svc_refinement_process_transform_coeff_residual_4x4,
+    hl_codec_264_decode_svc.c:92-146 family).  Differs from summing the
+    two layers' pixel residuals by the single final IDCT rounding.
+
+    coeffs0/coeffs1: (luma_ac (gh,gw,16,4,4), chroma_ac (gh,gw,2,4,4,4),
+    chroma_dc (gh,gw,2,2,2), qp (gh,gw)) quantized levels per layer.
+    Returns (res_y, res_cb, res_cr) int32 planes."""
+    lac0, cac0, cdc0, qp0 = coeffs0
+    lac1, cac1, cdc1, qp1 = coeffs1
+    gh, gw = qp0.shape
+    n = gh * gw
+    q0 = np.asarray(qp0, np.int32).reshape(n)
+    q1 = np.asarray(qp1, np.int32).reshape(n)
+    qc0 = QP_SCALE_CHROMA[np.clip(q0 + chroma_qp_off, 0, 51)]
+    qc1 = QP_SCALE_CHROMA[np.clip(q1 + chroma_qp_off, 0, 51)]
+
+    d_l = _dequant_np(np.asarray(lac0, np.int32).reshape(n, 16, 4, 4),
+                      q0[:, None]) + \
+        _dequant_np(np.asarray(lac1, np.int32).reshape(n, 16, 4, 4),
+                    q1[:, None])
+    r_l = _idct_np(d_l)
+    res_y = np.zeros((gh, gw, 16, 16), np.int32)
+    for b in range(16):
+        res_y[:, :, _BLK_Y[b]:_BLK_Y[b] + 4, _BLK_X[b]:_BLK_X[b] + 4] = \
+            r_l[:, b].reshape(gh, gw, 4, 4)
+    res_y = res_y.transpose(0, 2, 1, 3).reshape(gh * 16, gw * 16)
+
+    d_c = _dequant_np(np.asarray(cac0, np.int32).reshape(n, 2, 4, 4, 4),
+                      qc0[:, None, None]) + \
+        _dequant_np(np.asarray(cac1, np.int32).reshape(n, 2, 4, 4, 4),
+                    qc1[:, None, None])
+    dcc = _chroma_dc_descale_np(
+        np.asarray(cdc0, np.int32).reshape(n, 2, 2, 2),
+        np.broadcast_to(qc0[:, None], (n, 2))) + \
+        _chroma_dc_descale_np(
+            np.asarray(cdc1, np.int32).reshape(n, 2, 2, 2),
+            np.broadcast_to(qc1[:, None], (n, 2)))
+    d_c[..., 0, 0] = dcc.reshape(n, 2, 4)
+    r_c = _idct_np(d_c)
+    res_c = np.zeros((gh, gw, 2, 8, 8), np.int32)
+    for b in range(4):
+        r0, c0 = (b // 2) * 4, (b % 2) * 4
+        res_c[:, :, :, r0:r0 + 4, c0:c0 + 4] = \
+            r_c[:, :, b].reshape(gh, gw, 2, 4, 4)
+    res_c = res_c.transpose(2, 0, 3, 1, 4).reshape(2, gh * 8, gw * 8)
+    return res_y, res_c[0], res_c[1]
+
+
+def residual_planes_np(sd, chroma_qp_off: int):
+    """Dense inter-MB residual planes (res_y (H,W), res_cb, res_cr int32)
+    for SVC inter-layer residual prediction: the rS sample arrays of
+    G.8.5.3/G.8.5.5 — inter macroblocks carry their decoded residual,
+    intra/I_BL macroblocks are re-initialised to zero (reference:
+    _hl_codec_264_decode_svc_sample_array_reinit call sites,
+    hl_codec_264_decode_svc.c:700-830)."""
+    gh, gw = sd.gh, sd.gw
+    n = gh * gw
+    qp = sd.qp.reshape(n).astype(np.int32)
+    qpc = QP_SCALE_CHROMA[np.clip(qp + chroma_qp_off, 0, 51)]
+    kind = sd.mb_kind.reshape(n)
+    inter = (kind >= 3) & (kind != 8)
+
+    lac = sd.luma_ac.reshape(n, 16, 4, 4)
+    r_l = _idct_np(_dequant_np(lac, qp[:, None]))       # (n,16,4,4)
+    r_l[~inter] = 0
+    res_y = np.zeros((gh, gw, 16, 16), np.int32)
+    for b in range(16):
+        res_y[:, :, _BLK_Y[b]:_BLK_Y[b] + 4, _BLK_X[b]:_BLK_X[b] + 4] = \
+            r_l[:, b].reshape(gh, gw, 4, 4)
+    res_y = res_y.transpose(0, 2, 1, 3).reshape(gh * 16, gw * 16)
+
+    cac = sd.chroma_ac.reshape(n, 2, 4, 4, 4)
+    dcc = _chroma_dc_descale_np(
+        sd.chroma_dc.reshape(n, 2, 2, 2),
+        np.broadcast_to(qpc[:, None], (n, 2)))
+    d_c = _dequant_np(cac, qpc[:, None, None])
+    d_c[..., 0, 0] = dcc.reshape(n, 2, 4)
+    r_c = _idct_np(d_c)                                  # (n,2,4,4,4)
+    r_c[~inter] = 0
+    res_c = np.zeros((gh, gw, 2, 8, 8), np.int32)
+    for b in range(4):
+        r0, c0 = (b // 2) * 4, (b % 2) * 4
+        res_c[:, :, :, r0:r0 + 4, c0:c0 + 4] = \
+            r_c[:, :, b].reshape(gh, gw, 2, 4, 4)
+    res_c = res_c.transpose(2, 0, 3, 1, 4).reshape(2, gh * 8, gw * 8)
+    return res_y, res_c[0], res_c[1]

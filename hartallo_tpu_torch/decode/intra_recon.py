@@ -1,7 +1,12 @@
-"""Intra reconstruction as a wavefront over MB anti-diagonals (torch).
+"""Residual decode and intra reconstruction as a wavefront over MB
+anti-diagonals (torch).
 
-Port of ``intra_reconstruct`` and ``wavefront_schedule`` of
-``hartallo_tpu/decode/intra_recon.py``: a Python loop over the
+Port of ``compute_residuals``, ``intra_reconstruct`` and
+``wavefront_schedule`` of ``hartallo_tpu/decode/intra_recon.py``.
+``compute_residuals`` is the frame-batched residual decode of the general
+decode path: flat dequant, or the per-MB LevelScale of non-flat scaling
+lists (8.5.9), then the inverse transforms.  The wavefront is a Python
+loop over the
 anti-diagonals d = mx + 2*my (the Intra4x4 top-right dependency forces
 slope 2) processes every MB of a diagonal at once, and the 16 Intra4x4
 sub-blocks of an MB as 16 sequential batched steps.  The availability
@@ -13,12 +18,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hartallo_tpu_torch.core.tables import LUMA_4x4_BLK_XY
+from hartallo_tpu_torch.core import tables as T
+from hartallo_tpu_torch.core.tables import LUMA_4x4_BLK_XY, QP_SCALE_CHROMA
 from hartallo_tpu_torch.ops.intra import (pred16x16_all, pred4x4_all,
                                           pred_chroma_all)
 from hartallo_tpu_torch.ops.wavefront import (plane_to_tiles, shift_k, skew,
                                               skew_geometry, tiles_to_plane,
                                               unskew)
+from hartallo_tpu_torch.ops.transform import (_hadamard_2x2, _hadamard_4x4,
+                                              chroma_dc_descale, dequant_4x4,
+                                              inverse_transform_4x4,
+                                              luma_dc_descale_intra16)
 
 PAD = 32  # plane padding (also the dead-zone target for masked-out writes)
 
@@ -29,6 +39,122 @@ _TR_NEVER = {3, 7, 11, 13, 15}
 # blkIdx 5 needs the above-right MB (unavailable at the right frame edge)
 _TR_EDGE_BLK = 5
 
+
+# ---------------------------------------------------------------------------
+# Residual assembly (frame-batched)
+# ---------------------------------------------------------------------------
+
+def _dequant_w(c, qp, ls):
+    """8.5.12.1 with an explicit LevelScale tensor (weightScale applied);
+    c (..., 4, 4), qp (...,), ls (..., 4, 4).  Reference
+    hl_codec_264_quant.c:68-110."""
+    c = c.to(torch.int32)
+    qdiv = (qp.to(torch.int32) // 6)[..., None, None]
+    hi = (c * ls) << torch.clamp(qdiv - 4, min=0)
+    lo = (c * ls + (1 << torch.clamp(3 - qdiv, min=0))) >> \
+        torch.clamp(4 - qdiv, min=0)
+    return torch.where(qp[..., None, None] >= 24, hi, lo)
+
+
+def _dc_descale_luma_w(c, qp, scale00):
+    """8.5.10 with explicit LevelScale[0][0] (...,) per MB."""
+    f = _hadamard_4x4(c.to(torch.int32))
+    scale = scale00[..., None, None]
+    qdiv = (qp.to(torch.int32) // 6)[..., None, None]
+    hi = (f * scale) << torch.clamp(qdiv - 6, min=0)
+    lo = (f * scale + (1 << torch.clamp(5 - qdiv, min=0))) >> \
+        torch.clamp(6 - qdiv, min=0)
+    return torch.where(qp[..., None, None] >= 36, hi, lo)
+
+
+def _dc_descale_chroma_w(c, qp, scale00):
+    """8.5.11 (4:2:0) with explicit LevelScale[0][0] (...,) per MB."""
+    f = _hadamard_2x2(c.to(torch.int32))
+    return ((f * scale00[..., None, None]) <<
+            (qp.to(torch.int32) // 6)[..., None, None]) >> 5
+
+
+def _luma_plane_of_blocks(r):
+    """(gh, gw, 16, 4, 4) blocks in blkIdx order -> (gh, gw, 16, 16)."""
+    gh, gw = r.shape[:2]
+    res_y = torch.zeros((gh, gw, 16, 16), dtype=torch.int32, device=r.device)
+    for blk in range(16):
+        res_y[:, :, _BLK_Y[blk]:_BLK_Y[blk] + 4,
+              _BLK_X[blk]:_BLK_X[blk] + 4] = r[:, :, blk]
+    return res_y
+
+
+def _chroma_plane_of_blocks(rc):
+    """(gh, gw, 2, 4, 4, 4) raster blocks -> (gh, gw, 2, 8, 8)."""
+    gh, gw = rc.shape[:2]
+    res_c = torch.zeros((gh, gw, 2, 8, 8), dtype=torch.int32,
+                        device=rc.device)
+    for b in range(4):
+        r0, c0 = (b // 2) * 4, (b % 2) * 4
+        res_c[:, :, :, r0:r0 + 4, c0:c0 + 4] = rc[:, :, :, b]
+    return res_c
+
+
+def compute_residuals(luma_ac, luma_dc, chroma_ac, chroma_dc, qp,
+                      is_i16, chroma_qp_index_offset: int,
+                      weight4x4=None, mb_is_inter=None):
+    """Returns (res_y (gh, gw, 16, 16), res_c (gh, gw, 2, 8, 8)) int32.
+
+    luma_ac (gh, gw, 16, 4, 4) raster coeffs per blkIdx; luma_dc
+    (gh, gw, 4, 4); chroma_ac (gh, gw, 2, 4, 4, 4); chroma_dc
+    (gh, gw, 2, 2, 2); qp (gh, gw); is_i16 (gh, gw) bool, all tensors on
+    one device.
+
+    weight4x4: optional (2, 3, 4, 4) int32 weightScale tensor (non-flat
+    scaling lists, 8.5.9); mb_is_inter (gh, gw) bool then selects the
+    list class.  The chroma DC descale indexes the INTRA lists regardless,
+    matching the reference (hl_codec_264_transf.c:684-702)."""
+    gh, gw = qp.shape
+    dev = qp.device
+    qp = qp.to(torch.int32)
+    qp16 = qp[..., None].expand(gh, gw, 16)
+    blk_row = torch.as_tensor(_BLK_Y // 4, device=dev)
+    blk_col = torch.as_tensor(_BLK_X // 4, device=dev)
+    qpc = torch.as_tensor(QP_SCALE_CHROMA, dtype=torch.int32, device=dev)[
+        torch.clamp(qp + chroma_qp_index_offset, 0, 51).long()]
+    qpc8 = qpc[..., None, None].expand(gh, gw, 2, 4)
+    cr = torch.arange(4, device=dev) // 2
+    cc = torch.arange(4, device=dev) % 2
+
+    if weight4x4 is not None:
+        LS = weight4x4.to(torch.int32)[:, :, None] * \
+            torch.as_tensor(T.QUANT_V, dtype=torch.int32,
+                            device=dev)[None, None]      # (2, 3, 6, 4, 4)
+        inter = mb_is_inter.long()
+        m6 = (qp % 6).long()
+        d = _dequant_w(luma_ac, qp16, LS[inter, 0, m6][:, :, None])
+        dc = _dc_descale_luma_w(luma_dc, qp, LS[0, 0, m6, 0, 0])
+        mc6 = (qpc % 6).long()
+        dcc = torch.stack(
+            [_dc_descale_chroma_w(chroma_dc[:, :, c], qpc,
+                                  LS[0, c + 1, mc6, 0, 0])
+             for c in range(2)], dim=2)                  # (gh, gw, 2, 2, 2)
+        ls_c = torch.stack([LS[inter, c + 1, mc6] for c in range(2)],
+                           dim=2)                        # (gh, gw, 2, 4, 4)
+        dac = _dequant_w(chroma_ac, qpc8, ls_c[:, :, :, None])
+    else:
+        d = dequant_4x4(luma_ac, qp16)
+        dc = luma_dc_descale_intra16(luma_dc, qp)        # (gh, gw, 4, 4)
+        dcc = chroma_dc_descale(chroma_dc, qpc[..., None])
+        dac = dequant_4x4(chroma_ac, qpc8)
+    # Intra16x16: replace each block's DC with the descaled Hadamard DC
+    # (dc[i][j] belongs to the block at block-row i, block-column j)
+    d[..., 0, 0] = torch.where(is_i16[..., None],
+                               dc[:, :, blk_row, blk_col], d[..., 0, 0])
+    res_y = _luma_plane_of_blocks(inverse_transform_4x4(d))
+    dac[..., 0, 0] = dcc[:, :, :, cr, cc]
+    res_c = _chroma_plane_of_blocks(inverse_transform_4x4(dac))
+    return res_y, res_c
+
+
+# ---------------------------------------------------------------------------
+# Wavefront scheduling (host precompute)
+# ---------------------------------------------------------------------------
 
 def wavefront_schedule(gw: int, gh: int):
     """Anti-diagonals d = mx + 2*my; returns (D, M, 2) int32 (my, mx) with

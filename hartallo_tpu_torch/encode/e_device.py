@@ -77,6 +77,40 @@ def _shift_map(a: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([first, a.narrow(dim, 0, a.shape[dim] - 1)], dim=dim)
 
 
+def deblock_grids(planes, mb_is_intra, nnz, mvg, refg, qp, chroma_qp_off,
+                  gw: int, gh: int, fmb_v=None, fmb_h=None, fint=None,
+                  alpha_off=None, beta_off=None):
+    """One frame deblock through ``deblock_frame_fast`` from per-4x4
+    grids, on the device: the encoder's in-loop deblock and the decoder's
+    general route.
+
+    nnz (4gh,4gw) luma TotalCoeff; mvg (4gh,4gw,2) quarter-pel MVs; refg
+    (4gh,4gw) refIdx; mb_is_intra, fmb_v, fmb_h, fint (gh,gw) bool (the
+    edge flags default to every MB edge inside the picture and every
+    internal edge); qp and the alpha/beta offsets (gh,gw) int32 (the
+    offsets default to 0); planes PAD-padded int32.  Returns the new
+    planes."""
+    dev = qp.device
+    if fint is None:
+        fint = torch.ones((gh, gw), dtype=torch.bool, device=dev)
+    if fmb_v is None:
+        fmb_v = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
+        fmb_v[:, 1:] = True
+    if fmb_h is None:
+        fmb_h = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
+        fmb_h[1:, :] = True
+    bs_v, bs_h = compute_bs(mb_is_intra, nnz, mvg, refg,
+                            torch.as_tensor(fmb_v, device=dev),
+                            torch.as_tensor(fmb_h, device=dev), fint)
+    qpc = qpc_of(qp, chroma_qp_off)
+    zeros = torch.zeros((gh, gw), dtype=torch.int32, device=dev)
+    return deblock_frame_fast(
+        planes, bs_v, bs_h, qp, _shift_map(qp, 1), _shift_map(qp, 0), qpc,
+        _shift_map(qpc, 1), _shift_map(qpc, 0),
+        zeros if alpha_off is None else alpha_off,
+        zeros if beta_off is None else beta_off, gw=gw, gh=gh)
+
+
 def deblock_recon_device(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
                          planes, gw: int, gh: int, fmb_v=None, fmb_h=None):
     """In-loop deblock of the encoder recon, on the device.
@@ -91,21 +125,8 @@ def deblock_recon_device(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
         .reshape(gh, gw, 4, 4).permute(0, 2, 1, 3).reshape(4 * gh, 4 * gw)
     mvg = mv44.permute(0, 2, 1, 3, 4).reshape(4 * gh, 4 * gw, 2)
     refg = ref44.permute(0, 2, 1, 3).reshape(4 * gh, 4 * gw)
-    fint = torch.ones((gh, gw), dtype=torch.bool, device=dev)
-    if fmb_v is None:
-        fmb_v = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
-        fmb_v[:, 1:] = True
-    if fmb_h is None:
-        fmb_h = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
-        fmb_h[1:, :] = True
-    bs_v, bs_h = compute_bs(mb_is_intra, nnz, mvg, refg,
-                            torch.as_tensor(fmb_v, device=dev),
-                            torch.as_tensor(fmb_h, device=dev), fint)
-    qpc = qpc_of(qp, chroma_qp_off)
-    zeros = torch.zeros((gh, gw), dtype=torch.int32, device=dev)
-    return deblock_frame_fast(planes, bs_v, bs_h, qp, _shift_map(qp, 1),
-                              _shift_map(qp, 0), qpc, _shift_map(qpc, 1),
-                              _shift_map(qpc, 0), zeros, zeros, gw=gw, gh=gh)
+    return deblock_grids(planes, mb_is_intra, nnz, mvg, refg, qp,
+                         chroma_qp_off, gw, gh, fmb_v=fmb_v, fmb_h=fmb_h)
 
 
 def _split_src(src_u8, gw: int, gh: int):

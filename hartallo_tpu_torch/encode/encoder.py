@@ -6,9 +6,12 @@ Port of class ``Encoder`` of ``hartallo_tpu/encode/encoder.py`` (reference
 ``hl_codec_264.c:404-1104`` and ``hl_codec_264_encode.c``).  The host code
 is the port's copy of the JAX package's host modules: parameter sets,
 slice headers, NAL writing, ``FramePacker`` and ``native`` (CAVLC), MVD
-and skip derivation, FMO maps and ``RateControl``.  The SVC-only helpers
-(``_deblock_recon``, ``_planes_from_mbs``) and the uncalled ``_encode_p``
-are not ported.
+and skip derivation, FMO maps and ``RateControl``.  The hooks of the SVC
+encoder (``encode/svc.py``) are here too: ``_deblock_recon``, the in-loop
+deblock of an SVC-coded picture through the deblock kernel,
+``_planes_from_mbs``, and the per-picture ``_last_motion`` /
+``_last_coeffs`` a following layer infers motion and residual from.  The
+uncalled ``_encode_p`` is not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from hartallo_tpu_torch.decode.intra_recon import (PAD, availability_masks,
                                                    availability_tl,
                                                    availability_tr)
 from hartallo_tpu_torch.encode.e_device import (INTRA_FIELDS, P_FIELDS,
+                                                deblock_recon_device,
                                                 i_frame_fused, p_frame_fused,
                                                 p_gop_fused, pack_src,
                                                 unpack)
@@ -74,6 +78,8 @@ class Encoder:
         self.sps: Optional[SPS] = None
         self.pps: Optional[PPS] = None
         self._ref_planes = None      # deblocked recon (padded) for P frames
+        self._last_motion = None     # (mv44, ref_idx, intra) of the last
+        self._last_coeffs = None     # picture; (arrays, qp, mb_kind) of it
         self._headers = b""
         self._rc = None              # JVT-G012 controller when rc enabled
         self._poc_cnt = 0            # frames since IDR (POC/2 for types 0/1)
@@ -410,6 +416,10 @@ class Encoder:
         if is_idr:
             arrays = unpack(buf, INTRA_FIELDS, gh, gw)
             mb_kind = np.where(arrays["use_i16"] > 0, 1, 0).astype(np.int8)
+            self._last_coeffs = (arrays, qp, mb_kind)
+            self._last_motion = (np.zeros((gh, gw, 4, 4, 2), np.int32),
+                                 np.zeros((gh, gw, 4), np.int8),
+                                 np.ones((gh, gw), bool))
             payload = self._pack_slices(arrays, qp, mb_kind, ranges,
                                         is_idr=True, is_p=False,
                                         frame_num=pend["frame_num"],
@@ -430,6 +440,7 @@ class Encoder:
             mb_kind = np.where(is_intra,
                                np.where(arrays["use_i16"] != 0, 1, 0),
                                mb_kind).astype(np.int8)
+            self._last_coeffs = (arrays, qp, mb_kind)
             arrays.update({
                 "ref_idx": np.zeros((gh, gw, 4), np.int8),
                 "sub_types": np.zeros((gh, gw, 4), np.int8),
@@ -440,6 +451,9 @@ class Encoder:
             mvd, skip_ok = compute_mvds_and_skip(
                 mb_kind, arrays["mv44"], arrays["ref_idx"],
                 arrays["sub_types"], coded, pend["slice_id"])
+            self._last_motion = (arrays["mv44"].astype(np.int32),
+                                 arrays["ref_idx"].astype(np.int8),
+                                 is_intra)
             skip_ok &= mb_kind == MB_P16X16
             payload = self._pack_slices(arrays, qp, mb_kind, ranges,
                                         is_idr=False, is_p=True, mvd=mvd,
@@ -563,3 +577,26 @@ class Encoder:
         else:
             parts = [one(item) for item in enumerate(ranges)]
         return b"".join(parts)
+
+    # ------------------------------------------------------------------
+    def _deblock_recon(self, arrays, qp, mb_kind, planes, gw, gh):
+        """In-loop deblock of a picture the SVC encoder coded, through
+        ``deblock_frame_fast`` (the CUDA kernel on a CUDA device): bS from
+        the luma AC TotalCoeff (what the decoder reconstructs from CAVLC),
+        ``mb_kind <= 2`` as intra, ``arrays["mv44"]`` when present, one
+        reference; slice offsets 0.  arrays/qp/mb_kind numpy, planes
+        PAD-padded int32 tensors."""
+        zeros44 = np.zeros((gh, gw, 4, 4), np.int32)
+        mv44 = arrays.get("mv44", np.zeros((gh, gw, 4, 4, 2), np.int32))
+        return deblock_recon_device(
+            self._tensor(arrays["luma_ac"], torch.int32),
+            self._tensor(mv44, torch.int32),
+            self._tensor(zeros44), self._tensor(mb_kind <= 2),
+            self._tensor(qp, torch.int32), self.pps.chroma_qp_index_offset,
+            planes, gw, gh)
+
+
+def _planes_from_mbs(mbs: torch.Tensor) -> torch.Tensor:
+    """(gh, gw, S, S) MB tiles -> (gh*S, gw*S) plane."""
+    gh, gw, S, _ = mbs.shape
+    return mbs.permute(0, 2, 1, 3).reshape(gh * S, gw * S)

@@ -77,6 +77,87 @@ def weighted_rewrite(stream: bytes) -> bytes:
     return out
 
 
+def scaling_list_rewrite(stream: bytes) -> bytes:
+    """The stream's SPS moves to the High profile with non-flat 4x4
+    scaling lists (the default intra lists, a ramp for the inter lists)
+    and flat 8x8 lists, the rewrite of tests/test_scaling_lists.py; every
+    picture then takes the general decode path.  tools/make_port_fixtures.py
+    stores this rewrite of qcif_6 as the qcif_6_sl fixture."""
+    from hartallo_tpu.decode.params import DEFAULT_4X4_INTRA
+
+    from _rewrite import rewrite_stream
+    ramp = np.clip(np.arange(16) + 9, 8, 40).astype(np.int32)
+
+    def edit(sps):
+        sps.profile_idc = 100
+        sps.scaling_lists_4x4 = [DEFAULT_4X4_INTRA] * 3 + [ramp] * 3
+        sps.scaling_lists_8x8 = [np.full(64, 16, np.int32)] * 2
+    return rewrite_stream(stream, edit_sps=edit)
+
+
+def svc_config(CodecConfig, meta: dict):
+    """The encoder configuration of an SVC fixture's metadata, for either
+    package's ``CodecConfig`` class."""
+    keys = ("qp", "gop_size", "deblock", "me_range", "temporal_layers",
+            "svc_inter_layer_p", "svc_residual_pred", "quality_layers",
+            "quality_qp_delta")
+    cfg = CodecConfig(**{k: meta[k] for k in keys if k in meta})
+    if len(meta["layers"]) == 1:
+        cfg.width, cfg.height = meta["layers"][0]
+    else:
+        for w, h in meta["layers"]:
+            cfg.add_layer(w, h)
+    return cfg
+
+
+def _resize_nearest(p, oh, ow):
+    h, w = p.shape
+    return p[(np.arange(oh) * h // oh)[:, None],
+             (np.arange(ow) * w // ow)[None, :]]
+
+
+def layer_clips(meta: dict):
+    """The I420 clip of each layer of an SVC fixture: ``bench.make_clip``
+    at the top layer's size; each lower layer from the one above it by
+    ``downsample_dyadic_np`` at half its size, the same frames at the
+    same size, and a nearest-sample resize otherwise (a non-dyadic
+    ratio)."""
+    from bench import make_clip
+    from hartallo_tpu_torch.svc.upsample import downsample_dyadic_np
+
+    layers, nf = meta["layers"], meta["frames"]
+    clips = [make_clip(*layers[-1], nf)]
+    for (w, h), (uw, uh) in zip(layers[-2::-1], layers[:0:-1]):
+        frames = []
+        for f in clips[0]:
+            y = f[:uw * uh].reshape(uh, uw)
+            u = f[uw * uh:uw * uh * 5 // 4].reshape(uh // 2, uw // 2)
+            v = f[uw * uh * 5 // 4:].reshape(uh // 2, uw // 2)
+            if (w, h) == (uw, uh):
+                planes = (y, u, v)
+            elif (2 * w, 2 * h) == (uw, uh):
+                planes = tuple(downsample_dyadic_np(p) for p in (y, u, v))
+            else:
+                planes = (_resize_nearest(y, h, w),
+                          _resize_nearest(u, h // 2, w // 2),
+                          _resize_nearest(v, h // 2, w // 2))
+            frames.append(np.concatenate([p.ravel() for p in planes]))
+        clips.insert(0, frames)
+    return clips
+
+
+def svc_encode(codec, meta: dict) -> bytes:
+    """Encode an SVC fixture's clips through ``codec.encode``, each
+    picture of every layer in turn, lowest layer first."""
+    clips = layer_clips(meta)
+    out = b""
+    for t in range(meta["frames"]):
+        for (w, h), clip in zip(meta["layers"], clips):
+            r = codec.encode(clip[t], w, h)
+            out += r.headers + r.data
+    return out
+
+
 def queued_jobs(stream: bytes, device="cpu", eligible=None):
     """Parse a stream with the port's decoder without decoding it; returns
     (jobs, (gw, gh, S, chroma_qp_off)).  ``eligible`` replaces
@@ -108,6 +189,27 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is "
                     "False")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def twin_checked_deblock(monkeypatch):
+    """Wrap the deblock kernel's entry point where the encoder and the
+    decoder's general route call it (``e_device.deblock_grids``): every
+    call is held against its plain twin on the same inputs, tolerance 0.
+    Yields the (gw, gh) of each call."""
+    from hartallo_tpu_torch.encode import e_device as E
+    from hartallo_tpu_torch.ops import deblock_fast as D
+    real = E.deblock_frame_fast
+    calls = []
+
+    def checked(planes, *rest, gw, gh):
+        got = real(planes, *rest, gw=gw, gh=gh)
+        want = D.deblock_frame_fast_plain(planes, *rest, gw=gw, gh=gh)
+        assert all(bool((g == w).all()) for g, w in zip(got, want))
+        calls.append((gw, gh))
+        return got
+    monkeypatch.setattr(E, "deblock_frame_fast", checked)
+    return calls
 
 
 @pytest.fixture(scope="module")

@@ -126,7 +126,8 @@ def test_port_decodes_like_jax(base_stream, name):
     # the kernel refuses weighted prediction: those P pictures take the
     # GOP scan; every DPB variant takes the kernel, three ring slots or two
     scan = NF - 1 if name == "weighted_pred" else 0
-    assert stats == {"kernel_pictures": NF - scan, "scan_pictures": scan}
+    assert stats == {"kernel_pictures": NF - scan, "scan_pictures": scan,
+                     "general_pictures": 0}
 
 
 @pytest.mark.cuda

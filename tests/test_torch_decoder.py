@@ -37,7 +37,8 @@ def test_port_decode_equals_jax_decode():
     assert len(got) == len(want) == 5
     # every picture (the I picture and intra-in-P included) takes the
     # kernel route, here its plain twin on the CPU
-    assert stats == {"kernel_pictures": 5, "scan_pictures": 0}
+    assert stats == {"kernel_pictures": 5, "scan_pictures": 0,
+                     "general_pictures": 0}
     for i, (a, b) in enumerate(zip(got, want)):
         assert (a.width, a.height, a.poc) == (b.width, b.height, b.poc)
         np.testing.assert_array_equal(a.frame, b.frame, err_msg=f"frame {i}")
@@ -55,7 +56,8 @@ def test_fixture_decodes_to_recorded_md5(name):
     stream, meta = load_fixture(name)
     out, stats = _port_decode(stream)
     assert [plane_md5(r.frame) for r in out] == meta["frame_md5"]
-    assert stats == {"kernel_pictures": meta["frames"], "scan_pictures": 0}
+    assert stats == {"kernel_pictures": meta["frames"], "scan_pictures": 0,
+                     "general_pictures": 0}
 
 
 def test_scan_route_decodes_fixture(monkeypatch):
@@ -67,7 +69,8 @@ def test_scan_route_decodes_fixture(monkeypatch):
     stream, meta = load_fixture("qcif_6_slices3")
     out, stats = _port_decode(stream)
     assert [plane_md5(r.frame) for r in out] == meta["frame_md5"]
-    assert stats == {"kernel_pictures": 0, "scan_pictures": meta["frames"]}
+    assert stats == {"kernel_pictures": 0, "scan_pictures": meta["frames"],
+                     "general_pictures": 0}
 
 
 def test_port_decode_imports_no_jax():
@@ -95,18 +98,47 @@ def test_port_decode_imports_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
-def test_unported_paths_raise():
+@pytest.mark.parametrize("name", ["qcif_8", "svc_il_4"])
+def test_decoder_freed_without_cycle_collector(name):
+    """A finished decode leaves no reference cycle through the decoder:
+    once the caller drops the codec, the decoder (and its device rings)
+    go at once, not when the cyclic garbage collector next runs."""
+    import gc
+    import weakref
+
     from hartallo_tpu_torch.api import Codec, CodecConfig
-    svc = Codec(CodecConfig(width=16, height=16, quality_layers=2),
-                device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="SVC encoder not ported yet"):
-        svc.encode(np.zeros(6 * 16 * 16 // 4, np.uint8), 16, 16)
+    stream, meta = load_fixture(name)
+
+    def decode():
+        codec = Codec(CodecConfig(), device="cpu")
+        out = codec.decode_annexb(stream, tolerant=False)
+        assert len(out) == len(meta["frame_md5"])
+        return weakref.ref(codec.decoder)
+
+    decode()                     # first use: imports, cached builds
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        assert decode()() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def test_unported_paths_raise():
+    """What neither package decodes, an MVC slice extension (NAL type 20
+    with svc_extension_flag 0), raises NotImplementedError when the
+    caller is not tolerant; in tolerant mode it is skipped
+    (tests/test_torch_general_path.py).  SVC NAL units and SVC
+    configurations are ported: a subset SPS alone decodes to nothing."""
+    from hartallo_tpu_torch.api import Codec, CodecConfig
     codec = Codec(CodecConfig(), device="cpu")
-    # an SVC subset SPS raises even in tolerant mode
-    with pytest.raises(NotImplementedError, match="SVC"):
-        codec.decode_annexb(b"\x00\x00\x00\x01\x6f\x53\x00\x1e\xab",
-                            tolerant=True)
+    with pytest.raises(NotImplementedError, match="MVC"):
+        codec.decode_annexb(b"\x00\x00\x00\x01\x14\x40\x11\x22\x80",
+                            tolerant=False)
+    assert Codec(CodecConfig(), device="cpu").decode_annexb(
+        b"\x00\x00\x00\x01\x6f\x53\x00\x1e\xab", tolerant=True) == []
 
 
 @pytest.mark.parametrize("name", ["720p_8", "1080p_8"])
@@ -131,7 +163,8 @@ def test_weighted_fixture_is_the_rewrite():
     assert weighted_rewrite(load_fixture("qcif_6")[0]) == stream
     out, stats = _port_decode(stream)
     assert [plane_md5(r.frame) for r in out] == meta["frame_md5"]
-    assert stats == {"kernel_pictures": 1, "scan_pictures": 5}
+    assert stats == {"kernel_pictures": 1, "scan_pictures": 5,
+                     "general_pictures": 0}
 
 
 # every fixture on the card through Codec's default device: all pictures
@@ -149,4 +182,4 @@ def test_cuda_decode_matches_recorded_md5(cuda_device, name):
     assert [plane_md5(r.frame) for r in out] == meta["frame_md5"]
     scan = 5 if name == "qcif_6_wp" else 0
     assert stats == {"kernel_pictures": meta["frames"] - scan,
-                     "scan_pictures": scan}
+                     "scan_pictures": scan, "general_pictures": 0}

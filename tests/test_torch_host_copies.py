@@ -12,6 +12,10 @@ port imports nothing of the JAX package.
   source (``NATIVE_EDITS``).
 - The port's ``api.py`` holds the JAX package's ``CodecConfig``,
   ``DecodeResult`` and ``EncodeResult`` source for source.
+- The numpy functions and tables copied into a port module whose
+  original imports jax (``svc/upsample.py``) or that the port extends
+  (``decode/d_pool.py``'s SVC residual helpers) equal the originals
+  source for source (``PART_COPIES``).
 """
 import ast
 import pathlib
@@ -33,6 +37,7 @@ COPIES = ["core/__init__.py", "core/tables.py",
                                        "fmo")),
           "encode/ratecontrol.py", "encode/slice_encode.py",
           "util/__init__.py", "util/log.py",
+          "svc/__init__.py", "svc/motion.py",
           "native/__init__.py", "native/slicec.c"]
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)hartallo_tpu\b(?!_torch)",
@@ -98,6 +103,41 @@ def test_host_copy_equals_original(rel):
             assert want.count(old) == 1, old
             want = want.replace(old, new)
     assert (DST / rel).read_text() == want
+
+
+# module -> the top-level functions and tables copied from the original
+PART_COPIES = {
+    "decode/d_pool.py": ("accumulated_residual_planes_np",
+                         "residual_planes_np"),
+    "svc/upsample.py": ("PHASE_LUMA", "PHASE_CHROMA", "ref_positions",
+                        "upsample_plane_np", "upsample_residual_plane_np",
+                        "downsample_dyadic_np"),
+}
+
+
+def _top_level(path, names):
+    """Source of each top-level def or assignment of ``names``."""
+    text = path.read_text()
+    out = {}
+    for n in ast.parse(text).body:
+        if isinstance(n, ast.FunctionDef):
+            key = n.name
+        elif isinstance(n, ast.Assign) and len(n.targets) == 1 and \
+                isinstance(n.targets[0], ast.Name):
+            key = n.targets[0].id
+        else:
+            continue
+        if key in names:
+            out[key] = ast.get_source_segment(text, n)
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(PART_COPIES))
+def test_part_copy_equals_original(rel):
+    names = PART_COPIES[rel]
+    want = _top_level(SRC / rel, names)
+    assert sorted(want) == sorted(names)
+    assert _top_level(DST / rel, names) == want
 
 
 def test_api_dataclasses_equal_original():

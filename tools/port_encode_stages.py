@@ -20,12 +20,10 @@ limit.  Needs a CUDA device.
 from __future__ import annotations
 
 import json
-import pathlib
-import subprocess
 import sys
-import time
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
+from port_stages import REPO, Split, busy_share, card_line
+
 sys.path.insert(0, str(REPO))
 PROFILE_FRAMES = 1
 
@@ -49,30 +47,7 @@ def _encode(name: str, frames: int = 0):
     return NF
 
 
-def _timed(T, stack, key, fn):
-    """Wrap fn so that its exclusive time (its own, less the wrapped
-    stages nested in it) adds to T[key]; the device is synchronised at
-    its end."""
-    import torch
-
-    def wrapper(*a, **k):
-        stack.append(0.0)
-        t0 = time.perf_counter()
-        try:
-            r = fn(*a, **k)
-            torch.cuda.synchronize()
-        finally:
-            dt = time.perf_counter() - t0
-            T[key] += dt - stack.pop()
-            if stack:
-                stack[-1] += dt
-        return r
-    return wrapper
-
-
 def stages(name: str) -> dict:
-    import torch
-
     import hartallo_tpu_torch.encode.e_device as E
     import hartallo_tpu_torch.encode.encoder as EN
     import hartallo_tpu_torch.encode.p_device as PD
@@ -88,57 +63,24 @@ def stages(name: str) -> dict:
                (E, "deblock_frame_fast", "deblock_kernel"),
                (EN.Encoder, "finish_frame", "fetch_mvd"),
                (EN.Encoder, "_pack_slices", "cavlc_pack")]
-    T = {key: 0.0 for _, _, key in patches}
-    stack = []
-    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
-    for obj, attr, key in patches:
-        setattr(obj, attr, _timed(T, stack, key, getattr(obj, attr)))
-    try:
-        t0 = time.perf_counter()
-        nf = _encode(name)
-        total = time.perf_counter() - t0
-    finally:
-        for obj, attr, fn in saved:
-            setattr(obj, attr, fn)
-    ms = {k: v * 1e3 / nf for k, v in T.items()}
-    ms["other_host"] = total * 1e3 / nf - sum(ms.values())
-    ms["total"] = total * 1e3 / nf
+    S = Split()
+    nf = []
+    total = S.run(patches, lambda: nf.append(_encode(name)))
+    ms = {key: v * 1e3 / nf[0] for (_, key), v in S.T.items()}
+    ms["other_host"] = total * 1e3 / nf[0] - sum(ms.values())
+    ms["total"] = total * 1e3 / nf[0]
     return {"fixture": name, "encode_ms_per_frame": ms}
 
 
-def device_split(name: str, top: int = 8) -> dict:
+def device_split(name: str) -> dict:
     """An encode of the first PROFILE_FRAMES frames under
-    ``torch.profiler``: the share of its wall time in which the card ran
-    work (device self time over wall time; a lower
-    bound, the profiler slows the host) and the device time of the
-    ``top`` heaviest kernels and copies, ms per frame."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        nf = _encode(name, PROFILE_FRAMES)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = {e.key: e.self_device_time_total / 1e3
-           for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total}
-    if not dev:
-        return {"fixture": name, "busy_share": "not measured (the trace "
-                "holds no device time)"}
-    heavy = sorted(dev.items(), key=lambda kv: -kv[1])[:top]
-    return {"fixture": name,
-            "busy_share": sum(dev.values()) / (wall * 1e3),
-            "device_ms_per_frame": {k: v / nf for k, v in heavy}}
+    ``torch.profiler`` (``port_stages.busy_share``)."""
+    return {"fixture": name, **busy_share(
+        lambda: _encode(name, PROFILE_FRAMES), PROFILE_FRAMES)}
 
 
 def main(names) -> None:
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     for name in names or ("cif_16", "720p_8"):
         print(json.dumps({"card": card, **stages(name)}), flush=True)
         print(json.dumps({"card": card, **device_split(name)}), flush=True)

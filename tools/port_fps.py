@@ -1,0 +1,64 @@
+"""End-to-end decode and encode rates of the port on a CUDA device, for
+comparing two trees on one card in one run.
+
+    python tools/port_fps.py [--tree DIR] [--runs N] [--decode]
+
+Imports ``hartallo_tpu_torch`` from ``DIR`` (this tree by default: give a
+checkout of another commit to time it on the same fixtures) and prints
+one JSON line with the card's name and power limit and, through
+``chip_smoke.py``'s ``decode_rates`` and ``encode_rates``:
+
+- decode fps of ``cif_16``, ``720p_8`` and ``1080p_8`` through
+  ``Codec.decode_annexb``: one warm-up decode, then ``N`` timed ones
+  (default 3), every frame's MD5 checked;
+- encode fps of ``cif_16`` through ``Codec.encode_frames`` with
+  ``bench.py``'s settings: a warm-up encode of its first two frames, then
+  ``N`` timed encodes of the 16, each stream equal to the fixture (left
+  out with ``--decode``).
+
+Run it for each tree in turns in one command (parent, this tree, this
+tree, parent) to compare them.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+DECODES = ("cif_16", "720p_8", "1080p_8")
+ENCODE = "cif_16"
+
+
+def main(argv) -> None:
+    tree = argv[argv.index("--tree") + 1] if "--tree" in argv else str(REPO)
+    runs = int(argv[argv.index("--runs") + 1]) if "--runs" in argv else 3
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    # this tree's chip_smoke, then the package of the tree under test
+    from bench import make_clip
+    from chip_smoke import card_line, decode_rates, encode_rates, \
+        load_fixture
+    sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    from hartallo_tpu_torch import kernels
+    from hartallo_tpu_torch.api import Codec, CodecConfig
+
+    if not torch.cuda.is_available():
+        raise SystemExit("port_fps: torch sees no CUDA device")
+    kernels.build()
+    res = {"card": card_line(), "tree": str(pathlib.Path(tree).resolve()),
+           "decode_fps": {name: decode_rates(torch, name, runs)
+                          for name in DECODES}, "encode_fps": {}}
+    if "--decode" not in argv:
+        meta = load_fixture(ENCODE)[1]
+        W, H = meta["width"], meta["height"]
+        Codec(CodecConfig(width=W, height=H, qp=30, gop_size=2,
+                          deblock=True, me_range=12)).encode_frames(
+            make_clip(W, H, 2), W, H)                         # warm-up
+        res["encode_fps"][ENCODE] = encode_rates(torch, ENCODE, runs)
+    print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
