@@ -18,10 +18,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel and its plain torch version on the card; outputs and ring slots
    must be byte-equal;
 4. deblock kernel phase: seeded planes, bS in 0..4, QPs and nonzero
-   alpha/beta offsets at the CIF, 4CIF, 720p and 1080p MB grids, and at
-   the 720p grid with slice-edge (idc 2) and idc 1 filter flags, go through
-   the frame deblock kernel and its plain twin; the planes must be
-   byte-equal;
+   alpha/beta offsets at the CIF, 4CIF, 720p and 1080p MB grids, at
+   the 720p grid with slice-edge (idc 2) and idc 1 filter flags, and at
+   the shard phase's 1080p band grids (120x17, 120x34 with the flags),
+   go through the frame deblock kernel and its plain twin; the planes
+   must be byte-equal;
 5. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
@@ -49,14 +50,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decodes; in the encode and the full decode every call of either
    kernel is held against its plain twin on the same inputs, at the
    path's own shapes (QCIF, CIF and 4CIF), tolerance 0;
-9. timings (not claims), CUDA events for kernels and host clocks around
+9. shard phase (the row-sharded path), launch counts set to 0 just
+   before it, on ``Mesh(("cuda:0",) * 4)``: the 1080p P step
+   (``p_encode_step_sharded``, four bands of 17 MB rows) must give the
+   eight outputs whose MD5s the JAX package recorded
+   (``shard_p_1080p.json``) with 4 deblock kernel launches, and
+   ``decode_gops_grouped`` of ``shard_1080p_8`` with 2 groups (two
+   bands of 34 MB rows each) every frame's MD5 with 16 deblock kernel
+   launches and none of the GOP kernel; every deblock call of both is
+   held against its plain twin, tolerance 0 (in the SVC and shard
+   phases a twin whose input shapes recur replays as a CUDA graph of its
+   own ops, and so does a band's intra wavefront in the sharded decode:
+   ``ops/graphs.replayed``);
+10. timings (not claims), CUDA events for kernels and host clocks around
    synchronised runs: kernel and plain time per CIF picture and the
    kernel's time on the 720p IDR picture; per deblocked frame, the
    wrapper with its parameter gather, the launch alone and the plain
-   twin (each twin timed on its check run); each beside its bound (``gop_bound``, ``deblock_bound``); encode
-   fps at CIF and 720p, decode fps at CIF, 720p and 1080p, and the SVC
-   clip's encode and decode rates, best and worst of 3 after a warm-up
-   (for the encodes, the encode and SVC phases' runs).
+   twin (each twin timed on its check run); each beside its bound
+   (``gop_bound``, ``deblock_bound``); encode
+   fps at CIF and 720p, decode fps at CIF, 720p and 1080p, the SVC
+   clip's encode and decode rates, ms per sharded 1080p P step on four
+   bands and on one, and the sharded decode's frames/s beside
+   ``Codec.decode_annexb`` of the same stream, best and worst of 3 after
+   a warm-up (for the encodes and the four-band runs, the encode, SVC
+   and shard phases' runs).
 
 The second-to-last line is one JSON object describing the kernels, and
 the last line ``{"ok": true, "device": {...}}``.
@@ -75,10 +92,13 @@ FIXTURES = REPO / "tests" / "data" / "port"
 STAGES = ("m", "mr", "mri", "mriwdsoh")
 SEED = 1234
 # the deblock grids: CIF, 4CIF (the SVC clip's top layer), 720p, 1080p
-# (1088 coded rows) and 720p with slice-edge and idc 1 filter flags
+# (1088 coded rows), 720p with slice-edge and idc 1 filter flags, and the
+# shard phase's band grids (a quarter and a half of 1080p's MB rows)
 DEBLOCK_GRIDS = (("CIF", 22, 18, False), ("4CIF", 44, 36, False),
                  ("720p", 80, 45, False), ("1080p", 120, 68, False),
-                 ("720p slices", 80, 45, True))
+                 ("720p slices", 80, 45, True),
+                 ("1080p band of 17 rows", 120, 17, False),
+                 ("1080p band of 34 rows", 120, 34, True))
 # NVIDIA's data sheet for the H100 SXM at 700 W: HBM3 rate, and the
 # float32 rate outside the tensor cores, the nearest published rate for
 # the kernels' int32 arithmetic (their integer rate is no higher, so the
@@ -499,18 +519,26 @@ def svc_decode(torch, stream, **window):
 
 class TwinChecks:
     """While in effect, every call the path makes to either kernel's
-    wrapper, where the port calls it (``decoder.decode_gop_fast``, and
+    wrapper, where the port calls it (``decoder.decode_gop_fast``,
     ``e_device.deblock_frame_fast`` for the encoder and the decoder's
-    general route), is held against the plain twin on the same inputs,
-    tolerance 0: the GOP kernel's output and ring (the ring cloned before
-    the call) and the deblocked planes.  The twins launch nothing, so the
-    launch counts stay the path's.  ``calls`` and ``err`` (max_abs_err)
-    per kernel, ``shapes`` the (gw, gh) grids seen."""
+    general route, and ``d_gop.deblock_frame_fast`` for the GOP scan and
+    the sharded decode), is held against the plain twin on the same
+    inputs, tolerance 0: the GOP kernel's output and ring (the ring cloned
+    before the call) and the deblocked planes.  The twins launch nothing,
+    so the launch counts stay the path's.  The deblock twin (some 150,000
+    small ops at a 1080p band grid) runs through ``ops/graphs.replayed``:
+    eager ops the first time its input shapes are seen, the same ops
+    recorded into a CUDA graph the second time and replayed after that.
+    ``calls`` and ``err``
+    (max_abs_err) per kernel, ``shapes`` the (gw, gh) grids seen;
+    ``label`` names the path in an error."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, label):
+        from hartallo_tpu_torch.decode import d_gop as G
         from hartallo_tpu_torch.decode import decoder as DM
         from hartallo_tpu_torch.encode import e_device as E
-        self.torch, self.DM, self.E = torch, DM, E
+        self.torch, self.DM, self.E, self.G = torch, DM, E, G
+        self.label = label
         self.calls = {"gop": 0, "deblock": 0}
         self.err = {"gop": 0, "deblock": 0}
         self.shapes = {"gop": set(), "deblock": set()}
@@ -533,8 +561,13 @@ class TwinChecks:
 
     def _deblock(self, planes, *rest, gw, gh):
         from hartallo_tpu_torch.ops import deblock_fast as D
+        from hartallo_tpu_torch.ops.graphs import replayed
+
+        def plain(pY, pU, pV, *maps):
+            return D.deblock_frame_fast_plain((pY, pU, pV), *maps, gw=gw,
+                                              gh=gh)
         got = self.real_db(planes, *rest, gw=gw, gh=gh)
-        want = D.deblock_frame_fast_plain(planes, *rest, gw=gw, gh=gh)
+        want = replayed(plain, "deblock_frame_fast_plain", *planes, *rest)
         same = all(self.torch.equal(g, w) for g, w in zip(got, want))
         self._record("deblock", gw, gh, list(zip(got, want)), same)
         return got
@@ -542,9 +575,9 @@ class TwinChecks:
     def _record(self, kernel, gw, gh, pairs, same):
         err = max(int((a.int() - b.int()).abs().max()) for a, b in pairs)
         if not same:
-            raise SystemExit(f"{SVC}: the {kernel} kernel differs from its "
-                             f"plain twin at {gw}x{gh} MBs on the path "
-                             f"(max_abs_err {err})")
+            raise SystemExit(f"{self.label}: the {kernel} kernel differs "
+                             f"from its plain twin at {gw}x{gh} MBs on the "
+                             f"path (max_abs_err {err})")
         self.calls[kernel] += 1
         self.err[kernel] = max(self.err[kernel], err)
         self.shapes[kernel].add((gw, gh))
@@ -552,13 +585,13 @@ class TwinChecks:
     def __enter__(self):
         self.real_gop, self.real_db = self.DM.decode_gop_fast, \
             self.E.deblock_frame_fast
-        self.DM.decode_gop_fast, self.E.deblock_frame_fast = self._gop, \
-            self._deblock
+        self.DM.decode_gop_fast = self._gop
+        self.E.deblock_frame_fast = self.G.deblock_frame_fast = self._deblock
         return self
 
     def __exit__(self, *exc):
-        self.DM.decode_gop_fast, self.E.deblock_frame_fast = self.real_gop, \
-            self.real_db
+        self.DM.decode_gop_fast = self.real_gop
+        self.E.deblock_frame_fast = self.G.deblock_frame_fast = self.real_db
 
 
 def svc_phase(torch):
@@ -572,7 +605,7 @@ def svc_phase(torch):
     from hartallo_tpu_torch.ops import deblock_fast as D
     stream, meta = load_fixture(SVC)
     clips = svc_clips(meta)
-    twins = TwinChecks(torch)
+    twins = TwinChecks(torch, SVC)
     F.LAUNCHES = D.LAUNCHES = 0
     with twins:
         mine, _ = svc_encode(torch, meta, clips)
@@ -641,6 +674,138 @@ def svc_fps(torch, card, stream, clips):
               f"a warm-up)", flush=True)
 
 
+SHARD = "shard_1080p_8"
+SHARD_P = "shard_p_1080p"
+SHARD_BANDS = 4          # Mesh(("cuda:0",) * 4): four bands on the card
+
+
+def shard_p_planes():
+    """The sharded P step's inputs as ``tools/make_port_fixtures.py`` made
+    them for the JAX package, through the port's ``pack_src``."""
+    from bench import make_clip
+    from hartallo_tpu_torch.encode.e_device import pack_src
+    from make_port_fixtures import shard_p_inputs
+    return shard_p_inputs(pack_src, make_clip)
+
+
+def shard_step(torch, mesh, planes, meta):
+    """One sharded 1080p P step on ``mesh``, synchronised."""
+    import numpy as np
+    from hartallo_tpu_torch.parallel.shard import p_encode_step_sharded
+    out = p_encode_step_sharded(
+        mesh, *planes, np.full((meta["gh"], meta["gw"]), meta["qp"],
+                               np.int32), meta["lam"], gw=meta["gw"],
+        gh=meta["gh"], rng=meta["rng"])
+    torch.cuda.synchronize()
+    return out
+
+
+def shard_decode(torch, mesh, stream):
+    """The grouped sharded decode (2 groups) of a stream on ``mesh``;
+    returns (frames, seconds)."""
+    from hartallo_tpu_torch.parallel.shard import decode_gops_grouped
+    t0 = time.perf_counter()
+    frames = decode_gops_grouped(mesh, stream, groups=2)
+    torch.cuda.synchronize()
+    return frames, time.perf_counter() - t0
+
+
+def shard_phase(torch):
+    """The row-sharded path on ``Mesh(("cuda:0",) * 4)``, launch counts
+    set to 0 just before it: the 1080p P step's eight outputs equal the
+    JAX package's MD5s (4 deblock launches, one per band), and the
+    grouped decode of shard_1080p_8 (2 GOPs on 2 groups of 2 bands of 34
+    MB rows) equals every frame's MD5 (2 bands x 8 pictures = 16 deblock
+    launches, no GOP kernel); every deblock call of both held against
+    its plain twin (``TwinChecks``).  Returns (deblock launches, the twin
+    checks, the P-step inputs)."""
+    from hartallo_tpu_torch.decode import d_gop_fast as F
+    from hartallo_tpu_torch.ops import deblock_fast as D
+    from hartallo_tpu_torch.parallel.shard import Mesh, gather
+    from make_port_fixtures import int32_md5
+    pmeta = json.loads((FIXTURES / f"{SHARD_P}.json").read_text())
+    stream, meta = load_fixture(SHARD)
+    planes = shard_p_planes()
+    mesh = Mesh(("cuda:0",) * SHARD_BANDS)
+    twins = TwinChecks(torch, "shard")
+    F.LAUNCHES = D.LAUNCHES = 0
+    with twins:
+        out = shard_step(torch, mesh, planes, pmeta)
+        enc_db = D.LAUNCHES
+        frames, _ = shard_decode(torch, mesh, stream)
+    db, gop = D.LAUNCHES, F.LAUNCHES
+    for name, bands in zip(pmeta["outputs"], out):
+        if any(b.device.type != "cuda" for b in bands):
+            raise SystemExit(f"shard: P-step output {name} left the card")
+        if int32_md5(gather(bands).cpu()) != pmeta["outputs"][name]["md5"]:
+            raise SystemExit(f"shard: the 1080p P step's {name} differs "
+                             "from the JAX package's")
+    if [frame_md5(f) for f in frames] != meta["frame_md5"]:
+        raise SystemExit(f"shard: the grouped decode of {SHARD} misses the "
+                         "recorded MD5s")
+    n_dec = 2 * meta["frames"]
+    print(f"shard phase: 1080p P step on {SHARD_BANDS} bands equal to the "
+          f"JAX package's 8 outputs ({enc_db} deblock kernel launches); "
+          f"{SHARD} decoded in 2 groups of 2 bands, {len(frames)} frames "
+          f"equal to the MD5s ({db - enc_db} deblock kernel launches, "
+          f"{gop} GOP kernel launches); deblock kernel == plain twin on "
+          f"{twins.calls['deblock']} calls, MB grids "
+          f"{sorted(twins.shapes['deblock'])}, max_abs_err "
+          f"{twins.err['deblock']}", flush=True)
+    if enc_db != SHARD_BANDS or db - enc_db != n_dec or gop:
+        raise SystemExit(f"shard: deblock launches {enc_db} (step) and "
+                         f"{db - enc_db} (decode), GOP kernel {gop}; "
+                         f"expected {SHARD_BANDS}, {n_dec} and 0")
+    if twins.calls["deblock"] != SHARD_BANDS + n_dec or \
+            twins.shapes["deblock"] != {(120, 17), (120, 34)}:
+        raise SystemExit(f"shard: twin checks {twins.calls} at "
+                         f"{twins.shapes} do not cover the path")
+    return db, twins, planes
+
+
+def shard_rates(torch, card, planes):
+    """Best and worst of 3 after a warm-up (for the 4-band mesh, the shard
+    phase's runs): ms per 1080p P step on 4 bands and on one band, and
+    frames/s of the grouped sharded decode and of ``Codec.decode_annexb``
+    of the same stream on the card, every decode's MD5s checked."""
+    from hartallo_tpu_torch.api import Codec, CodecConfig
+    from hartallo_tpu_torch.parallel.shard import Mesh
+    pmeta = json.loads((FIXTURES / f"{SHARD_P}.json").read_text())
+    stream, meta = load_fixture(SHARD)
+    four, one = Mesh(("cuda:0",) * SHARD_BANDS), Mesh(("cuda:0",))
+    shard_step(torch, one, planes, pmeta)                      # warm-up
+    steps = {}
+    for label, mesh in (("4 bands", four), ("1 band", one)):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            shard_step(torch, mesh, planes, pmeta)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        steps[label] = runs
+    print(f"[{card}] 1080p sharded P step ms best / worst: "
+          + "; ".join(f"{k} {min(v):.1f} / {max(v):.1f}"
+                      for k, v in steps.items())
+          + " (3 runs after a warm-up)", flush=True)
+    rates = {"sharded, 2 groups of 2 bands": [], "Codec.decode_annexb": []}
+    Codec(CodecConfig()).decode_annexb(stream, tolerant=False)  # warm-up
+    for _ in range(3):
+        frames, dt = shard_decode(torch, four, stream)
+        if [frame_md5(f) for f in frames] != meta["frame_md5"]:
+            raise SystemExit("shard: a timed sharded decode differs")
+        rates["sharded, 2 groups of 2 bands"].append(len(frames) / dt)
+        t0 = time.perf_counter()
+        out = Codec(CodecConfig()).decode_annexb(stream, tolerant=False)
+        torch.cuda.synchronize()
+        rates["Codec.decode_annexb"].append(
+            len(out) / (time.perf_counter() - t0))
+        if [frame_md5(r.frame) for r in out] != meta["frame_md5"]:
+            raise SystemExit("shard: the plain decode differs")
+    print(f"[{card}] {SHARD} decode fps best / worst: "
+          + "; ".join(f"{k} {max(v):.2f} / {min(v):.2f}"
+                      for k, v in rates.items())
+          + " (3 runs after a warm-up)", flush=True)
+
+
 def encode_rates(torch, name, runs=3):
     """Frames per second of ``runs`` encodes of a fixture's clip, each
     stream equal to the fixture (no warm-up here)."""
@@ -683,7 +848,7 @@ def main() -> int:
     started = time.perf_counter()
     card = card_line()
     print(card, flush=True)
-    sys.path.insert(0, str(REPO))
+    sys.path[:0] = [str(REPO), str(REPO / "tools")]
     from hartallo_tpu_torch import kernels, native
     t0 = time.perf_counter()
     lib = kernels.build()
@@ -715,9 +880,14 @@ def main() -> int:
     t_svc = time.perf_counter()
     svc_fps(torch, card, svc_stream, clips)
     svc_s += time.perf_counter() - t_svc
+    t_shard = time.perf_counter()
+    shard_db, shard_twins, planes = shard_phase(torch)
+    shard_rates(torch, card, planes)
+    shard_s = time.perf_counter() - t_shard
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - started:.1f} s (the SVC phase and its "
-          f"rates {svc_s:.1f} s)", flush=True)
+          f"rates {svc_s:.1f} s, the shard phase and its rates "
+          f"{shard_s:.1f} s)", flush=True)
     print(json.dumps({"kernels": [
         {"name": "decode_gop_fast", "route": "cuda",
          "source": "hartallo_tpu_torch/csrc/d_gop.cu",
@@ -730,9 +900,11 @@ def main() -> int:
         {"name": "deblock_frame_fast", "route": "cuda",
          "source": "hartallo_tpu_torch/csrc/deblock.cu",
          "replaces": "hartallo_tpu/ops/deblock_pallas.py:349",
-         "launches": db_launches + svc_db,
-         "launches_by_path": {"encode": db_launches, "svc": svc_db},
-         "max_abs_err": max(db_err, twins.err["deblock"]),
+         "launches": db_launches + svc_db + shard_db,
+         "launches_by_path": {"encode": db_launches, "svc": svc_db,
+                              "shard": shard_db},
+         "max_abs_err": max(db_err, twins.err["deblock"],
+                            shard_twins.err["deblock"]),
          "ms": db_ms, "plain_ms": db_plain_ms, "bound_ms": db_bound_ms,
          "bound_by": db_bound_by, "library_ms": None}]}))
     print(card)

@@ -12,6 +12,21 @@ deblock kernel are hand-written CUDA for Hopper (``csrc/``, built by
 ``kernels``).  This package never imports jax, nor anything of
 ``hartallo_tpu``.
 
-Public API: ``hartallo_tpu_torch.api.Codec(config)`` (``device="cuda"``
-by default; ``device="cpu"`` runs the kernels' plain twins).
+Public API (``hartallo_tpu_torch.api``, as ``hartallo_tpu``'s): ``Engine``,
+``Codec(config)`` / ``CodecConfig`` (``device="cuda"`` by default;
+``device="cpu"`` runs the kernels' plain twins), ``Parser``,
+``DecodeResult``, ``EncodeResult``; the plugin registry in ``engine``,
+row-sharded encode and decode over a mesh of devices in
+``parallel.shard``, and the command line in ``cli``.
 """
+
+__version__ = "0.1.0"
+
+from hartallo_tpu_torch.api import (  # noqa: F401
+    Engine,
+    CodecConfig,
+    Codec,
+    Parser,
+    DecodeResult,
+    EncodeResult,
+)

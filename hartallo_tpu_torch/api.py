@@ -1,5 +1,5 @@
 """Public API of the port: ``Codec`` for AVC and SVC on a torch device
-(the card by default).
+(the card by default), ``Engine`` and ``Parser``.
 
 ``CodecConfig``, ``DecodeResult`` and ``EncodeResult`` are the port's own
 copies of the dataclasses of ``hartallo_tpu/api.py``, field for field.
@@ -92,6 +92,29 @@ class EncodeResult:
     headers: bytes = b""                     # SPS/PPS emitted this frame
     keyframe: bool = False
     temporal_id: int = 0                     # 0 = base temporal layer
+
+
+class Engine:
+    """Global init: mirrors hl_engine_init (binds kernels; here the CUDA
+    kernels build at their first launch, ``kernels.load``)."""
+    _initialized = False
+
+    @classmethod
+    def init(cls) -> None:
+        cls._initialized = True
+
+    @classmethod
+    def initialized(cls) -> bool:
+        return cls._initialized
+
+
+class Parser:
+    """Annex-B NAL bounds scanner (reference hl_parser_264.c)."""
+
+    @staticmethod
+    def find_nal_units(data: bytes):
+        from hartallo_tpu_torch.bitio import find_nal_units
+        return find_nal_units(data)
 
 
 class Codec:

@@ -179,6 +179,11 @@ class Decoder:
     """Decoder whose pixel pipeline runs on ``device`` (every tensor it
     makes lives there)."""
 
+    # every batched picture takes the dense buffer (``_Job.packed``) and
+    # none the kernel's payload: set by the sharded decoder of
+    # ``parallel/shard.py``, whose flush reads only the dense buffer
+    dense_packed = False
+
     def __init__(self, device="cuda", batch_k: int = BATCH_K,
                  tid_max: int = -1, dqid_min: int = -1, dqid_max: int = -1):
         self.device = torch.device(device)
@@ -491,7 +496,7 @@ class Decoder:
             fr.slot = wslot
 
         fast = None
-        if d_pool.eligible(sd, wp_l) is None:
+        if not self.dense_packed and d_pool.eligible(sd, wp_l) is None:
             try:
                 fast = d_pool.pack_fast(sd, fmb_v, fmb_h, filter_internal,
                                         wslot, pps.chroma_qp_index_offset,

@@ -22,9 +22,9 @@ from hartallo_tpu_torch.core import tables as T
 from hartallo_tpu_torch.core.tables import LUMA_4x4_BLK_XY, QP_SCALE_CHROMA
 from hartallo_tpu_torch.ops.intra import (pred16x16_all, pred4x4_all,
                                           pred_chroma_all)
-from hartallo_tpu_torch.ops.wavefront import (plane_to_tiles, shift_k, skew,
-                                              skew_geometry, tiles_to_plane,
-                                              unskew)
+from hartallo_tpu_torch.ops.wavefront import (on_device, plane_to_tiles,
+                                              shift_k, skew, skew_geometry,
+                                              tiles_to_plane, unskew)
 from hartallo_tpu_torch.ops.transform import (_hadamard_2x2, _hadamard_4x4,
                                               chroma_dc_descale, dequant_4x4,
                                               inverse_transform_4x4,
@@ -216,8 +216,8 @@ def intra_reconstruct(planes, res_y, res_c, mb_kind, i16_mode, i4_modes,
     H, W = gh * 16, gw * 16
     geo = skew_geometry(gw, gh)
     D, K = geo["D"], geo["K"]
-    valid = torch.as_tensor(geo["valid"], device=dev)
-    mx_of = torch.as_tensor(geo["mx_of"], device=dev)
+    valid = on_device(geo, "valid", dev)
+    mx_of = on_device(geo, "mx_of", dev)
 
     def sk(a):
         return skew(torch.as_tensor(a, device=dev), geo)

@@ -225,18 +225,26 @@ def _chroma_params(vertical: bool, e: int):
     return (10, 11, 27, bs0)
 
 
+@lru_cache(maxsize=None)
+def _diagonals(gw: int, gh: int, device):
+    """The (my, mx) MB coordinates of each anti-diagonal of the slope-1
+    wavefront, on ``device``, made once per grid and device.  Shared:
+    never written."""
+    geo = skew1_geometry(gw, gh)
+    return tuple(
+        tuple(torch.as_tensor(geo[k][d][geo["valid"][d]], device=device)
+              for k in ("my_of", "mx_of"))
+        for d in range(geo["D"]))
+
+
 def deblock_filter(planes, aux: torch.Tensor, *, gw: int, gh: int):
     """Filter the PAD-padded int32 planes (Y, U, V) IN PLACE with the
     per-MB parameters ``aux`` (gh, gw, NAUX) of ``edge_params`` /
     ``d_pool``; returns the same planes."""
     pY, pU, pV = planes
     dev = pY.device
-    geo = skew1_geometry(gw, gh)
     aux = aux.to(device=dev, dtype=torch.int32)
-    for d in range(geo["D"]):
-        ok = geo["valid"][d]
-        my = torch.as_tensor(geo["my_of"][d][ok], device=dev)
-        mx = torch.as_tensor(geo["mx_of"][d][ok], device=dev)
+    for my, mx in _diagonals(gw, gh, dev):
         a = aux[my, mx]                                     # (m, NAUX)
         for vertical in (True, False):
             for e in range(4):

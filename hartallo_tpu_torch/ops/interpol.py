@@ -1,16 +1,17 @@
 """Batched sub-pel motion compensation of 4x4 blocks (torch).
 
-Port of ``luma_mc_blocks`` and ``chroma_mc_blocks`` of
-``hartallo_tpu/ops/interpol.py``: every 4x4 luma block gathers its 9x9
-integer-pel window from the padded reference plane, the half-pel samples
-(b, h, j and their shifted variants) are integer 6-tap sums, and the 16
-fractional cases are assembled and one is picked per block.  Chroma is
-the eighth-pel bilinear of 2x2 blocks.  Reference planes are
-edge-replicate padded by ``PAD``; block bases are clamped so every window
-stays inside the pad.  All math is int32.
+Port of ``luma_mc_blocks``, ``chroma_mc_blocks`` and the host helper
+``pad_plane`` of ``hartallo_tpu/ops/interpol.py``: every 4x4 luma block
+gathers its 9x9 integer-pel window from the padded reference plane, the
+half-pel samples (b, h, j and their shifted variants) are integer 6-tap
+sums, and the 16 fractional cases are assembled and one is picked per
+block.  Chroma is the eighth-pel bilinear of 2x2 blocks.  Reference
+planes are edge-replicate padded by ``PAD``; block bases are clamped so
+every window stays inside the pad.  All math is int32.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PAD = 32
@@ -94,3 +95,8 @@ def chroma_mc_blocks(ref_pad, bx, by, mvx, mvy, ref_sel=None):
     C, D = R[:, 1:3, 0:2], R[:, 1:3, 1:3]
     return ((8 - dx) * (8 - dy) * A + dx * (8 - dy) * B +
             (8 - dx) * dy * C + dx * dy * D + 32) >> 6
+
+
+def pad_plane(plane: np.ndarray) -> np.ndarray:
+    """Edge-replicate pad by PAD (host helper)."""
+    return np.pad(plane, PAD, mode="edge")

@@ -48,19 +48,27 @@ def skew1_geometry(gw: int, gh: int):
     return _geometry(gw, gh, 1)
 
 
+def on_device(geo, name: str, device) -> torch.Tensor:
+    """geo[name] as a tensor on ``device``, made once per geometry and
+    device and kept in ``geo`` (so that a wavefront makes no host-to-
+    device copy after its first run).  Shared: never written."""
+    key = (name, torch.device(device))
+    if key not in geo:
+        geo[key] = torch.as_tensor(geo[name], device=device)
+    return geo[key]
+
+
 def skew(arr: torch.Tensor, geo) -> torch.Tensor:
     """Per-MB (gh, gw, ...) -> skewed (D, K, ...).  Invalid slots hold the
     (0, 0) MB's value; mask with geo['valid'] where it matters."""
     dev = arr.device
-    return arr[torch.as_tensor(geo["my_of"], device=dev),
-               torch.as_tensor(geo["mx_of"], device=dev)]
+    return arr[on_device(geo, "my_of", dev), on_device(geo, "mx_of", dev)]
 
 
 def unskew(skewed: torch.Tensor, geo) -> torch.Tensor:
     """Skewed (D, K, ...) -> per-MB (gh, gw, ...)."""
     dev = skewed.device
-    return skewed[torch.as_tensor(geo["d_of"], device=dev),
-                  torch.as_tensor(geo["k_of"], device=dev)]
+    return skewed[on_device(geo, "d_of", dev), on_device(geo, "k_of", dev)]
 
 
 def plane_to_tiles(plane: torch.Tensor, size: int) -> torch.Tensor:

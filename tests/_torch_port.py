@@ -24,6 +24,30 @@ def load_fixture(name):
             json.loads((DATA / f"{name}.json").read_text()))
 
 
+# tests/test_engine.py's runtime-qp stream: (width, height, pictures) and
+# the codec's configuration
+RUNTIME_QP_CLIP = (96, 64, 3)
+RUNTIME_QP_CONFIG = {"qp": 40, "gop_size": 3, "deblock": True,
+                     "me_range": 8}
+
+
+def runtime_qp_stream(engine, CodecConfig, clip, **kw) -> bytes:
+    """The stream of an AVC ``ManagedCodec`` of ``engine`` (the JAX
+    package's or the port's; ``kw`` goes to ``codec_create``) encoding
+    ``clip`` with ``set_option("qp", 24)`` after the first picture."""
+    W, H, _ = RUNTIME_QP_CLIP
+    c = engine.codec_create(engine.CODEC_TYPE_H264_AVC,
+                            CodecConfig(width=W, height=H,
+                                        **RUNTIME_QP_CONFIG), **kw)
+    r = c.encode(clip[0], W, H)
+    data = r.headers + r.data
+    c.set_option("qp", 24)
+    for frame in clip[1:]:
+        r = c.encode(frame, W, H)
+        data += r.headers + r.data
+    return data
+
+
 def weighted_rewrite(stream: bytes) -> bytes:
     """Every P slice of ``stream`` moves to a second PPS that sets
     weighted_pred_flag, with an explicit weight table of its own (the
@@ -194,9 +218,11 @@ def cuda_device():
 @pytest.fixture
 def twin_checked_deblock(monkeypatch):
     """Wrap the deblock kernel's entry point where the encoder and the
-    decoder's general route call it (``e_device.deblock_grids``): every
-    call is held against its plain twin on the same inputs, tolerance 0.
-    Yields the (gw, gh) of each call."""
+    decoder's general route call it (``e_device.deblock_grids``) and where
+    the GOP scan and the sharded decode call it (``d_gop``): every call is
+    held against its plain twin on the same inputs, tolerance 0.  Yields
+    the (gw, gh) of each call."""
+    from hartallo_tpu_torch.decode import d_gop as G
     from hartallo_tpu_torch.encode import e_device as E
     from hartallo_tpu_torch.ops import deblock_fast as D
     real = E.deblock_frame_fast
@@ -209,6 +235,7 @@ def twin_checked_deblock(monkeypatch):
         calls.append((gw, gh))
         return got
     monkeypatch.setattr(E, "deblock_frame_fast", checked)
+    monkeypatch.setattr(G, "deblock_frame_fast", checked)
     return calls
 
 

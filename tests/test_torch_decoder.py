@@ -85,6 +85,15 @@ def test_port_decode_imports_no_jax():
         "assert b''.join(r.headers + r.data for r in res) == s\n"
         "out = Codec(CodecConfig(), device='cpu').decode_annexb(s)\n"
         "assert len(out) == 6, len(out)\n"
+        "import hartallo_tpu_torch.cli, hartallo_tpu_torch.engine\n"
+        "from hartallo_tpu_torch.parallel.shard import Mesh, "
+        "decode_gops_grouped\n"
+        "g = open('tests/data/port/shard_96x64_8.264', 'rb').read()\n"
+        "f = decode_gops_grouped(Mesh(('cpu',) * 8), g, groups=2)\n"
+        "import json\n"
+        "from hartallo_tpu_torch.util.checks import plane_md5\n"
+        "m = json.load(open('tests/data/port/shard_96x64_8.json'))\n"
+        "assert [plane_md5(x) for x in f] == m['frame_md5']\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'hartallo_tpu') or m.startswith(('jax.', 'jaxlib.', "
         "'hartallo_tpu.'))]\n"

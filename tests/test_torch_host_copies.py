@@ -13,9 +13,10 @@ port imports nothing of the JAX package.
 - The port's ``api.py`` holds the JAX package's ``CodecConfig``,
   ``DecodeResult`` and ``EncodeResult`` source for source.
 - The numpy functions and tables copied into a port module whose
-  original imports jax (``svc/upsample.py``) or that the port extends
-  (``decode/d_pool.py``'s SVC residual helpers) equal the originals
-  source for source (``PART_COPIES``).
+  original imports jax (``svc/upsample.py``, ``parallel/shard.py``'s
+  GOP cutter) or that the port extends (``decode/d_pool.py``'s SVC
+  residual helpers) equal the originals source for source, import lines
+  rewritten (``PART_COPIES``).
 """
 import ast
 import pathlib
@@ -36,7 +37,7 @@ COPIES = ["core/__init__.py", "core/tables.py",
                                        "slice_decode", "mv", "poc", "dpb",
                                        "fmo")),
           "encode/ratecontrol.py", "encode/slice_encode.py",
-          "util/__init__.py", "util/log.py",
+          "util/__init__.py", "util/log.py", "util/checks.py",
           "svc/__init__.py", "svc/motion.py",
           "native/__init__.py", "native/slicec.c"]
 
@@ -109,6 +110,7 @@ def test_host_copy_equals_original(rel):
 PART_COPIES = {
     "decode/d_pool.py": ("accumulated_residual_planes_np",
                          "residual_planes_np"),
+    "parallel/shard.py": ("_first_mb_is_zero", "split_gops"),
     "svc/upsample.py": ("PHASE_LUMA", "PHASE_CHROMA", "ref_positions",
                         "upsample_plane_np", "upsample_residual_plane_np",
                         "downsample_dyadic_np"),
@@ -135,7 +137,8 @@ def _top_level(path, names):
 @pytest.mark.parametrize("rel", sorted(PART_COPIES))
 def test_part_copy_equals_original(rel):
     names = PART_COPIES[rel]
-    want = _top_level(SRC / rel, names)
+    want = {k: rewrite_imports(v)
+            for k, v in _top_level(SRC / rel, names).items()}
     assert sorted(want) == sorted(names)
     assert _top_level(DST / rel, names) == want
 

@@ -17,7 +17,11 @@ one JSON line with the card's name and power limit and, through
   out with ``--decode``).
 
 Run it for each tree in turns in one command (parent, this tree, this
-tree, parent) to compare them.
+tree, parent) to compare them.  ``python tools/port_fps.py --pairs
+FILE`` reads such runs' JSON lines, two lines a pair, the tree of the
+first line the baseline, and prints for each fixture the median and
+quartiles over the pairs of each tree's median rate, and how many
+pairs the other tree won.
 """
 from __future__ import annotations
 
@@ -60,5 +64,31 @@ def main(argv) -> None:
     print(json.dumps(res), flush=True)
 
 
+def pairs(path: str) -> None:
+    """Summarise alternating pairs of runs (see the module docstring)."""
+    import numpy as np
+    rows = [json.loads(line) for line in open(path) if line.strip()]
+    base = rows[0]["tree"]
+    for kind in ("decode_fps", "encode_fps"):
+        for name in rows[0][kind]:
+            per = {True: [], False: []}             # is baseline -> medians
+            wins = 0
+            for a, b in zip(rows[::2], rows[1::2]):
+                med = {r["tree"] == base: float(np.median(r[kind][name]))
+                       for r in (a, b)}
+                wins += med[False] > med[True]
+                for k, v in med.items():
+                    per[k].append(v)
+            q = {k: np.percentile(v, [25, 50, 75]) for k, v in per.items()}
+            print(f"{kind} {name}: baseline {q[True][1]:.2f} "
+                  f"[{q[True][0]:.2f}, {q[True][2]:.2f}], other "
+                  f"{q[False][1]:.2f} [{q[False][0]:.2f}, "
+                  f"{q[False][2]:.2f}] (median [quartiles] of "
+                  f"{len(per[True])} pairs); other won {wins}")
+
+
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    if "--pairs" in sys.argv:
+        pairs(sys.argv[sys.argv.index("--pairs") + 1])
+    else:
+        main(sys.argv[1:])
