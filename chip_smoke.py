@@ -6,9 +6,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. stop at once when torch sees no CUDA device; print the card's name
    and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``hartallo_tpu_torch/csrc`` into
+2. build the three CUDA kernels from ``hartallo_tpu_torch/csrc`` into
    ``build/kernels/`` (one ``nvcc`` per source, all at once) and print
-   ptxas' registers and spills; the port's native slice parser and packer
+   ptxas' registers and spills, and the intra encode kernel's dynamic
+   shared memory and registers as the runtime reports them; the port's
+   native slice parser and packer
    (``hartallo_tpu_torch/native``, built with gcc into ``build/native/``)
    must have loaded, or the timed host path would be pure Python;
 3. GOP kernel phase: the ``d_pool.pack_fast`` payloads of the 16 pictures
@@ -23,22 +25,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the shard phase's 1080p band grids (120x17, 120x34 with the flags),
    go through the frame deblock kernel and its plain twin; the planes
    must be byte-equal;
-5. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
+5. intra encode kernel phase: the first ``bench.make_clip`` frame at
+   QCIF, CIF, 4CIF, 720p and 1080p, the CIF and 720p grids in the masked
+   (intra-in-P) form with seeded base planes, CIF in three row slices, a
+   flat CIF picture, and CIF with per-MB qp over 0..51 at chroma offsets
+   -4 and +5 and the lambdas of qp 12 and 45 (INTRA_CASES) go through
+   the kernel and its plain twin; all eleven outputs must be equal;
+6. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
    equal the one the JAX package recorded and every picture must take
    the GOP kernel;
-6. scan phase (the GOP-scan route): the weighted-prediction fixture
+7. scan phase (the GOP-scan route): the weighted-prediction fixture
    ``qcif_6_wp`` decodes to its MD5s with 1 kernel and 5 scan pictures,
    each scan picture deblocked by one deblock kernel launch;
-7. encode phase (the encode path): ``Codec(CodecConfig(W, H, qp=30,
+8. encode phase (the encode path): ``Codec(CodecConfig(W, H, qp=30,
    gop_size=NF, deblock=True, me_range=12)).encode_frames`` of
-   ``bench.make_clip`` at CIF 16 and 720p 8 on the card, launch counts
-   set to 0 just before; each stream must equal the JAX package's fixture
-   byte for byte, the deblock kernel must have run once per picture, and
-   the port's decoder must decode the port's streams to the recorded
-   MD5s;
-8. SVC phase (the SVC round trip), launch counts set to 0 just before
+   ``bench.make_clip`` at CIF 16, 720p 8 and 1080p 8 on the card, launch
+   counts set to 0 just before; each stream must equal the JAX package's
+   fixture byte for byte, the deblock kernel must have run once per
+   picture, the intra kernel once for the IDR picture and once for each
+   P picture that took the intra-in-P branch, and the port's decoder
+   must decode the port's streams to the recorded MD5s;
+9. SVC phase (the SVC round trip), launch counts set to 0 just before
    it: the three layers of ``svc3_4cif_8`` (176x144, 352x288 and
    704x576, 8 pictures each, two temporal layers; the 4CIF
    ``bench.make_clip`` and its dyadic downsamplings) are encoded through
@@ -47,10 +56,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``dqid_max=0`` and ``tid_max=0`` decodes; the GOP kernel must have run
    once per kernel-route picture, the deblock kernel once per encoded
    picture of every layer and once per general-route picture of the
-   decodes; in the encode and the full decode every call of either
-   kernel is held against its plain twin on the same inputs, at the
-   path's own shapes (QCIF, CIF and 4CIF), tolerance 0;
-9. shard phase (the row-sharded path), launch counts set to 0 just
+   decodes, the intra kernel once per base-layer IDR picture; in the
+   encode and the full decode every call of any kernel is held against
+   its plain twin on the same inputs, at the path's own shapes (QCIF,
+   CIF and 4CIF), tolerance 0;
+10. shard phase (the row-sharded path), launch counts set to 0 just
    before it, on ``Mesh(("cuda:0",) * 4)``: the 1080p P step
    (``p_encode_step_sharded``, four bands of 17 MB rows) must give the
    eight outputs whose MD5s the JAX package recorded
@@ -62,13 +72,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phases a twin whose input shapes recur replays as a CUDA graph of its
    own ops, and so does a band's intra wavefront in the sharded decode:
    ``ops/graphs.replayed``);
-10. timings (not claims), CUDA events for kernels and host clocks around
+11. timings (not claims), CUDA events for kernels and host clocks around
    synchronised runs: kernel and plain time per CIF picture and the
    kernel's time on the 720p IDR picture; per deblocked frame, the
    wrapper with its parameter gather, the launch alone and the plain
-   twin (each twin timed on its check run); each beside its bound
-   (``gop_bound``, ``deblock_bound``); encode
-   fps at CIF and 720p, decode fps at CIF, 720p and 1080p, the SVC
+   twin; the intra encode kernel per picture at CIF, 720p and 1080p
+   with its slope-2 steps, the twin at CIF and 720p (each twin timed on
+   its check run); each beside its bound (``gop_bound``,
+   ``deblock_bound``, ``intra_bound``); encode fps at CIF, 720p and
+   1080p, decode fps at CIF, 720p and 1080p, the SVC
    clip's encode and decode rates, ms per sharded 1080p P step on four
    bands and on one, and the sharded decode's frames/s beside
    ``Codec.decode_annexb`` of the same stream, best and worst of 3 after
@@ -80,6 +92,7 @@ the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import pathlib
@@ -99,6 +112,21 @@ DEBLOCK_GRIDS = (("CIF", 22, 18, False), ("4CIF", 44, 36, False),
                  ("720p slices", 80, 45, True),
                  ("1080p band of 17 rows", 120, 17, False),
                  ("1080p band of 34 rows", 120, 34, True))
+# the intra encode kernel's cases: (label, width, height, options of
+# intra_inputs); the defaults are bench.py's settings (qp 30,
+# chroma_qp_index_offset 0, the lambda of qp 30, one slice)
+INTRA_CASES = (
+    ("QCIF", 176, 144, {}), ("CIF", 352, 288, {}), ("4CIF", 704, 576, {}),
+    ("720p", 1280, 720, {}), ("1080p", 1920, 1080, {}),
+    ("CIF masked", 352, 288, {"masked": True}),
+    ("720p masked", 1280, 720, {"masked": True}),
+    ("CIF 3 slices", 352, 288, {"slices": 3}),
+    ("CIF flat", 352, 288, {"flat": True}),
+    ("CIF qp 0..51, offset -4, lambda of qp 12", 352, 288,
+     {"qp": None, "cqo": -4, "lam_qp": 12}),
+    ("CIF qp 0..51, offset +5, lambda of qp 45", 352, 288,
+     {"qp": None, "cqo": 5, "lam_qp": 45}))
+INTRA_TIMED = ("CIF", "720p", "1080p")
 # NVIDIA's data sheet for the H100 SXM at 700 W: HBM3 rate, and the
 # float32 rate outside the tensor cores, the nearest published rate for
 # the kernels' int32 arithmetic (their integer rate is no higher, so the
@@ -145,6 +173,18 @@ def deblock_bound(planes, rest):
     lines = sum(4 * int((b > 0).sum()) + 4 * int((b[:, :, 0::2] > 0).sum())
                 for b in (bs_v, bs_h))
     return bound(nbytes, 30 * lines)
+
+
+def intra_bound(gw: int, gh: int, masked: bool):
+    """Bound of one ``intra_encode_frame_fast`` call: the int32 source
+    interiors (and the base recon's in the masked form) read, the recon
+    interiors and the 427 int32 words of arrays per MB written, the qp
+    and flag maps read; operations: 3 per candidate sample (difference,
+    absolute value, sum) of the 4 Intra16x16, 9 Intra4x4 and 4 chroma
+    predictions."""
+    samples = gw * gh * 384
+    nbytes = 4 * samples * (3 if masked else 2) + gw * gh * (427 * 4 + 9)
+    return bound(nbytes, 3 * (4 * 256 + 9 * 256 + 4 * 128) * gw * gh)
 
 
 def card_line() -> str:
@@ -339,6 +379,118 @@ def deblock_phase(torch, card):
     return max_err, at720
 
 
+def intra_inputs(W: int, H: int, seed: int, masked=False, slices=1,
+                 flat=False, qp=30, cqo=0, lam_qp=30):
+    """numpy inputs of ``intra_encode_frame`` at the MB grid of W x H: the
+    first ``bench.make_clip`` frame edge-padded as the encoder pads it (a
+    flat grey picture with ``flat``); qp ``qp`` everywhere, or per MB over
+    0..51 where ``qp`` is None; the availability maps of ``slices`` row
+    slices; with ``masked``, about 10% of the MBs in the mask and seeded
+    base planes.  Returns (gw, gh, the positional arguments, the
+    keyword arguments)."""
+    import numpy as np
+    from bench import make_clip
+    from hartallo_tpu_torch.decode.intra_recon import (availability_masks,
+                                                       availability_tl,
+                                                       availability_tr)
+    from hartallo_tpu_torch.encode.e_device import pack_src
+    from hartallo_tpu_torch.encode.encoder import _lambda
+    gw, gh = -(-W // 16), -(-H // 16)
+    rng = np.random.default_rng(seed)
+    src = pack_src(make_clip(W, H, 1)[0], W, H, gw, gh)
+    y = src[:gh * 16].astype(np.int32)
+    uv = src[gh * 16:].reshape(gh * 8, 2, gw * 8).astype(np.int32)
+    planes = [y, uv[:, 0], uv[:, 1]]
+    if flat:
+        planes = [np.full_like(p, 128) for p in planes]
+    planes = [np.pad(p, 32, mode="edge") for p in planes]
+    qpm = (rng.integers(0, 52, (gh, gw)) if qp is None else
+           np.full((gh, gw), qp)).astype(np.int32)
+    sid = (np.arange(gh) * slices // gh)[:, None].repeat(gw, 1)
+    inter = np.zeros((gh, gw), bool)
+    al, at = availability_masks(sid, False, inter)
+    kw = {}
+    if masked:
+        kw = {"base_planes": tuple(rng.integers(0, 256, p.shape)
+                                   .astype(np.int32) for p in planes),
+              "mb_mask": rng.random((gh, gw)) < 0.1}
+    return gw, gh, (*planes, qpm, cqo, al, at, _lambda(lam_qp),
+                    availability_tr(sid, False, inter),
+                    availability_tl(sid, False, inter)), kw
+
+
+def intra_pairs(got, want):
+    """(name, got, want) for each of the eleven outputs of two
+    ``intra_encode_frame`` results."""
+    return [*zip(("recY", "recU", "recV"), got[:3], want[:3]),
+            *((k, got[3][k], want[3][k]) for k in want[3])]
+
+
+def intra_diff(got, want, gw: int, gh: int):
+    """(max_abs_err, the first MB (my, mx) where any output differs, or
+    None) of two ``intra_encode_frame`` results."""
+    err, first = 0, None
+    for name, g, w in intra_pairs(got, want):
+        bad = g != w
+        if not bool(bad.any()):
+            continue
+        err = max(err, int((g.long() - w.long()).abs().max()))
+        if name.startswith("rec"):        # a recon sample -> its MB
+            size = 16 if name == "recY" else 8
+            y, x = (int(v) for v in bad.nonzero()[0])
+            mb = (min(max(y - 32, 0) // size, gh - 1),
+                  min(max(x - 32, 0) // size, gw - 1))
+        else:
+            mb = tuple(int(v) for v in bad.nonzero()[0][:2])
+        first = mb if first is None else min(first, mb)
+    return err, first
+
+
+def intra_phase(torch, card):
+    """The intra encode kernel against its plain twin on INTRA_CASES,
+    tolerance 0 on all eleven outputs (the twin timed on its check run);
+    then the kernel's time per picture at INTRA_TIMED beside its bound
+    and the wavefront's slope-2 steps.  Returns (max_abs_err, and at
+    720p: the kernel's and the twin's ms per picture and the bound)."""
+    import numpy as np
+    from hartallo_tpu_torch.encode import intra_encode_fast as IF
+
+    def cuda(a):
+        if isinstance(a, tuple):
+            return tuple(map(cuda, a))
+        return torch.tensor(a, device="cuda") \
+            if isinstance(a, np.ndarray) else a
+    max_err, plain_ms, timed = 0, {}, {}
+    for k, (label, W, H, opts) in enumerate(INTRA_CASES):
+        gw, gh, args, kw = intra_inputs(W, H, SEED + k, **opts)
+        ta, tkw = cuda(args), {n: cuda(v) for n, v in kw.items()}
+        got = IF.intra_encode_frame_fast(*ta, **tkw, gw=gw, gh=gh)
+        plain = []
+        ms = event_ms(torch, lambda: plain.append(IF.intra_encode_frame(
+            *ta, **tkw, gw=gw, gh=gh)), 1, warm=False)
+        err, first = intra_diff(got, plain[0], gw, gh)
+        print(f"intra kernel phase {label} ({gw}x{gh} MBs): "
+              f"max_abs_err={err} first differing MB (my, mx)={first}",
+              flush=True)
+        if first is not None:
+            raise SystemExit(f"intra kernel != plain at {label}")
+        max_err = max(max_err, err)
+        if label in ("CIF", "720p"):
+            plain_ms[label] = ms
+        if label in INTRA_TIMED:
+            timed[label] = (event_ms(torch, lambda: IF.intra_encode_frame_fast(
+                *ta, **tkw, gw=gw, gh=gh), 10), gw, gh)
+    for label, (ms, gw, gh) in timed.items():
+        bound_ms, bound_by = intra_bound(gw, gh, False)
+        twin = f", plain torch {plain_ms[label] * 1e3:.1f} us" \
+            if label in plain_ms else ""
+        print(f"[{card}] intra kernel {label}: {ms * 1e3:.1f} us/picture "
+              f"({gw + 2 * gh - 2} slope-2 steps){twin}, bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    ms, gw, gh = timed["720p"]
+    return max_err, (ms, plain_ms["720p"], *intra_bound(gw, gh, False))
+
+
 def decode_fixture(torch, name):
     """Decode a fixture through ``Codec`` on its default device, the card;
     every frame's MD5 must be the recorded one."""
@@ -427,23 +579,52 @@ def encode_clip(torch, name):
     return b"".join(r.headers + r.data for r in res), dt, meta
 
 
+ENCODE_MAIN = ("cif_16", "720p_8", "1080p_8")
+
+
 def encode_phase(torch):
-    """The encode path, launch counts set to 0 just before it; then the
-    port's decoder reads the port's streams back."""
+    """The encode path, launch counts set to 0 just before it: each clip
+    byte-equal to its fixture, the intra kernel launched once for the IDR
+    picture and once for each P picture that took the intra branch
+    (counted where ``e_device`` decides it), the deblock kernel once per
+    picture; then the port's decoder reads the port's streams back.
+    Returns (deblock launches, intra kernel launches)."""
     from hartallo_tpu_torch.api import Codec, CodecConfig
-    from hartallo_tpu_torch.ops import deblock_fast as D
     from hartallo_tpu_torch.decode import d_gop_fast as F
-    F.LAUNCHES = D.LAUNCHES = 0
-    streams = {name: encode_clip(torch, name) for name in ("cif_16",
-                                                           "720p_8")}
-    launches = D.LAUNCHES
+    from hartallo_tpu_torch.encode import e_device as E
+    from hartallo_tpu_torch.encode import intra_encode_fast as IF
+    from hartallo_tpu_torch.ops import deblock_fast as D
+    real_mask, intra_p = E._intra_in_p_mask, [0]
+
+    def counted(*args, **kw):
+        mask = real_mask(*args, **kw)
+        intra_p[0] += bool(mask.any())
+        return mask
+    streams, counts = {}, {}
+    F.LAUNCHES = D.LAUNCHES = IF.LAUNCHES = 0
+    E._intra_in_p_mask = counted
+    try:
+        for name in ENCODE_MAIN:
+            before = (IF.LAUNCHES, intra_p[0])
+            streams[name] = encode_clip(torch, name)
+            counts[name] = (IF.LAUNCHES - before[0], intra_p[0] - before[1])
+    finally:
+        E._intra_in_p_mask = real_mask
+    launches, intra = D.LAUNCHES, IF.LAUNCHES
     pictures = sum(m["frames"] for _, _, m in streams.values())
     print(f"encode phase: {pictures} pictures, deblock kernel launches "
-          f"{launches}", flush=True)
+          f"{launches}, intra kernel launches {intra}", flush=True)
     if launches < pictures:
         raise SystemExit(f"deblock kernel launched {launches} times for "
                          f"{pictures} encoded pictures")
     for name, (stream, _, meta) in streams.items():
+        n, n_p = counts[name]
+        print(f"encode phase {name}: intra kernel launches {n}, P pictures "
+              f"with intra MBs {n_p} of {meta['frames'] - 1}", flush=True)
+        if n != 1 + n_p:
+            raise SystemExit(f"{name}: {n} intra kernel launches for one "
+                             f"IDR picture and {n_p} P pictures with intra "
+                             "MBs")
         want, _ = load_fixture(name)
         if stream != want:
             raise SystemExit(f"{name}: the port's stream ({len(stream)} "
@@ -456,7 +637,7 @@ def encode_phase(torch):
                              "misses the recorded MD5s")
         print(f"encode phase {name}: {len(stream)} bytes, byte-equal to "
               f"the fixture; round trip MD5s equal", flush=True)
-    return launches
+    return launches, intra
 
 
 def svc_clips(meta):
@@ -518,13 +699,15 @@ def svc_decode(torch, stream, **window):
 
 
 class TwinChecks:
-    """While in effect, every call the path makes to either kernel's
-    wrapper, where the port calls it (``decoder.decode_gop_fast``,
+    """While in effect, every call the path makes to a kernel's wrapper,
+    where the port calls it (``decoder.decode_gop_fast``,
     ``e_device.deblock_frame_fast`` for the encoder and the decoder's
-    general route, and ``d_gop.deblock_frame_fast`` for the GOP scan and
-    the sharded decode), is held against the plain twin on the same
-    inputs, tolerance 0: the GOP kernel's output and ring (the ring cloned
-    before the call) and the deblocked planes.  The twins launch nothing,
+    general route, ``d_gop.deblock_frame_fast`` for the GOP scan and the
+    sharded decode, and ``e_device.intra_encode_frame_fast`` for the
+    encoder), is held against the plain twin on the same inputs,
+    tolerance 0: the GOP kernel's output and ring (the ring cloned before
+    the call), the deblocked planes, and the intra encode's eleven
+    outputs.  The twins launch nothing,
     so the launch counts stay the path's.  The deblock twin (some 150,000
     small ops at a 1080p band grid) runs through ``ops/graphs.replayed``:
     eager ops the first time its input shapes are seen, the same ops
@@ -539,9 +722,9 @@ class TwinChecks:
         from hartallo_tpu_torch.encode import e_device as E
         self.torch, self.DM, self.E, self.G = torch, DM, E, G
         self.label = label
-        self.calls = {"gop": 0, "deblock": 0}
-        self.err = {"gop": 0, "deblock": 0}
-        self.shapes = {"gop": set(), "deblock": set()}
+        self.calls = {"gop": 0, "deblock": 0, "intra": 0}
+        self.err = {"gop": 0, "deblock": 0, "intra": 0}
+        self.shapes = {"gop": set(), "deblock": set(), "intra": set()}
 
     def _gop(self, *args, gw, gh, **kw):
         from hartallo_tpu_torch.decode import d_gop_fast as F
@@ -572,6 +755,15 @@ class TwinChecks:
         self._record("deblock", gw, gh, list(zip(got, want)), same)
         return got
 
+    def _intra(self, *args, gw, gh, **kw):
+        from hartallo_tpu_torch.encode import intra_encode_fast as IF
+        got = self.real_intra(*args, gw=gw, gh=gh, **kw)
+        want = IF.intra_encode_frame(*args, gw=gw, gh=gh, **kw)
+        pairs = [(g, w) for _, g, w in intra_pairs(got, want)]
+        self._record("intra", gw, gh, pairs,
+                     all(self.torch.equal(a, b) for a, b in pairs))
+        return got
+
     def _record(self, kernel, gw, gh, pairs, same):
         err = max(int((a.int() - b.int()).abs().max()) for a, b in pairs)
         if not same:
@@ -583,15 +775,18 @@ class TwinChecks:
         self.shapes[kernel].add((gw, gh))
 
     def __enter__(self):
-        self.real_gop, self.real_db = self.DM.decode_gop_fast, \
-            self.E.deblock_frame_fast
+        self.real_gop, self.real_db, self.real_intra = \
+            self.DM.decode_gop_fast, self.E.deblock_frame_fast, \
+            self.E.intra_encode_frame_fast
         self.DM.decode_gop_fast = self._gop
         self.E.deblock_frame_fast = self.G.deblock_frame_fast = self._deblock
+        self.E.intra_encode_frame_fast = self._intra
         return self
 
     def __exit__(self, *exc):
         self.DM.decode_gop_fast = self.real_gop
         self.E.deblock_frame_fast = self.G.deblock_frame_fast = self.real_db
+        self.E.intra_encode_frame_fast = self.real_intra
 
 
 def svc_phase(torch):
@@ -602,14 +797,15 @@ def svc_phase(torch):
     kernel launches, deblock kernel launches, stream, clips, the twin
     checks)."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
+    from hartallo_tpu_torch.encode import intra_encode_fast as IF
     from hartallo_tpu_torch.ops import deblock_fast as D
     stream, meta = load_fixture(SVC)
     clips = svc_clips(meta)
     twins = TwinChecks(torch, SVC)
-    F.LAUNCHES = D.LAUNCHES = 0
+    F.LAUNCHES = D.LAUNCHES = IF.LAUNCHES = 0
     with twins:
         mine, _ = svc_encode(torch, meta, clips)
-    enc_db = D.LAUNCHES
+    enc_db, intra = D.LAUNCHES, IF.LAUNCHES
     if mine != stream:
         raise SystemExit(f"{SVC}: the port's stream ({len(mine)} bytes) "
                          f"differs from the fixture ({len(stream)} bytes)")
@@ -638,7 +834,9 @@ def svc_phase(torch):
           f"to the MD5s; routes {routes}; GOP kernel launches {launches}, "
           f"deblock kernel launches in the decodes {db - enc_db} for "
           f"{general} general-route pictures", flush=True)
-    for kernel in ("gop", "deblock"):
+    print(f"SVC phase: intra kernel launches in the encode {intra}",
+          flush=True)
+    for kernel in ("gop", "deblock", "intra"):
         print(f"SVC phase: {kernel} kernel == plain twin on "
               f"{twins.calls[kernel]} calls of the encode and the full "
               f"decode, MB grids {sorted(twins.shapes[kernel])}, "
@@ -653,10 +851,12 @@ def svc_phase(torch):
         raise SystemExit(f"SVC: {db - enc_db} deblock kernel launches in "
                          f"the decodes for {general} general-route pictures")
     if twins.calls["deblock"] != encoded + routes["frame_md5"][
-            "general_pictures"] or not twins.calls["gop"]:
+            "general_pictures"] or not twins.calls["gop"] or \
+            not intra or twins.calls["intra"] != intra:
         raise SystemExit(f"SVC: twin checks {twins.calls} do not cover the "
-                         "encode and the full decode")
-    return launches, db, stream, clips, twins
+                         f"encode and the full decode ({intra} intra kernel "
+                         "launches)")
+    return launches, db, intra, stream, clips, twins
 
 
 def svc_fps(torch, card, stream, clips):
@@ -864,17 +1064,29 @@ def main() -> int:
                          "pure-Python fallback")
     print(f"native library {pathlib.Path(native._SO).relative_to(REPO)} "
           "loaded", flush=True)
+    attrs = (ctypes.c_int * 5)()
+    rc = kernels.load().hl_intra_encode_attributes(attrs)
+    if rc != 0:
+        raise SystemExit(f"intra kernel attributes: CUDA error {rc} "
+                         f"({kernels.error_string(rc)})")
+    print(f"intra kernel: {attrs[0]} bytes of dynamic shared memory, "
+          f"{attrs[1]} registers, {attrs[2]} bytes of local memory per "
+          f"thread, {attrs[3]} bytes of static shared memory, at most "
+          f"{attrs[4]} threads a block", flush=True)
     max_err, ms, plain_ms, bound_ms, bound_by = kernel_phase(torch, card)
     db_err, (db_ms, db_plain_ms, db_bound_ms, db_bound_by) = \
         deblock_phase(torch, card)
+    in_err, (in_ms, in_plain_ms, in_bound_ms, in_bound_by) = \
+        intra_phase(torch, card)
     launches = slice_phase(torch)
     scan_phase(torch)
-    db_launches = encode_phase(torch)
+    db_launches, in_launches = encode_phase(torch)
     t_svc = time.perf_counter()
-    svc_launches, svc_db, svc_stream, clips, twins = svc_phase(torch)
+    svc_launches, svc_db, svc_in, svc_stream, clips, twins = \
+        svc_phase(torch)
     svc_s = time.perf_counter() - t_svc
-    encode_fps(torch, "cif_16", card)
-    encode_fps(torch, "720p_8", card)
+    for name in ENCODE_MAIN:
+        encode_fps(torch, name, card)
     for name in DECODE_MAIN:
         fps(torch, name, card)
     t_svc = time.perf_counter()
@@ -906,7 +1118,17 @@ def main() -> int:
          "max_abs_err": max(db_err, twins.err["deblock"],
                             shard_twins.err["deblock"]),
          "ms": db_ms, "plain_ms": db_plain_ms, "bound_ms": db_bound_ms,
-         "bound_by": db_bound_by, "library_ms": None}]}))
+         "bound_by": db_bound_by, "library_ms": None},
+        {"name": "intra_encode_frame_fast", "route": "cuda",
+         "source": "hartallo_tpu_torch/csrc/intra_encode.cu",
+         "replaces": "hartallo_tpu/encode/intra_encode.py:"
+                     "intra_encode_frame (XLA, in e_device.i_frame_fused / "
+                     "p_gop_fused)",
+         "launches": in_launches + svc_in,
+         "launches_by_path": {"encode": in_launches, "svc": svc_in},
+         "max_abs_err": max(in_err, twins.err["intra"]),
+         "ms": in_ms, "plain_ms": in_plain_ms, "bound_ms": in_bound_ms,
+         "bound_by": in_bound_by, "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

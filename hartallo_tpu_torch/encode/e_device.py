@@ -3,8 +3,9 @@ quant, recon and the in-loop deblock of one picture, with every host-bound
 per-MB array packed into one int16 buffer (one device-to-host copy per
 picture).
 
-Port of ``hartallo_tpu/encode/e_device.py``.  The in-loop deblock is
-``ops/deblock_fast.deblock_frame_fast``: the CUDA wavefront kernel on a
+Port of ``hartallo_tpu/encode/e_device.py``.  The intra wavefront is
+``encode/intra_encode_fast.intra_encode_frame_fast`` and the in-loop
+deblock ``ops/deblock_fast.deblock_frame_fast``: each a CUDA kernel on a
 CUDA device, its plain twin on the CPU.  ``p_gop_fused``'s ``lax.scan``
 is a Python loop over the pictures, and the intra-in-P ``lax.cond`` is a
 Python ``if`` on the device's answer (a host sync per P picture).
@@ -18,8 +19,9 @@ import numpy as np
 import torch
 
 from hartallo_tpu_torch.decode.intra_recon import PAD
-from hartallo_tpu_torch.encode.intra_encode import intra_encode_frame, \
-    qpc_of
+from hartallo_tpu_torch.encode.intra_encode import qpc_of
+from hartallo_tpu_torch.encode.intra_encode_fast import \
+    intra_encode_frame_fast
 from hartallo_tpu_torch.encode.p_device import p_frame_device
 from hartallo_tpu_torch.ops.deblock import compute_bs
 from hartallo_tpu_torch.ops.deblock_fast import deblock_frame_fast
@@ -167,7 +169,7 @@ def i_frame_fused(src_u8, qp, lam, avail_l, avail_t, avail_tr, avail_tl,
     H, W = gh * 16, gw * 16
     qp = torch.as_tensor(qp, device=dev).to(torch.int32)
     srcY, srcU, srcV = _split_src(src_u8, gw, gh)
-    recY, recU, recV, arrays = intra_encode_frame(
+    recY, recU, recV, arrays = intra_encode_frame_fast(
         srcY, srcU, srcV, qp, chroma_qp_off, avail_l, avail_t, lam,
         avail_tr, avail_tl, gw=gw, gh=gh)
     if deblock:
@@ -232,7 +234,7 @@ def _p_frame_body(src_u8, refY, refU, refV, qp, lam, fmb_v, fmb_h,
             avail_tl = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
             avail_tl[1:, 1:] = True
         if bool(imask.any()):                       # host sync
-            recY, recU, recV, ia = intra_encode_frame(
+            recY, recU, recV, ia = intra_encode_frame_fast(
                 srcY, srcU, srcV, qp, chroma_qp_off, avail_l, avail_t, lam,
                 avail_tr, avail_tl, base_planes=(recY, recU, recV),
                 mb_mask=imask, gw=gw, gh=gh)

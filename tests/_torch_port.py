@@ -248,3 +248,55 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def intra_lambda(qp: int) -> np.float32:
+    """The encoder's f32 mode-decision lambda of ``qp``."""
+    return np.float32(np.sqrt(0.85 * 2.0 ** ((qp - 12) / 3.0)))
+
+
+def slice_availability(gw: int, gh: int, rows_per_slice: int):
+    """Availability maps (left, top, top-right, top-left) of a picture cut
+    into row slices."""
+    from hartallo_tpu_torch.decode.intra_recon import (availability_masks,
+                                                       availability_tl,
+                                                       availability_tr)
+    sid = (np.arange(gh) // rows_per_slice)[:, None].repeat(gw, 1)
+    none = np.zeros((gh, gw), bool)
+    return (*availability_masks(sid, False, none),
+            availability_tr(sid, False, none),
+            availability_tl(sid, False, none))
+
+
+def intra_case(gw: int, gh: int, seed: int, qp=None, cqo: int = 2,
+               lam_qp: int = 30, rows: int = 2, flat: bool = False,
+               none_trtl: bool = False, masked: bool = False):
+    """numpy inputs of ``intra_encode_frame`` at gw x gh MBs: (the
+    positional arguments, the keyword arguments).  The source is the
+    first ``bench.make_clip`` frame edge-padded as the encoder pads it,
+    or a flat grey picture; qp per MB drawn from 20..39, or from the
+    values ``qp``; the availability maps of slices of ``rows`` MB rows
+    (the top-right and top-left ones None with ``none_trtl``); with
+    ``masked``, half the MBs in the mask and seeded base planes."""
+    from bench import make_clip
+    from hartallo_tpu_torch.encode.e_device import pack_src
+    rng = np.random.default_rng(seed)
+    W, H = gw * 16, gh * 16
+    src = pack_src(make_clip(W, H, 1)[0], W, H, gw, gh)
+    uv = src[H:].reshape(H // 2, 2, W // 2).astype(np.int32)
+    planes = (src[:H].astype(np.int32), uv[:, 0], uv[:, 1])
+    if flat:
+        planes = tuple(np.full_like(p, 128) for p in planes)
+    planes = tuple(np.pad(p, 32, mode="edge") for p in planes)
+    qpm = rng.integers(20, 40, (gh, gw)) if qp is None else \
+        np.asarray(qp)[rng.integers(0, len(qp), (gh, gw))]
+    al, at, atr, atl = slice_availability(gw, gh, rows)
+    if none_trtl:
+        atr = atl = None
+    kw = {}
+    if masked:
+        kw = {"base_planes": tuple(rng.integers(0, 256, p.shape)
+                                   .astype(np.int32) for p in planes),
+              "mb_mask": rng.random((gh, gw)) < 0.5}
+    return (*planes, qpm.astype(np.int32), cqo, al, at, intra_lambda(lam_qp),
+            atr, atl), kw

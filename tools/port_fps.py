@@ -11,10 +11,13 @@ one JSON line with the card's name and power limit and, through
 - decode fps of ``cif_16``, ``720p_8`` and ``1080p_8`` through
   ``Codec.decode_annexb``: one warm-up decode, then ``N`` timed ones
   (default 3), every frame's MD5 checked;
-- encode fps of ``cif_16`` through ``Codec.encode_frames`` with
-  ``bench.py``'s settings: a warm-up encode of its first two frames, then
-  ``N`` timed encodes of the 16, each stream equal to the fixture (left
-  out with ``--decode``).
+- encode fps of ``cif_16`` and ``720p_8`` through
+  ``Codec.encode_frames`` with ``bench.py``'s settings: a warm-up encode
+  of each clip's first two frames, then ``N`` timed encodes of the
+  whole clip, each stream equal to the fixture; and of ``svc3_4cif_8``
+  through ``Codec.encode`` (``chip_smoke.svc_encode``), in access units
+  per second, after one warm-up encode, each stream equal to the fixture
+  (all three left out with ``--decode``).
 
 Run it for each tree in turns in one command (parent, this tree, this
 tree, parent) to compare them.  ``python tools/port_fps.py --pairs
@@ -31,7 +34,8 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DECODES = ("cif_16", "720p_8", "1080p_8")
-ENCODE = "cif_16"
+ENCODES = ("cif_16", "720p_8")
+SVC = "svc3_4cif_8"
 
 
 def main(argv) -> None:
@@ -42,8 +46,8 @@ def main(argv) -> None:
 
     # this tree's chip_smoke, then the package of the tree under test
     from bench import make_clip
-    from chip_smoke import card_line, decode_rates, encode_rates, \
-        load_fixture
+    from chip_smoke import (card_line, decode_rates, encode_rates,
+                            load_fixture, svc_clips, svc_encode)
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     from hartallo_tpu_torch import kernels
     from hartallo_tpu_torch.api import Codec, CodecConfig
@@ -54,13 +58,24 @@ def main(argv) -> None:
     res = {"card": card_line(), "tree": str(pathlib.Path(tree).resolve()),
            "decode_fps": {name: decode_rates(torch, name, runs)
                           for name in DECODES}, "encode_fps": {}}
-    if "--decode" not in argv:
-        meta = load_fixture(ENCODE)[1]
+    for name in () if "--decode" in argv else ENCODES:
+        meta = load_fixture(name)[1]
         W, H = meta["width"], meta["height"]
         Codec(CodecConfig(width=W, height=H, qp=30, gop_size=2,
                           deblock=True, me_range=12)).encode_frames(
             make_clip(W, H, 2), W, H)                         # warm-up
-        res["encode_fps"][ENCODE] = encode_rates(torch, ENCODE, runs)
+        res["encode_fps"][name] = encode_rates(torch, name, runs)
+    if "--decode" not in argv:
+        want, meta = load_fixture(SVC)
+        clips = svc_clips(meta)
+        svc_encode(torch, meta, clips)                        # warm-up
+        res["encode_fps"][SVC] = []
+        for _ in range(runs):
+            stream, dt = svc_encode(torch, meta, clips)
+            if stream != want:
+                raise SystemExit(f"{SVC}: the encode differs from the "
+                                 "fixture")
+            res["encode_fps"][SVC].append(meta["frames"] / dt)
     print(json.dumps(res), flush=True)
 
 

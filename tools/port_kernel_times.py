@@ -18,12 +18,17 @@ limit:
 - the frame deblock at the CIF, 720p and 1080p MB grids and the 720p grid
   with slice-edge flags (``chip_smoke.deblock_inputs``): the launch
   alone and the wrapper with its parameter gather, µs per frame;
+- the intra encode kernel (``intra_encode_frame_fast``) on the first
+  ``bench.make_clip`` frame at CIF, 720p and 1080p
+  (``chip_smoke.intra_inputs``), µs per picture, where the tree has it;
 - with ``--plain``, the plain twins once each (the CIF batch, the 720p
-  IDR picture, every deblock grid);
-- each kernel's bound (``chip_smoke.gop_bound`` / ``deblock_bound``).
+  IDR picture, every deblock grid, the intra encode at CIF and 720p);
+- each kernel's bound (``chip_smoke.gop_bound`` / ``deblock_bound`` /
+  ``intra_bound``).
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import pathlib
 import sys
@@ -75,8 +80,9 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
     import torch
 
     # this tree's chip_smoke, then the package of the tree under test
-    from chip_smoke import (SEED, DEBLOCK_GRIDS, card_line, deblock_bound,
-                            deblock_inputs, event_ms, gop_bound)
+    from chip_smoke import (SEED, DEBLOCK_GRIDS, INTRA_CASES, INTRA_TIMED,
+                            card_line, deblock_bound, deblock_inputs,
+                            event_ms, gop_bound, intra_bound, intra_inputs)
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     from hartallo_tpu_torch import kernels
     from hartallo_tpu_torch.decode import d_gop_fast as F
@@ -91,7 +97,8 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
            "gop_us_per_picture": {}, "gop_plain_us_per_picture": {},
            "gop_bound_us_per_picture": {}, "deblock_launch_us": {},
            "deblock_wrapper_us": {}, "deblock_plain_us": {},
-           "deblock_bound_us": {}}
+           "deblock_bound_us": {}, "intra_us": {}, "intra_plain_us": {},
+           "intra_bound_us": {}}
     for key, (pay, gw, gh, S) in _payloads(path).items():
         K = pay["sf"].shape[0]
         rng = np.random.default_rng(SEED)
@@ -126,6 +133,24 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
             res["deblock_plain_us"][name] = 1e3 * event_ms(
                 torch, lambda: D.deblock_frame_fast_plain(tp, *ta, gw=gw,
                                                           gh=gh), 1)
+    if importlib.util.find_spec(
+            "hartallo_tpu_torch.encode.intra_encode_fast") is not None:
+        from hartallo_tpu_torch.encode import intra_encode_fast as IF
+        for k, (name, W, H, opts) in enumerate(INTRA_CASES):
+            if name not in INTRA_TIMED:
+                continue
+            gw, gh, args, kw = intra_inputs(W, H, SEED + k, **opts)
+            ta = [torch.tensor(a, device="cuda") if isinstance(a, np.ndarray)
+                  else a for a in args]
+            res["intra_us"][name] = 1e3 * event_ms(
+                torch, lambda: IF.intra_encode_frame_fast(*ta, gw=gw, gh=gh),
+                10)
+            res["intra_bound_us"][name] = 1e3 * intra_bound(gw, gh,
+                                                            False)[0]
+            if plain and name != "1080p":
+                res["intra_plain_us"][name] = 1e3 * event_ms(
+                    torch, lambda: IF.intra_encode_frame(*ta, gw=gw, gh=gh),
+                    1)
     print(json.dumps(res), flush=True)
 
 

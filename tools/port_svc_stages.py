@@ -15,8 +15,8 @@ in it, and each charged to the layer (DQId) being decoded or encoded:
   and its kernel route, the rS / coefficient state kept for the next
   layer, the residual resampling, the rest of the general route and of
   the flushes, and the output fetch;
-- encode: the base layer's AVC stages (``pack_src`` and uploads, intra
-  wavefront, full search, sub-pel refinement, the rest of the P and I
+- encode: the base layer's AVC stages (``pack_src`` and uploads, the
+  intra kernel, full search, sub-pel refinement, the rest of the P and I
   bodies, fetch with MVD/skip, CAVLC packing), the enhancement layers'
   upsampling, inferred-motion MC, motion inference, residual-prediction
   host work, transform and quantisation, the fetch of the levels and
@@ -115,7 +115,7 @@ def encode_split(name: str) -> dict:
          lambda self, *a: self._call % len(self.layers)),
         (EN, "pack_src", "pack_src", None),
         (EN.Encoder, "_tensor", "upload", None),
-        (E, "intra_encode_frame", "intra_wavefront", None),
+        (E, "intra_encode_frame_fast", "intra_kernel", None),
         (PD, "full_search_int", "full_search", None),
         (PD, "refine_subpel", "subpel_refine", None),
         (E, "_p_frame_body", "p_body_rest", None),
