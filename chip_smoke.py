@@ -6,8 +6,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. stop at once when torch sees no CUDA device; print the card's name
    and power limit (``nvidia-smi``);
-2. build the three CUDA kernels from ``hartallo_tpu_torch/csrc`` into
-   ``build/kernels/`` (one ``nvcc`` per source, all at once) and print
+2. build the CUDA kernels from the four sources of
+   ``hartallo_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per
+   source, all at once) and print
    ptxas' registers and spills, and the intra encode kernel's dynamic
    shared memory and registers as the runtime reports them; the port's
    native slice parser and packer
@@ -31,23 +32,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    flat CIF picture, and CIF with per-MB qp over 0..51 at chroma offsets
    -4 and +5 and the lambdas of qp 12 and 45 (INTRA_CASES) go through
    the kernel and its plain twin; all eleven outputs must be equal;
-6. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
+6. ME kernel phase: the ``bench.make_clip`` frame pair (the second frame
+   searched in the first) at QCIF, CIF, 4CIF, 720p and 1080p, the shard
+   phase's 1080p band of 17 MB rows with its halo reference, ranges 12
+   and 5 and the lambdas of qp 12, 30 and 45 (ME_CASES) go through the
+   full search kernel and its plain twin (all eight outputs equal), then
+   seeded MVs and partition maps through the refinement kernel and its
+   twin, the half-pel round and then the quarter-pel round on its
+   result (MVs and costs equal);
+7. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
    equal the one the JAX package recorded and every picture must take
    the GOP kernel;
-7. scan phase (the GOP-scan route): the weighted-prediction fixture
+8. scan phase (the GOP-scan route): the weighted-prediction fixture
    ``qcif_6_wp`` decodes to its MD5s with 1 kernel and 5 scan pictures,
    each scan picture deblocked by one deblock kernel launch;
-8. encode phase (the encode path): ``Codec(CodecConfig(W, H, qp=30,
+9. encode phase (the encode path): ``Codec(CodecConfig(W, H, qp=30,
    gop_size=NF, deblock=True, me_range=12)).encode_frames`` of
    ``bench.make_clip`` at CIF 16, 720p 8 and 1080p 8 on the card, launch
    counts set to 0 just before; each stream must equal the JAX package's
    fixture byte for byte, the deblock kernel must have run once per
    picture, the intra kernel once for the IDR picture and once for each
-   P picture that took the intra-in-P branch, and the port's decoder
-   must decode the port's streams to the recorded MD5s;
-9. SVC phase (the SVC round trip), launch counts set to 0 just before
+   P picture that took the intra-in-P branch, the full search kernel
+   once and the refinement kernel twice per P picture, and the port's
+   decoder must decode the port's streams to the recorded MD5s;
+10. SVC phase (the SVC round trip), launch counts set to 0 just before
    it: the three layers of ``svc3_4cif_8`` (176x144, 352x288 and
    704x576, 8 pictures each, two temporal layers; the 4CIF
    ``bench.make_clip`` and its dyadic downsamplings) are encoded through
@@ -56,30 +66,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``dqid_max=0`` and ``tid_max=0`` decodes; the GOP kernel must have run
    once per kernel-route picture, the deblock kernel once per encoded
    picture of every layer and once per general-route picture of the
-   decodes, the intra kernel once per base-layer IDR picture; in the
+   decodes, the intra kernel once per base-layer IDR picture, the
+   refinement kernel twice per full search; in the
    encode and the full decode every call of any kernel is held against
    its plain twin on the same inputs, at the path's own shapes (QCIF,
    CIF and 4CIF), tolerance 0;
-10. shard phase (the row-sharded path), launch counts set to 0 just
+11. shard phase (the row-sharded path), launch counts set to 0 just
    before it, on ``Mesh(("cuda:0",) * 4)``: the 1080p P step
    (``p_encode_step_sharded``, four bands of 17 MB rows) must give the
    eight outputs whose MD5s the JAX package recorded
-   (``shard_p_1080p.json``) with 4 deblock kernel launches, and
+   (``shard_p_1080p.json``) with 4 deblock, 4 full search and 8
+   refinement kernel launches, and
    ``decode_gops_grouped`` of ``shard_1080p_8`` with 2 groups (two
    bands of 34 MB rows each) every frame's MD5 with 16 deblock kernel
-   launches and none of the GOP kernel; every deblock call of both is
-   held against its plain twin, tolerance 0 (in the SVC and shard
+   launches and none of the GOP kernel; every deblock and motion search
+   call of both is held against its plain twin, tolerance 0 (in the SVC
+   and shard
    phases a twin whose input shapes recur replays as a CUDA graph of its
    own ops, and so does a band's intra wavefront in the sharded decode:
    ``ops/graphs.replayed``);
-11. timings (not claims), CUDA events for kernels and host clocks around
+12. timings (not claims), CUDA events for kernels and host clocks around
    synchronised runs: kernel and plain time per CIF picture and the
    kernel's time on the 720p IDR picture; per deblocked frame, the
    wrapper with its parameter gather, the launch alone and the plain
    twin; the intra encode kernel per picture at CIF, 720p and 1080p
    with its slope-2 steps, the twin at CIF and 720p (each twin timed on
-   its check run); each beside its bound (``gop_bound``,
-   ``deblock_bound``, ``intra_bound``); encode fps at CIF, 720p and
+   its check run); the full search and a refinement round per picture
+   at CIF, 720p and 1080p beside their twins; each beside its bound
+   (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``);
+   encode fps at CIF, 720p and
    1080p, decode fps at CIF, 720p and 1080p, the SVC
    clip's encode and decode rates, ms per sharded 1080p P step on four
    bands and on one, and the sharded decode's frames/s beside
@@ -87,8 +102,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a warm-up (for the encodes and the four-band runs, the encode, SVC
    and shard phases' runs).
 
-The second-to-last line is one JSON object describing the kernels, and
-the last line ``{"ok": true, "device": {...}}``.
+Then one JSON object describing the five kernels, the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -127,6 +142,19 @@ INTRA_CASES = (
     ("CIF qp 0..51, offset +5, lambda of qp 45", 352, 288,
      {"qp": None, "cqo": 5, "lam_qp": 45}))
 INTRA_TIMED = ("CIF", "720p", "1080p")
+# the motion search kernels' cases: (label, width, height, options of
+# me_inputs); the defaults are bench.py's settings (me_range 12, the
+# lambda of qp 30); the band is the shard phase's second band of 17 MB
+# rows with its halo reference
+ME_CASES = (
+    ("QCIF", 176, 144, {}), ("CIF", 352, 288, {}), ("4CIF", 704, 576, {}),
+    ("720p", 1280, 720, {}), ("1080p", 1920, 1080, {}),
+    ("1080p band of 17 rows, halo reference", 1920, 1080, {"band": True}),
+    ("CIF range 5, lambda of qp 12", 352, 288, {"rng": 5, "lam_qp": 12}),
+    ("CIF lambda of qp 45", 352, 288, {"lam_qp": 45}),
+    ("720p range 5, lambda of qp 45", 1280, 720, {"rng": 5, "lam_qp": 45}),
+    ("1080p lambda of qp 12", 1920, 1080, {"lam_qp": 12}))
+ME_TIMED = ("CIF", "720p", "1080p")
 # NVIDIA's data sheet for the H100 SXM at 700 W: HBM3 rate, and the
 # float32 rate outside the tensor cores, the nearest published rate for
 # the kernels' int32 arithmetic (their integer rate is no higher, so the
@@ -185,6 +213,26 @@ def intra_bound(gw: int, gh: int, masked: bool):
     samples = gw * gh * 384
     nbytes = 4 * samples * (3 if masked else 2) + gw * gh * (427 * 4 + 9)
     return bound(nbytes, 3 * (4 * 256 + 9 * 256 + 4 * 128) * gw * gh)
+
+
+def me_bound(gw: int, gh: int, rng: int, kernel: str):
+    """Bound of one ``full_search_int_fast`` or ``refine_subpel_fast``
+    call (one refinement round).  Full search: the int32 source interior
+    and the reference window of the picture ((H + 2R) x (W + 2R)) read,
+    9 costs and MVs per MB written; operations: 3 per candidate sample
+    (difference, absolute value, sum), (2R+1)^2 H W 3.  Refinement: the
+    int32 source interior and the four half-pel planes over the picture
+    read, the MVs read and written, the partition map read, 4 costs per
+    MB written; operations: 10 per sample and delta (the two-tap
+    average 3, the difference 1, two Hadamard butterfly stages 4, the
+    absolute value and the sum 2)."""
+    H, W, nmb = gh * 16, gw * 16, gw * gh
+    if kernel == "full_search":
+        nbytes = 4 * H * W + 4 * (H + 2 * rng) * (W + 2 * rng) + \
+            nmb * 9 * (4 + 8)
+        return bound(nbytes, (2 * rng + 1) ** 2 * H * W * 3)
+    nbytes = 4 * H * W * 5 + nmb * (2 * 16 * 2 * 4 + 16 * 4 + 4 * 4)
+    return bound(nbytes, 9 * H * W * 10)
 
 
 def card_line() -> str:
@@ -491,6 +539,124 @@ def intra_phase(torch, card):
     return max_err, (ms, plain_ms["720p"], *intra_bound(gw, gh, False))
 
 
+def me_inputs(W: int, H: int, seed: int, rng=12, lam_qp=30, band=False):
+    """numpy inputs of the motion search at the MB grid of W x H: the
+    second ``bench.make_clip`` frame's luma as the source and the first's
+    as the reference, edge-padded as the encoder pads them (with
+    ``band``, the second of four bands of MB rows, its reference
+    halo-padded by ``parallel/shard._halo_pad`` as the sharded P step
+    pads it); the f32 lambda of ``lam_qp``; seeded quarter-pel MVs in
+    +-60 and partition maps over 0..3 for the refinement.  Returns (gw,
+    gh, a dict of the inputs)."""
+    import numpy as np
+    import torch
+    from bench import make_clip
+    from hartallo_tpu_torch.encode.e_device import pack_src
+    from hartallo_tpu_torch.encode.encoder import _lambda
+    from hartallo_tpu_torch.parallel.shard import _halo_pad
+    gw, gh = -(-W // 16), -(-H // 16)
+    ref, src = (pack_src(f, W, H, gw, gh)[:gh * 16].astype(np.int32)
+                for f in make_clip(W, H, 2))
+    if band:
+        gh //= SHARD_BANDS
+        ref = _halo_pad([torch.from_numpy(b) for b in
+                         np.split(ref, SHARD_BANDS)], 1).numpy()
+        src = np.pad(np.split(src, SHARD_BANDS)[1], 32, mode="edge")
+    else:
+        ref, src = (np.pad(p, 32, mode="edge") for p in (ref, src))
+    r = np.random.default_rng(seed)
+    return gw, gh, {
+        "src": src, "ref": ref, "lam": _lambda(lam_qp), "rng": rng,
+        "mv": r.integers(-60, 61, (gh, gw, 16, 2)).astype(np.int32),
+        "part": r.integers(0, 4, (gh, gw, 16)).astype(np.int32)}
+
+
+def me_diff(got, want):
+    """(max_abs_err, equal) of two motion-search results (tuples of
+    tensors); equal means the same shapes, types and values (an error of
+    None where the shapes or types differ)."""
+    if len(got) != len(want) or any(
+            g.shape != w.shape or g.dtype != w.dtype
+            for g, w in zip(got, want)):
+        return None, False
+    return (max(abs_err(g, w) for g, w in zip(got, want)),
+            all(bool((g == w).all()) for g, w in zip(got, want)))
+
+
+def abs_err(a, b):
+    """The largest |a - b| of two tensors, an int where it is whole."""
+    e = float((a.double() - b.double()).abs().max())
+    return int(e) if e.is_integer() else e
+
+
+def me_phase(torch, card):
+    """The motion search kernels against their plain twins on ME_CASES,
+    tolerance 0: the full search's eight outputs, then the refinement's
+    MVs and costs for the half-pel round on the seeded MVs and the
+    quarter-pel round on its result, as the path chains them (each twin
+    timed on its check run); then each kernel's time per picture at
+    ME_TIMED beside its bound.  Returns (max_abs_err of each kernel, and
+    at 720p: each kernel's and twin's ms per launch and its bound)."""
+    from hartallo_tpu_torch.encode import me as M
+    from hartallo_tpu_torch.encode import me_fast as MF
+    from hartallo_tpu_torch.ops.wide import halfpel_planes
+    max_err = {"full_search": 0, "refine": 0}
+    plain_ms, timed = {}, {}
+    for k, (label, W, H, opts) in enumerate(ME_CASES):
+        gw, gh, c = me_inputs(W, H, SEED + k, **opts)
+        src, ref, mv, part = (torch.tensor(c[n], device="cuda")
+                              for n in ("src", "ref", "mv", "part"))
+        lam, rng = torch.tensor(c["lam"], device="cuda"), c["rng"]
+        got = MF.full_search_int_fast(src, ref, lam, gw=gw, gh=gh, rng=rng)
+        plain = []
+        fs_plain = event_ms(torch, lambda: plain.append(M.full_search_int(
+            src, ref, lam, gw=gw, gh=gh, rng=rng)), 1, warm=False)
+        fs_err, fs_same = me_diff(got, plain[0])
+        hp = halfpel_planes(ref)
+        rf_err, rf_same, rf_plain = 0, True, 0.0
+        for step in (2, 1):
+            got = MF.refine_subpel_fast(src, ref, mv, part, lam, step, gw=gw,
+                                        gh=gh, nparts=4, hp=hp)
+            plain = []
+            rf_plain += event_ms(torch, lambda: plain.append(
+                M.refine_subpel(src, ref, mv, part, lam, step, gw=gw, gh=gh,
+                                nparts=4, hp=hp)), 1, warm=False)
+            err, same = me_diff(got, plain[0])
+            rf_err, rf_same = max(rf_err, err), rf_same and same
+            mv = got[0]
+        print(f"ME kernel phase {label} ({gw}x{gh} MBs, range {rng}): full "
+              f"search equal={fs_same} max_abs_err={fs_err}; refinement "
+              f"(half-pel, then quarter-pel) equal={rf_same} "
+              f"max_abs_err={rf_err}", flush=True)
+        if not (fs_same and rf_same):
+            raise SystemExit(f"ME kernels != plain at {label}")
+        max_err["full_search"] = max(max_err["full_search"], fs_err)
+        max_err["refine"] = max(max_err["refine"], rf_err)
+        if label in ME_TIMED:
+            plain_ms[label] = (fs_plain, rf_plain / 2)
+            timed[label] = (event_ms(torch, lambda: MF.full_search_int_fast(
+                src, ref, lam, gw=gw, gh=gh, rng=rng), 10), event_ms(
+                torch, lambda: MF.refine_subpel_fast(
+                    src, ref, mv, part, lam, 1, gw=gw, gh=gh, nparts=4,
+                    hp=hp), 10), gw, gh, rng)
+    for label, (fs_ms, rf_ms, gw, gh, rng) in timed.items():
+        fb, fby = me_bound(gw, gh, rng, "full_search")
+        rb, rby = me_bound(gw, gh, rng, "refine")
+        fp, rp = plain_ms[label]
+        print(f"[{card}] ME kernels {label}: full search {fs_ms * 1e3:.1f} "
+              f"us/picture (plain torch {fp * 1e3:.1f}, bound "
+              f"{fb * 1e3:.3f} us, {fby}); refinement {rf_ms * 1e3:.1f} us "
+              f"a round, {2 * rf_ms * 1e3:.1f} us/picture (plain torch "
+              f"{rp * 1e3:.1f} a round, bound {rb * 1e3:.3f} us a round, "
+              f"{rby})", flush=True)
+    fs_ms, rf_ms, gw, gh, rng = timed["720p"]
+    fp, rp = plain_ms["720p"]
+    return max_err, {"full_search": (fs_ms, fp, *me_bound(gw, gh, rng,
+                                                           "full_search")),
+                     "refine": (rf_ms, rp, *me_bound(gw, gh, rng,
+                                                     "refine"))}
+
+
 def decode_fixture(torch, name):
     """Decode a fixture through ``Codec`` on its default device, the card;
     every frame's MD5 must be the recorded one."""
@@ -586,13 +752,16 @@ def encode_phase(torch):
     """The encode path, launch counts set to 0 just before it: each clip
     byte-equal to its fixture, the intra kernel launched once for the IDR
     picture and once for each P picture that took the intra branch
-    (counted where ``e_device`` decides it), the deblock kernel once per
-    picture; then the port's decoder reads the port's streams back.
-    Returns (deblock launches, intra kernel launches)."""
+    (counted where ``e_device`` decides it), the full search once and the
+    refinement twice per P picture, the deblock kernel once per picture;
+    then the port's decoder reads the port's streams back.  Returns
+    (deblock launches, intra kernel launches, full search launches,
+    refinement launches)."""
     from hartallo_tpu_torch.api import Codec, CodecConfig
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.encode import e_device as E
     from hartallo_tpu_torch.encode import intra_encode_fast as IF
+    from hartallo_tpu_torch.encode import me_fast as MF
     from hartallo_tpu_torch.ops import deblock_fast as D
     real_mask, intra_p = E._intra_in_p_mask, [0]
 
@@ -602,29 +771,40 @@ def encode_phase(torch):
         return mask
     streams, counts = {}, {}
     F.LAUNCHES = D.LAUNCHES = IF.LAUNCHES = 0
+    MF.FULL_SEARCH_LAUNCHES = MF.REFINE_LAUNCHES = 0
     E._intra_in_p_mask = counted
     try:
         for name in ENCODE_MAIN:
-            before = (IF.LAUNCHES, intra_p[0])
+            before = (IF.LAUNCHES, intra_p[0], MF.FULL_SEARCH_LAUNCHES,
+                      MF.REFINE_LAUNCHES)
             streams[name] = encode_clip(torch, name)
-            counts[name] = (IF.LAUNCHES - before[0], intra_p[0] - before[1])
+            counts[name] = (IF.LAUNCHES - before[0], intra_p[0] - before[1],
+                            MF.FULL_SEARCH_LAUNCHES - before[2],
+                            MF.REFINE_LAUNCHES - before[3])
     finally:
         E._intra_in_p_mask = real_mask
     launches, intra = D.LAUNCHES, IF.LAUNCHES
+    fs, rf = MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES
     pictures = sum(m["frames"] for _, _, m in streams.values())
     print(f"encode phase: {pictures} pictures, deblock kernel launches "
-          f"{launches}, intra kernel launches {intra}", flush=True)
+          f"{launches}, intra kernel launches {intra}, full search "
+          f"launches {fs}, refinement launches {rf}", flush=True)
     if launches < pictures:
         raise SystemExit(f"deblock kernel launched {launches} times for "
                          f"{pictures} encoded pictures")
     for name, (stream, _, meta) in streams.items():
-        n, n_p = counts[name]
+        n, n_p, n_fs, n_rf = counts[name]
+        n_pic = meta["frames"] - 1
         print(f"encode phase {name}: intra kernel launches {n}, P pictures "
-              f"with intra MBs {n_p} of {meta['frames'] - 1}", flush=True)
+              f"with intra MBs {n_p} of {n_pic}; full search launches "
+              f"{n_fs}, refinement launches {n_rf}", flush=True)
         if n != 1 + n_p:
             raise SystemExit(f"{name}: {n} intra kernel launches for one "
                              f"IDR picture and {n_p} P pictures with intra "
                              "MBs")
+        if (n_fs, n_rf) != (n_pic, 2 * n_pic):
+            raise SystemExit(f"{name}: {n_fs} full search and {n_rf} "
+                             f"refinement launches for {n_pic} P pictures")
         want, _ = load_fixture(name)
         if stream != want:
             raise SystemExit(f"{name}: the port's stream ({len(stream)} "
@@ -637,7 +817,7 @@ def encode_phase(torch):
                              "misses the recorded MD5s")
         print(f"encode phase {name}: {len(stream)} bytes, byte-equal to "
               f"the fixture; round trip MD5s equal", flush=True)
-    return launches, intra
+    return launches, intra, fs, rf
 
 
 def svc_clips(meta):
@@ -703,11 +883,13 @@ class TwinChecks:
     where the port calls it (``decoder.decode_gop_fast``,
     ``e_device.deblock_frame_fast`` for the encoder and the decoder's
     general route, ``d_gop.deblock_frame_fast`` for the GOP scan and the
-    sharded decode, and ``e_device.intra_encode_frame_fast`` for the
-    encoder), is held against the plain twin on the same inputs,
-    tolerance 0: the GOP kernel's output and ring (the ring cloned before
-    the call), the deblocked planes, and the intra encode's eleven
-    outputs.  The twins launch nothing,
+    sharded decode, ``e_device.intra_encode_frame_fast`` for the
+    encoder, and ``p_device.full_search_int_fast`` and
+    ``refine_subpel_fast`` for the encoder's motion search), is held
+    against the plain twin on the same inputs, tolerance 0: the GOP
+    kernel's output and ring (the ring cloned before the call), the
+    deblocked planes, the intra encode's eleven outputs, the full
+    search's eight outputs and the refinement's MVs and costs.  The twins launch nothing,
     so the launch counts stay the path's.  The deblock twin (some 150,000
     small ops at a 1080p band grid) runs through ``ops/graphs.replayed``:
     eager ops the first time its input shapes are seen, the same ops
@@ -720,11 +902,13 @@ class TwinChecks:
         from hartallo_tpu_torch.decode import d_gop as G
         from hartallo_tpu_torch.decode import decoder as DM
         from hartallo_tpu_torch.encode import e_device as E
-        self.torch, self.DM, self.E, self.G = torch, DM, E, G
+        from hartallo_tpu_torch.encode import p_device as PD
+        self.torch, self.DM, self.E, self.G, self.PD = torch, DM, E, G, PD
         self.label = label
-        self.calls = {"gop": 0, "deblock": 0, "intra": 0}
-        self.err = {"gop": 0, "deblock": 0, "intra": 0}
-        self.shapes = {"gop": set(), "deblock": set(), "intra": set()}
+        kernels = ("gop", "deblock", "intra", "full_search", "refine")
+        self.calls = dict.fromkeys(kernels, 0)
+        self.err = dict.fromkeys(kernels, 0)
+        self.shapes = {k: set() for k in kernels}
 
     def _gop(self, *args, gw, gh, **kw):
         from hartallo_tpu_torch.decode import d_gop_fast as F
@@ -764,8 +948,25 @@ class TwinChecks:
                      all(self.torch.equal(a, b) for a, b in pairs))
         return got
 
+    def _full_search(self, *args, gw, gh, **kw):
+        from hartallo_tpu_torch.encode import me as M
+        got = self.real_fs(*args, gw=gw, gh=gh, **kw)
+        want = M.full_search_int(*args, gw=gw, gh=gh, **kw)
+        self._record("full_search", gw, gh, list(zip(got, want)),
+                     me_diff(got, want)[1])
+        return got
+
+    def _refine(self, *args, gw, gh, **kw):
+        from hartallo_tpu_torch.encode import me as M
+        got = self.real_rf(*args, gw=gw, gh=gh, **kw)
+        want = M.refine_subpel(*args, gw=gw, gh=gh, **kw)
+        self._record("refine", gw, gh, list(zip(got, want)),
+                     me_diff(got, want)[1])
+        return got
+
     def _record(self, kernel, gw, gh, pairs, same):
-        err = max(int((a.int() - b.int()).abs().max()) for a, b in pairs)
+        err = max(abs_err(a, b) if a.shape == b.shape else float("inf")
+                  for a, b in pairs)
         if not same:
             raise SystemExit(f"{self.label}: the {kernel} kernel differs "
                              f"from its plain twin at {gw}x{gh} MBs on the "
@@ -778,15 +979,21 @@ class TwinChecks:
         self.real_gop, self.real_db, self.real_intra = \
             self.DM.decode_gop_fast, self.E.deblock_frame_fast, \
             self.E.intra_encode_frame_fast
+        self.real_fs, self.real_rf = self.PD.full_search_int_fast, \
+            self.PD.refine_subpel_fast
         self.DM.decode_gop_fast = self._gop
         self.E.deblock_frame_fast = self.G.deblock_frame_fast = self._deblock
         self.E.intra_encode_frame_fast = self._intra
+        self.PD.full_search_int_fast = self._full_search
+        self.PD.refine_subpel_fast = self._refine
         return self
 
     def __exit__(self, *exc):
         self.DM.decode_gop_fast = self.real_gop
         self.E.deblock_frame_fast = self.G.deblock_frame_fast = self.real_db
         self.E.intra_encode_frame_fast = self.real_intra
+        self.PD.full_search_int_fast = self.real_fs
+        self.PD.refine_subpel_fast = self.real_rf
 
 
 def svc_phase(torch):
@@ -794,18 +1001,21 @@ def svc_phase(torch):
     byte-equal to the fixture, every decode to its MD5s, the launches
     matching the routes; in the encode and the full decode, every kernel
     call held against its plain twin (``TwinChecks``).  Returns (GOP
-    kernel launches, deblock kernel launches, stream, clips, the twin
-    checks)."""
+    kernel launches, deblock kernel launches, intra kernel launches, full
+    search and refinement launches, stream, clips, the twin checks)."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.encode import intra_encode_fast as IF
+    from hartallo_tpu_torch.encode import me_fast as MF
     from hartallo_tpu_torch.ops import deblock_fast as D
     stream, meta = load_fixture(SVC)
     clips = svc_clips(meta)
     twins = TwinChecks(torch, SVC)
     F.LAUNCHES = D.LAUNCHES = IF.LAUNCHES = 0
+    MF.FULL_SEARCH_LAUNCHES = MF.REFINE_LAUNCHES = 0
     with twins:
         mine, _ = svc_encode(torch, meta, clips)
     enc_db, intra = D.LAUNCHES, IF.LAUNCHES
+    me = (MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES)
     if mine != stream:
         raise SystemExit(f"{SVC}: the port's stream ({len(mine)} bytes) "
                          f"differs from the fixture ({len(stream)} bytes)")
@@ -834,9 +1044,10 @@ def svc_phase(torch):
           f"to the MD5s; routes {routes}; GOP kernel launches {launches}, "
           f"deblock kernel launches in the decodes {db - enc_db} for "
           f"{general} general-route pictures", flush=True)
-    print(f"SVC phase: intra kernel launches in the encode {intra}",
+    print(f"SVC phase: intra kernel launches in the encode {intra}, full "
+          f"search launches {me[0]}, refinement launches {me[1]}",
           flush=True)
-    for kernel in ("gop", "deblock", "intra"):
+    for kernel in twins.calls:
         print(f"SVC phase: {kernel} kernel == plain twin on "
               f"{twins.calls[kernel]} calls of the encode and the full "
               f"decode, MB grids {sorted(twins.shapes[kernel])}, "
@@ -856,7 +1067,11 @@ def svc_phase(torch):
         raise SystemExit(f"SVC: twin checks {twins.calls} do not cover the "
                          f"encode and the full decode ({intra} intra kernel "
                          "launches)")
-    return launches, db, intra, stream, clips, twins
+    if not me[0] or me[1] != 2 * me[0] or \
+            (twins.calls["full_search"], twins.calls["refine"]) != me:
+        raise SystemExit(f"SVC: {me[0]} full search and {me[1]} refinement "
+                         f"launches, twin checks {twins.calls}")
+    return launches, db, intra, me, stream, clips, twins
 
 
 def svc_fps(torch, card, stream, clips):
@@ -913,13 +1128,16 @@ def shard_decode(torch, mesh, stream):
 def shard_phase(torch):
     """The row-sharded path on ``Mesh(("cuda:0",) * 4)``, launch counts
     set to 0 just before it: the 1080p P step's eight outputs equal the
-    JAX package's MD5s (4 deblock launches, one per band), and the
-    grouped decode of shard_1080p_8 (2 GOPs on 2 groups of 2 bands of 34
-    MB rows) equals every frame's MD5 (2 bands x 8 pictures = 16 deblock
-    launches, no GOP kernel); every deblock call of both held against
-    its plain twin (``TwinChecks``).  Returns (deblock launches, the twin
-    checks, the P-step inputs)."""
+    JAX package's MD5s (4 deblock launches, 4 full search and 8
+    refinement launches, one and two per band), and the grouped decode of
+    shard_1080p_8 (2 GOPs on 2 groups of 2 bands of 34 MB rows) equals
+    every frame's MD5 (2 bands x 8 pictures = 16 deblock launches, no GOP
+    kernel); every deblock and motion search call of both held against
+    its plain twin (``TwinChecks``).  Returns (deblock launches, full
+    search and refinement launches, the twin checks, the P-step
+    inputs)."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
+    from hartallo_tpu_torch.encode import me_fast as MF
     from hartallo_tpu_torch.ops import deblock_fast as D
     from hartallo_tpu_torch.parallel.shard import Mesh, gather
     from make_port_fixtures import int32_md5
@@ -929,11 +1147,13 @@ def shard_phase(torch):
     mesh = Mesh(("cuda:0",) * SHARD_BANDS)
     twins = TwinChecks(torch, "shard")
     F.LAUNCHES = D.LAUNCHES = 0
+    MF.FULL_SEARCH_LAUNCHES = MF.REFINE_LAUNCHES = 0
     with twins:
         out = shard_step(torch, mesh, planes, pmeta)
         enc_db = D.LAUNCHES
         frames, _ = shard_decode(torch, mesh, stream)
     db, gop = D.LAUNCHES, F.LAUNCHES
+    me = (MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES)
     for name, bands in zip(pmeta["outputs"], out):
         if any(b.device.type != "cuda" for b in bands):
             raise SystemExit(f"shard: P-step output {name} left the card")
@@ -952,6 +1172,12 @@ def shard_phase(torch):
           f"{twins.calls['deblock']} calls, MB grids "
           f"{sorted(twins.shapes['deblock'])}, max_abs_err "
           f"{twins.err['deblock']}", flush=True)
+    print(f"shard phase: full search launches {me[0]}, refinement launches "
+          f"{me[1]}; full search == plain twin on "
+          f"{twins.calls['full_search']} calls, refinement on "
+          f"{twins.calls['refine']}, MB grids "
+          f"{sorted(twins.shapes['full_search'])}, max_abs_err "
+          f"{twins.err['full_search']} / {twins.err['refine']}", flush=True)
     if enc_db != SHARD_BANDS or db - enc_db != n_dec or gop:
         raise SystemExit(f"shard: deblock launches {enc_db} (step) and "
                          f"{db - enc_db} (decode), GOP kernel {gop}; "
@@ -960,7 +1186,14 @@ def shard_phase(torch):
             twins.shapes["deblock"] != {(120, 17), (120, 34)}:
         raise SystemExit(f"shard: twin checks {twins.calls} at "
                          f"{twins.shapes} do not cover the path")
-    return db, twins, planes
+    if me != (SHARD_BANDS, 2 * SHARD_BANDS) or \
+            (twins.calls["full_search"], twins.calls["refine"]) != me or \
+            twins.shapes["refine"] != {(120, 17)}:
+        raise SystemExit(f"shard: {me[0]} full search and {me[1]} "
+                         f"refinement launches, twin checks {twins.calls} "
+                         f"at {twins.shapes}; expected {SHARD_BANDS} and "
+                         f"{2 * SHARD_BANDS} at 120x17 MBs")
+    return db, me, twins, planes
 
 
 def shard_rates(torch, card, planes):
@@ -1078,11 +1311,12 @@ def main() -> int:
         deblock_phase(torch, card)
     in_err, (in_ms, in_plain_ms, in_bound_ms, in_bound_by) = \
         intra_phase(torch, card)
+    me_err, me_times = me_phase(torch, card)
     launches = slice_phase(torch)
     scan_phase(torch)
-    db_launches, in_launches = encode_phase(torch)
+    db_launches, in_launches, fs_launches, rf_launches = encode_phase(torch)
     t_svc = time.perf_counter()
-    svc_launches, svc_db, svc_in, svc_stream, clips, twins = \
+    svc_launches, svc_db, svc_in, svc_me, svc_stream, clips, twins = \
         svc_phase(torch)
     svc_s = time.perf_counter() - t_svc
     for name in ENCODE_MAIN:
@@ -1093,7 +1327,7 @@ def main() -> int:
     svc_fps(torch, card, svc_stream, clips)
     svc_s += time.perf_counter() - t_svc
     t_shard = time.perf_counter()
-    shard_db, shard_twins, planes = shard_phase(torch)
+    shard_db, shard_me, shard_twins, planes = shard_phase(torch)
     shard_rates(torch, card, planes)
     shard_s = time.perf_counter() - t_shard
     print(f"chip_smoke: all phases passed in "
@@ -1121,14 +1355,33 @@ def main() -> int:
          "bound_by": db_bound_by, "library_ms": None},
         {"name": "intra_encode_frame_fast", "route": "cuda",
          "source": "hartallo_tpu_torch/csrc/intra_encode.cu",
-         "replaces": "hartallo_tpu/encode/intra_encode.py:"
+         "replaces": "hartallo_tpu/encode/intra_encode.py:46 "
                      "intra_encode_frame (XLA, in e_device.i_frame_fused / "
                      "p_gop_fused)",
          "launches": in_launches + svc_in,
          "launches_by_path": {"encode": in_launches, "svc": svc_in},
          "max_abs_err": max(in_err, twins.err["intra"]),
          "ms": in_ms, "plain_ms": in_plain_ms, "bound_ms": in_bound_ms,
-         "bound_by": in_bound_by, "library_ms": None}]}))
+         "bound_by": in_bound_by, "library_ms": None},
+        *({"name": name, "route": "cuda",
+           "source": "hartallo_tpu_torch/csrc/me_search.cu",
+           "replaces": replaces,
+           "launches": enc + svc + shard,
+           "launches_by_path": {"encode": enc, "svc": svc, "shard": shard},
+           "max_abs_err": max(me_err[key], twins.err[key],
+                              shard_twins.err[key]),
+           "ms": me_times[key][0], "plain_ms": me_times[key][1],
+           "bound_ms": me_times[key][2], "bound_by": me_times[key][3],
+           "library_ms": None}
+          for name, key, replaces, enc, svc, shard in (
+              ("full_search_int_fast", "full_search",
+               "hartallo_tpu/encode/me.py:36 full_search_int (XLA, in "
+               "p_device.p_frame_device)", fs_launches, svc_me[0],
+               shard_me[0]),
+              ("refine_subpel_fast", "refine",
+               "hartallo_tpu/encode/me.py:124 refine_subpel (XLA, in "
+               "p_device.p_frame_device)", rf_launches, svc_me[1],
+               shard_me[1])))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,8 @@
 """P-frame encode on the device (torch): full-search ME -> partition
 decision -> sub-pel refine -> MC -> residual transform/quant -> recon.
+The motion search takes the CUDA kernels of ``encode/me_fast`` (one full
+search and two refinement rounds a picture) on CUDA tensors, and their
+plain twins of ``encode/me`` on CPU tensors.
 
 Port of ``hartallo_tpu/encode/p_device.py``, with the JVT-O079 single
 coefficient elimination (reference ``hl_codec_264_residual.c:881-897``,
@@ -19,8 +22,9 @@ from hartallo_tpu_torch.encode.intra_encode import (_blocks_of_mb,
                                                     _mb_of_blocks,
                                                     chroma_recon,
                                                     chroma_residual, qpc_of)
-from hartallo_tpu_torch.encode.me import (_PART_OF_BLK, full_search_int,
-                                          refine_subpel, sum4)
+from hartallo_tpu_torch.encode.me import _PART_OF_BLK, sum4
+from hartallo_tpu_torch.encode.me_fast import (full_search_int_fast,
+                                               refine_subpel_fast)
 from hartallo_tpu_torch.ops.transform import (dequant_4x4, forward_dct_4x4,
                                               forward_quant_4x4,
                                               inverse_transform_4x4)
@@ -70,7 +74,7 @@ def p_frame_device(srcY, srcU, srcV, refY, refU, refV, qp, lam, *, gw: int,
     qp = torch.as_tensor(qp, device=dev).to(torch.int32)
 
     (b16c, b16v, b168c, b168v, b816c, b816v, b88c, b88v) = \
-        full_search_int(srcY, refY, lamf, gw=gw, gh=gh, rng=rng)
+        full_search_int_fast(srcY, refY, lamf, gw=gw, gh=gh, rng=rng)
     c16 = b16c + lamf * 1.0
     c168 = (b168c[..., 0] + b168c[..., 1]) + lamf * 3.0
     c816 = (b816c[..., 0] + b816c[..., 1]) + lamf * 3.0
@@ -95,10 +99,10 @@ def p_frame_device(srcY, srcU, srcV, refY, refU, refV, qp, lam, *, gw: int,
 
     if refine:
         hp = halfpel_planes(refY)           # shared by both rounds
-        mv_blk, _ = refine_subpel(srcY, refY, mv_blk, part_of_blk, lamf, 2,
-                                  gw=gw, gh=gh, nparts=4, hp=hp)
-        mv_blk, _ = refine_subpel(srcY, refY, mv_blk, part_of_blk, lamf, 1,
-                                  gw=gw, gh=gh, nparts=4, hp=hp)
+        mv_blk, _ = refine_subpel_fast(srcY, refY, mv_blk, part_of_blk,
+                                       lamf, 2, gw=gw, gh=gh, nparts=4, hp=hp)
+        mv_blk, _ = refine_subpel_fast(srcY, refY, mv_blk, part_of_blk,
+                                       lamf, 1, gw=gw, gh=gh, nparts=4, hp=hp)
 
     mv44 = mv_blk.reshape(gh, gw, 4, 4, 2)
     zeros_ref = torch.zeros((gh, gw, 4), dtype=torch.int32, device=dev)

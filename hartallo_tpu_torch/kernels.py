@@ -20,7 +20,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "kernels"
 LIB = BUILD_DIR / "libhl_kernels.so"
-SOURCES = ("d_gop.cu", "deblock.cu", "intra_encode.cu")
+SOURCES = ("d_gop.cu", "deblock.cu", "intra_encode.cu", "me_search.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -94,6 +94,10 @@ def load():
         lib.hl_intra_encode_frame.argtypes = [P] * 25 + [I] * 3 + [P]
         lib.hl_intra_encode_attributes.restype = I
         lib.hl_intra_encode_attributes.argtypes = [P]
+        lib.hl_full_search_int.restype = I
+        lib.hl_full_search_int.argtypes = [P] * 11 + [I] * 5 + [P]
+        lib.hl_refine_subpel.restype = I
+        lib.hl_refine_subpel.argtypes = [P] * 7 + [I] * 8 + [P]
         lib.hl_cuda_error_string.restype = ctypes.c_char_p
         lib.hl_cuda_error_string.argtypes = [I]
         _lib = lib

@@ -300,3 +300,37 @@ def intra_case(gw: int, gh: int, seed: int, qp=None, cqo: int = 2,
               "mb_mask": rng.random((gh, gw)) < 0.5}
     return (*planes, qpm.astype(np.int32), cqo, al, at, intra_lambda(lam_qp),
             atr, atl), kw
+
+
+def me_planes(gw: int, gh: int, seed: int, kind: str = "textured",
+              extra_rows: int = 0):
+    """(src, ref) int32 luma planes of the motion search at gw x gh MBs,
+    padded by 32, the reference ``extra_rows`` taller (as a band's halo
+    reference may be).  textured: a gradient with noise and a shifted,
+    noisy source (the planes of tests/test_torch_encode_ops.py); flat:
+    both 128; periodic: a pattern of period 4 in both directions, so
+    every offset by a multiple of 4 matches alike and the SADs tie."""
+    rng = np.random.default_rng(seed)
+    Hp, Wp = gh * 16 + 64, gw * 16 + 64
+    y, x = np.mgrid[:Hp + extra_rows, :Wp]
+    if kind == "flat":
+        ref = np.full(y.shape, 128)
+        src = ref[:Hp]
+    elif kind == "periodic":
+        ref = (x % 4) * 40 + (y % 4) * 13
+        src = ref[:Hp]
+    else:
+        ref = ((x * 3 + y * 5) % 256 + rng.integers(0, 40, x.shape)) % 256
+        src = np.clip(np.roll(ref, (2, -3), (0, 1))[:Hp] +
+                      rng.integers(-3, 4, (Hp, Wp)), 0, 255)
+    return (np.ascontiguousarray(src, np.int32),
+            np.ascontiguousarray(ref, np.int32))
+
+
+def me_refine_maps(gw: int, gh: int, seed: int, nparts: int = 4,
+                   mv_max: int = 60):
+    """Seeded quarter-pel MVs in +-mv_max (gh, gw, 16, 2) and partition
+    maps over 0..nparts-1 (gh, gw, 16), int32, for the refinement."""
+    r = np.random.default_rng(seed)
+    return (r.integers(-mv_max, mv_max + 1, (gh, gw, 16, 2)).astype(np.int32),
+            r.integers(0, nparts, (gh, gw, 16)).astype(np.int32))

@@ -1,14 +1,17 @@
-// The few CUDA features of hartallo_tpu_torch/csrc/intra_encode.cu on the
-// CPU, for tests/test_torch_intra_kernel_emulated.py: one std::thread per
-// CUDA thread of the one block, std::barrier for __syncthreads and
-// __syncwarp, a per-warp slot array for __shfl_xor_sync, and float
-// operations that round once each, as __fadd_rn and __fmul_rn do.  Every
-// lane of a warp must reach each __syncwarp and shuffle, as the kernel's
-// code does.
+// The few CUDA features of hartallo_tpu_torch/csrc/intra_encode.cu and
+// me_search.cu on the CPU, for tests/test_torch_intra_kernel_emulated.py
+// and tests/test_torch_me_kernel_emulated.py: one std::thread per CUDA
+// thread of a block, the blocks of a grid one after another,
+// std::barrier for __syncthreads and __syncwarp, a per-warp slot array
+// for __shfl_xor_sync, and float operations that round once each, as
+// __fadd_rn, __fmul_rn, __fdiv_rn and __fmaf_rn do.  Every lane of a warp
+// must reach each __syncwarp and shuffle, as the kernels' code does.
 #include <algorithm>
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -16,6 +19,7 @@
 using std::max;
 using std::min;
 
+#define __constant__
 #define __device__
 #define __forceinline__ inline
 #define __global__
@@ -26,7 +30,7 @@ struct EmuDim3 {
   unsigned x = 0, y = 0, z = 0;
 };
 thread_local EmuDim3 threadIdx;
-EmuDim3 blockDim;
+EmuDim3 blockDim, blockIdx, gridDim;
 std::unique_ptr<std::barrier<>> emu_block_barrier;
 std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
 int emu_shfl_slots[64][32];
@@ -56,9 +60,32 @@ inline float __fmul_rn(float a, float b) {
   return r;
 }
 
+inline float __fdiv_rn(float a, float b) {
+  volatile float r = a / b;
+  return r;
+}
+
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+
+inline int __clz(int x) {
+  return x == 0 ? 32 : __builtin_clz(static_cast<unsigned>(x));
+}
+
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+
 // the block's dynamic shared memory (`extern __shared__ int smem[]`)
 namespace {
-int smem[1 << 16];
+alignas(16) int smem[1 << 16];
 }
 
 // Run `kernel(args)` as one block of `threads` threads (a multiple of 32,
@@ -77,4 +104,20 @@ void emu_launch(Kernel kernel, const Args& args, int threads) {
       kernel(args);
     });
   for (auto& th : pool) th.join();
+}
+
+// Run `kernel(args)` on a grid of gx x gy blocks of `threads` threads
+// each, one block after another in raster order.
+template <class Kernel, class Args>
+void emu_launch_grid(Kernel kernel, const Args& args, int gx, int gy,
+                     int threads) {
+  gridDim.x = gx;
+  gridDim.y = gy;
+  gridDim.z = 1;
+  for (int y = 0; y < gy; ++y)
+    for (int x = 0; x < gx; ++x) {
+      blockIdx.x = x;
+      blockIdx.y = y;
+      emu_launch(kernel, args, threads);
+    }
 }

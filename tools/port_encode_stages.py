@@ -8,10 +8,11 @@ with bench.py's settings once as a warm-up, then once with the stages
 wrapped, each ended by ``torch.cuda.synchronize`` and counted without the
 stages nested in it: host ``pack_src`` and uploads, the intra kernel
 (``intra_encode_frame_fast``: the IDR picture and every P picture with an
-intra MB), integer full search, sub-pel refinement, the rest of the P and
-I bodies, the deblock kernel (parameter gather included), the fetch with
-MVD/skip derivation, and CAVLC packing, with the intra kernel's
-launches; then one encode of the whole clip under ``torch.profiler`` for
+intra MB), integer full search and sub-pel refinement (the motion search
+kernels, ``full_search_int_fast`` and ``refine_subpel_fast``, where
+``p_device`` calls them), the rest of the P and I bodies, the deblock
+kernel (parameter gather included), the fetch with MVD/skip derivation,
+and CAVLC packing, with the three kernels' launches; then one encode of the whole clip under ``torch.profiler`` for
 the device's busy share and its heaviest kernels (the profiler takes
 about a millisecond for each of the eager P bodies' small kernels).
 Prints two JSON objects per fixture, in ms per frame, with the card's
@@ -53,14 +54,15 @@ def stages(name: str) -> dict:
     import hartallo_tpu_torch.encode.e_device as E
     import hartallo_tpu_torch.encode.encoder as EN
     import hartallo_tpu_torch.encode.intra_encode_fast as IF
+    import hartallo_tpu_torch.encode.me_fast as MF
     import hartallo_tpu_torch.encode.p_device as PD
 
     _encode(name)                                             # warm-up
     patches = [(EN, "pack_src", "pack_src"),
                (EN.Encoder, "_tensor", "upload"),
                (E, "intra_encode_frame_fast", "intra_kernel"),
-               (PD, "full_search_int", "full_search"),
-               (PD, "refine_subpel", "subpel_refine"),
+               (PD, "full_search_int_fast", "full_search"),
+               (PD, "refine_subpel_fast", "subpel_refine"),
                (E, "_p_frame_body", "p_body_rest"),
                (EN, "i_frame_fused", "i_body_rest"),
                (E, "deblock_frame_fast", "deblock_kernel"),
@@ -68,13 +70,15 @@ def stages(name: str) -> dict:
                (EN.Encoder, "_pack_slices", "cavlc_pack")]
     S = Split()
     nf = []
-    launches = IF.LAUNCHES
+    launches = (IF.LAUNCHES, MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES)
     total = S.run(patches, lambda: nf.append(_encode(name)))
     ms = {key: v * 1e3 / nf[0] for (_, key), v in S.T.items()}
     ms["other_host"] = total * 1e3 / nf[0] - sum(ms.values())
     ms["total"] = total * 1e3 / nf[0]
     return {"fixture": name, "encode_ms_per_frame": ms,
-            "intra_kernel_launches": IF.LAUNCHES - launches}
+            "intra_kernel_launches": IF.LAUNCHES - launches[0],
+            "full_search_launches": MF.FULL_SEARCH_LAUNCHES - launches[1],
+            "refine_launches": MF.REFINE_LAUNCHES - launches[2]}
 
 
 def device_split(name: str) -> dict:

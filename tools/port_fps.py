@@ -11,7 +11,7 @@ one JSON line with the card's name and power limit and, through
 - decode fps of ``cif_16``, ``720p_8`` and ``1080p_8`` through
   ``Codec.decode_annexb``: one warm-up decode, then ``N`` timed ones
   (default 3), every frame's MD5 checked;
-- encode fps of ``cif_16`` and ``720p_8`` through
+- encode fps of ``cif_16``, ``720p_8`` and ``1080p_8`` through
   ``Codec.encode_frames`` with ``bench.py``'s settings: a warm-up encode
   of each clip's first two frames, then ``N`` timed encodes of the
   whole clip, each stream equal to the fixture; and of ``svc3_4cif_8``
@@ -34,7 +34,7 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DECODES = ("cif_16", "720p_8", "1080p_8")
-ENCODES = ("cif_16", "720p_8")
+ENCODES = ("cif_16", "720p_8", "1080p_8")
 SVC = "svc3_4cif_8"
 
 

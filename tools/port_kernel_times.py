@@ -1,5 +1,5 @@
-"""Times of the port's two CUDA kernels, for comparing two trees on one
-card in one run.
+"""Times of the port's CUDA kernels, for comparing two trees on one card
+in one run.
 
     python tools/port_kernel_times.py dump PAYLOADS.npz
     python tools/port_kernel_times.py time PAYLOADS.npz [--tree DIR] [--plain]
@@ -21,10 +21,15 @@ limit:
 - the intra encode kernel (``intra_encode_frame_fast``) on the first
   ``bench.make_clip`` frame at CIF, 720p and 1080p
   (``chip_smoke.intra_inputs``), µs per picture, where the tree has it;
+- the motion search kernels (``full_search_int_fast`` and one
+  quarter-pel round of ``refine_subpel_fast``) on the ``bench.make_clip``
+  frame pair at CIF, 720p and 1080p (``chip_smoke.me_inputs``), µs per
+  call, where the tree has them;
 - with ``--plain``, the plain twins once each (the CIF batch, the 720p
-  IDR picture, every deblock grid, the intra encode at CIF and 720p);
+  IDR picture, every deblock grid, the intra encode at CIF and 720p, the
+  motion search at CIF, 720p and 1080p);
 - each kernel's bound (``chip_smoke.gop_bound`` / ``deblock_bound`` /
-  ``intra_bound``).
+  ``intra_bound`` / ``me_bound``).
 """
 from __future__ import annotations
 
@@ -81,8 +86,9 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
 
     # this tree's chip_smoke, then the package of the tree under test
     from chip_smoke import (SEED, DEBLOCK_GRIDS, INTRA_CASES, INTRA_TIMED,
-                            card_line, deblock_bound, deblock_inputs,
-                            event_ms, gop_bound, intra_bound, intra_inputs)
+                            ME_CASES, ME_TIMED, card_line, deblock_bound,
+                            deblock_inputs, event_ms, gop_bound,
+                            intra_bound, intra_inputs, me_bound, me_inputs)
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     from hartallo_tpu_torch import kernels
     from hartallo_tpu_torch.decode import d_gop_fast as F
@@ -98,7 +104,9 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
            "gop_bound_us_per_picture": {}, "deblock_launch_us": {},
            "deblock_wrapper_us": {}, "deblock_plain_us": {},
            "deblock_bound_us": {}, "intra_us": {}, "intra_plain_us": {},
-           "intra_bound_us": {}}
+           "intra_bound_us": {}, "full_search_us": {},
+           "full_search_plain_us": {}, "full_search_bound_us": {},
+           "refine_us": {}, "refine_plain_us": {}, "refine_bound_us": {}}
     for key, (pay, gw, gh, S) in _payloads(path).items():
         K = pay["sf"].shape[0]
         rng = np.random.default_rng(SEED)
@@ -151,6 +159,33 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
                 res["intra_plain_us"][name] = 1e3 * event_ms(
                     torch, lambda: IF.intra_encode_frame(*ta, gw=gw, gh=gh),
                     1)
+    if importlib.util.find_spec("hartallo_tpu_torch.encode.me_fast") \
+            is not None:
+        from hartallo_tpu_torch.encode import me as M
+        from hartallo_tpu_torch.encode import me_fast as MF
+        from hartallo_tpu_torch.ops.wide import halfpel_planes
+        for k, (name, W, H, opts) in enumerate(ME_CASES):
+            if name not in ME_TIMED:
+                continue
+            gw, gh, c = me_inputs(W, H, SEED + k, **opts)
+            src, ref, mv, part = (torch.tensor(c[n], device="cuda")
+                                  for n in ("src", "ref", "mv", "part"))
+            lam, rng = torch.tensor(c["lam"], device="cuda"), c["rng"]
+            hp = halfpel_planes(ref)
+            calls = {
+                "full_search": (MF.full_search_int_fast, M.full_search_int,
+                                (src, ref, lam), {"rng": rng}),
+                "refine": (MF.refine_subpel_fast, M.refine_subpel,
+                           (src, ref, mv, part, lam, 1),
+                           {"nparts": 4, "hp": hp})}
+            for key, (fast, twin, args, kw) in calls.items():
+                res[f"{key}_us"][name] = 1e3 * event_ms(
+                    torch, lambda: fast(*args, gw=gw, gh=gh, **kw), 10)
+                res[f"{key}_bound_us"][name] = 1e3 * me_bound(gw, gh, rng,
+                                                              key)[0]
+                if plain:
+                    res[f"{key}_plain_us"][name] = 1e3 * event_ms(
+                        torch, lambda: twin(*args, gw=gw, gh=gh, **kw), 1)
     print(json.dumps(res), flush=True)
 
 

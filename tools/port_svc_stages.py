@@ -116,8 +116,8 @@ def encode_split(name: str) -> dict:
         (EN, "pack_src", "pack_src", None),
         (EN.Encoder, "_tensor", "upload", None),
         (E, "intra_encode_frame_fast", "intra_kernel", None),
-        (PD, "full_search_int", "full_search", None),
-        (PD, "refine_subpel", "subpel_refine", None),
+        (PD, "full_search_int_fast", "full_search", None),
+        (PD, "refine_subpel_fast", "subpel_refine", None),
         (E, "_p_frame_body", "p_body_rest", None),
         (EN, "i_frame_fused", "i_body_rest", None),
         (E, "deblock_frame_fast", "deblock_kernel", None),
