@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``hartallo_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per
    source, all at once) and print
    ptxas' registers and spills, and the intra encode kernel's dynamic
-   shared memory and registers as the runtime reports them; the port's
-   native slice parser and packer
+   shared memory, registers, spills, block size and the most MB rows
+   (blocks) the card holds at once, as the runtime reports them; the
+   port's native slice parser and packer
    (``hartallo_tpu_torch/native``, built with gcc into ``build/native/``)
    must have loaded, or the timed host path would be pure Python;
 3. GOP kernel phase: the ``d_pool.pack_fast`` payloads of the 16 pictures
@@ -27,11 +28,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    go through the frame deblock kernel and its plain twin; the planes
    must be byte-equal;
 5. intra encode kernel phase: the first ``bench.make_clip`` frame at
-   QCIF, CIF, 4CIF, 720p and 1080p, the CIF and 720p grids in the masked
-   (intra-in-P) form with seeded base planes, CIF in three row slices, a
-   flat CIF picture, and CIF with per-MB qp over 0..51 at chroma offsets
-   -4 and +5 and the lambdas of qp 12 and 45 (INTRA_CASES) go through
-   the kernel and its plain twin; all eleven outputs must be equal;
+   one MB, QCIF, CIF, 4CIF, 720p and 1080p, the CIF, 720p and 1080p
+   grids in the masked (intra-in-P) form with seeded base planes, CIF in
+   three row slices, a flat CIF picture, CIF with per-MB qp over 0..51 at
+   chroma offsets -4 and +5 and the lambdas of qp 12 and 45, a tall
+   narrow picture (352x1088, 68 MB rows of 22) and a picture of one MB
+   row (1920x16) (INTRA_CASES) go through the kernel (one block per MB
+   row) and its plain twin; all eleven outputs must be equal;
 6. ME kernel phase: the ``bench.make_clip`` frame pair (the second frame
    searched in the first) at QCIF, CIF, 4CIF, 720p and 1080p, the shard
    phase's 1080p band of 17 MB rows with its halo reference, ranges 12
@@ -89,10 +92,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    synchronised runs: kernel and plain time per CIF picture and the
    kernel's time on the 720p IDR picture; per deblocked frame, the
    wrapper with its parameter gather, the launch alone and the plain
-   twin; the intra encode kernel per picture at CIF, 720p and 1080p
-   with its slope-2 steps, the twin at CIF and 720p (each twin timed on
-   its check run); the full search and a refinement round per picture
-   at CIF, 720p and 1080p beside their twins; each beside its bound
+   twin; the intra encode kernel per picture at one MB, CIF, 720p and
+   1080p, with its wrapper and alone (the profiler's device time),
+   beside its chain floor (the gw + 2 gh - 2 MBs of its critical path
+   times the one-MB picture's kernel time), the twin at CIF and 720p
+   (each twin timed on its check run); the full search and a refinement
+   round per picture at CIF, 720p and 1080p beside their twins; each
+   beside its bound
    (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``);
    encode fps at CIF, 720p and
    1080p, decode fps at CIF, 720p and 1080p, the SVC
@@ -140,8 +146,14 @@ INTRA_CASES = (
     ("CIF qp 0..51, offset -4, lambda of qp 12", 352, 288,
      {"qp": None, "cqo": -4, "lam_qp": 12}),
     ("CIF qp 0..51, offset +5, lambda of qp 45", 352, 288,
-     {"qp": None, "cqo": 5, "lam_qp": 45}))
-INTRA_TIMED = ("CIF", "720p", "1080p")
+     {"qp": None, "cqo": 5, "lam_qp": 45}),
+    ("1080p masked", 1920, 1080, {"masked": True}),
+    ("352x1088, 68 rows of 22 MBs", 352, 1088, {}),
+    ("1920x16, one MB row", 1920, 16, {}),
+    ("one MB", 16, 16, {}))
+# timed per picture; "one MB" gives one MB's latency, the unit of the
+# chain floor
+INTRA_TIMED = ("one MB", "CIF", "720p", "1080p")
 # the motion search kernels' cases: (label, width, height, options of
 # me_inputs); the defaults are bench.py's settings (me_range 12, the
 # lambda of qp 30); the band is the shard phase's second band of 17 MB
@@ -279,6 +291,24 @@ def event_ms(torch, fn, reps, warm=True):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def kernel_us(torch, fn, reps: int, name: str):
+    """Mean device time in µs of the kernel whose name holds ``name``,
+    over reps calls of fn() after one warm-up, from ``torch.profiler``'s
+    device-side events (no host time: for a kernel that the host's
+    set-up outlasts), or None when the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total / e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key]
+    return sum(times) if times else None
 
 
 def check_gop(torch, frames, gw, gh, S, stages_list, label):
@@ -497,8 +527,10 @@ def intra_diff(got, want, gw: int, gh: int):
 def intra_phase(torch, card):
     """The intra encode kernel against its plain twin on INTRA_CASES,
     tolerance 0 on all eleven outputs (the twin timed on its check run);
-    then the kernel's time per picture at INTRA_TIMED beside its bound
-    and the wavefront's slope-2 steps.  Returns (max_abs_err, and at
+    then the kernel's time per picture at INTRA_TIMED, with its wrapper
+    (CUDA events) and alone (the profiler's device time), beside its
+    bound and its chain floor: the gw + 2 gh - 2 MBs of the critical path
+    times the one-MB picture's kernel time.  Returns (max_abs_err, and at
     720p: the kernel's and the twin's ms per picture and the bound)."""
     import numpy as np
     from hartallo_tpu_torch.encode import intra_encode_fast as IF
@@ -517,25 +549,34 @@ def intra_phase(torch, card):
         ms = event_ms(torch, lambda: plain.append(IF.intra_encode_frame(
             *ta, **tkw, gw=gw, gh=gh)), 1, warm=False)
         err, first = intra_diff(got, plain[0], gw, gh)
-        print(f"intra kernel phase {label} ({gw}x{gh} MBs): "
-              f"max_abs_err={err} first differing MB (my, mx)={first}",
-              flush=True)
+        print(f"intra kernel phase {label} ({gw}x{gh} MBs, grid of {gh} "
+              f"blocks of {IF.THREADS} threads): max_abs_err={err} first "
+              f"differing MB (my, mx)={first}", flush=True)
         if first is not None:
             raise SystemExit(f"intra kernel != plain at {label}")
         max_err = max(max_err, err)
         if label in ("CIF", "720p"):
             plain_ms[label] = ms
         if label in INTRA_TIMED:
-            timed[label] = (event_ms(torch, lambda: IF.intra_encode_frame_fast(
-                *ta, **tkw, gw=gw, gh=gh), 10), gw, gh)
-    for label, (ms, gw, gh) in timed.items():
+            def call():
+                IF.intra_encode_frame_fast(*ta, **tkw, gw=gw, gh=gh)
+            timed[label] = (event_ms(torch, call, 10),
+                            kernel_us(torch, call, 10, "intra_encode"), gw,
+                            gh)
+    mb_us = timed["one MB"][1]
+    for label, (ms, dev_us, gw, gh) in timed.items():
         bound_ms, bound_by = intra_bound(gw, gh, False)
         twin = f", plain torch {plain_ms[label] * 1e3:.1f} us" \
             if label in plain_ms else ""
+        chain = gw + 2 * gh - 2
+        dev = "not measured" if dev_us is None else f"{dev_us:.1f} us"
+        floor = "not measured" if mb_us is None else \
+            f"{chain} MBs x {mb_us:.1f} us = {chain * mb_us:.1f} us"
         print(f"[{card}] intra kernel {label}: {ms * 1e3:.1f} us/picture "
-              f"({gw + 2 * gh - 2} slope-2 steps){twin}, bound "
-              f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
-    ms, gw, gh = timed["720p"]
+              f"with the wrapper, kernel alone {dev}, chain floor {floor}"
+              f"{twin}, bound {bound_ms * 1e3:.3f} us ({bound_by})",
+              flush=True)
+    ms, _, gw, gh = timed["720p"]
     return max_err, (ms, plain_ms["720p"], *intra_bound(gw, gh, False))
 
 
@@ -1297,15 +1338,18 @@ def main() -> int:
                          "pure-Python fallback")
     print(f"native library {pathlib.Path(native._SO).relative_to(REPO)} "
           "loaded", flush=True)
-    attrs = (ctypes.c_int * 5)()
+    from hartallo_tpu_torch.encode.intra_encode_fast import THREADS
+    attrs = (ctypes.c_int * 6)()
     rc = kernels.load().hl_intra_encode_attributes(attrs)
     if rc != 0:
         raise SystemExit(f"intra kernel attributes: CUDA error {rc} "
                          f"({kernels.error_string(rc)})")
-    print(f"intra kernel: {attrs[0]} bytes of dynamic shared memory, "
-          f"{attrs[1]} registers, {attrs[2]} bytes of local memory per "
-          f"thread, {attrs[3]} bytes of static shared memory, at most "
-          f"{attrs[4]} threads a block", flush=True)
+    print(f"intra kernel: blocks of {THREADS} threads, one per MB row "
+          f"(a cooperative grid of gh blocks: 9 QCIF, 18 CIF, 45 720p, 68 "
+          f"1080p; at most {attrs[5]} on this card), {attrs[0]} bytes of "
+          f"dynamic shared memory, {attrs[1]} registers, {attrs[2]} bytes "
+          f"of local (spill) memory per thread, {attrs[3]} bytes of static "
+          f"shared memory, at most {attrs[4]} threads a block", flush=True)
     max_err, ms, plain_ms, bound_ms, bound_by = kernel_phase(torch, card)
     db_err, (db_ms, db_plain_ms, db_bound_ms, db_bound_by) = \
         deblock_phase(torch, card)

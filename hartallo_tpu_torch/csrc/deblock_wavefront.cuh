@@ -43,6 +43,7 @@
 #include <cuda_runtime.h>
 
 #include "deblock_filters.cuh"
+#include "device_prims.cuh"
 
 namespace hl {
 
@@ -100,18 +101,6 @@ static __device__ void deblock_line(int32_t* P, int stride, int y0, int x0,
   }
 }
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
 // gh blocks of 32 threads, launched by launch_deblock.  prog: gh zeroed
 // ints, prog[my] = MBs of row my finished.  Wp / Wcp: row strides of the
 // luma and chroma planes (16 gw + 2 PAD, 8 gw + 2 PAD).
@@ -164,11 +153,7 @@ k_deblock(const int16_t* __restrict__ aux, int32_t* py, int32_t* pu,
     const int lx0 = PAD + 16 * mx - 4, cx0 = PAD + 8 * mx - 2;
     // 2. wait for row my - 1 to finish MB min(mx + 1, gw - 1)
     if (my > 0) {
-      if (lane == 0) {
-        const int need = mx + 2 < gw ? mx + 2 : gw;
-        while (ld_acquire(prog + my - 1) < need) {
-        }
-      }
+      if (lane == 0) wait_progress(prog + my - 1, mx + 2 < gw ? mx + 2 : gw);
       __syncwarp();
     }
     // 3. the top margin, which row my - 1 wrote

@@ -20,24 +20,55 @@
 // decisions and levels are computed for every MB, and a masked-out MB's
 // recon is its base recon.
 //
-// Design.  An MB reads only the recon of its left, top, top-left and
-// top-right neighbours, which lie on the slope-2 steps d - 1, d - 2, d - 3
-// and d - 1 of d = mx + 2 my, so the MBs of one step are independent.  One
-// block of 512 threads walks the steps; its 16 warps take the MBs of a
-// step, one warp per MB, with a __syncthreads between steps (CIF 56 steps
-// of at most 11 MBs, 720p 168 of at most 40, 1080p 254 of at most 60).
-// A warp keeps its MB's source, a 17x17 neighbour tile that the Intra4x4
-// blocks reconstruct into, the chroma source and neighbours, and scratch
-// for the transforms in its slice of shared memory (4.9 KB); the 9
-// Intra4x4 candidates of a block are spread over the lanes (lanes 0-15
-// the even modes, 16-31 the odd ones, one pixel a lane) and each SAD is
-// reduced with shuffles.  Neighbours are read from the output recon
-// planes, which the caller zeroes: the pads read zero, as the twin's carry
-// does.  The quantiser, chroma QP and Intra4x4 mode tables come in one
-// int32 table that the wrapper uploads once per device.  512 threads
-// leave a thread 128 registers; at 1024 (64 registers) the compiler
-// spills, and a CIF picture took 2.7 ms instead of 1.8 on the H100, while
-// 720p and 1080p pictures took about as long either way.
+// What bounds it on the H100: bytes, about 2.7 KB an MB (the source, the
+// recon and 427 int32 words of levels and modes) or 0.6 us a CIF picture
+// at 3.35 TB/s.  What the kernel takes is the chain of dependent MBs: an
+// MB reads the recon of its left, top, top-left and top-right neighbours,
+// so a picture is at least gw + 2 gh - 2 MB latencies long, and an MB's
+// latency is its chained Intra4x4 blocks.
+//
+// Design.
+// - MB rows across the SMs.  One block per MB row (gh blocks of 128
+//   threads, a cooperative launch, so that all rows are resident at once
+//   and their spin-waits cannot deadlock).  Row my walks its MBs left to
+//   right and starts MB (mx, my) once row my - 1 has published MB
+//   min(mx + 1, gw - 1): a progress counter per row in device memory,
+//   read with an acquire load by thread 0 and written, after a block
+//   barrier that orders the MB's bottom row stores, with a release store;
+//   the MB's other outputs, which no other row reads, are written after
+//   it.  The rows above are read after the wait and bypass L1 (__ldcg),
+//   since other SMs write them during the launch; the row's own left
+//   neighbour is carried over in shared memory, and its source is loaded
+//   into registers one MB ahead.
+// - Four warps share an MB.  Warps 0 and 1 run the Intra4x4 blocks as the
+//   ten slope-2 steps of the MB's own 4x4 wavefront (block (bc, br) at
+//   step bc + 2 br, at most two a step, one a warp, a barrier of the two
+//   warps between steps), and sum i4_cost from 0 in blkIdx order after
+//   the last; warp 2 runs the Intra16x16 decision and residual into a
+//   tile of its own, warp 3 the chroma decision and residual (both read
+//   only the neighbours' recon, final once the wait returns).  A block
+//   barrier joins them; then i16_cost + 6 lambda < i4_cost picks the luma
+//   recon and levels that every thread writes out.
+// - An Intra4x4 block in one warp, one shared-memory round trip.  Every
+//   sample of the eight directional predictions is one of 31 values of
+//   the block's 13-sample edge vector s = [l3, l2, l1, l0, tl, t0..t7]
+//   (the samples themselves, its 2-tap and 3-tap filters, two corner
+//   cases: entry_taps); lane k forms value k from the tile, and lane
+//   (g, r) = (lane / 4, lane % 4) gathers with shuffles the four samples
+//   of row r of mode g (0, 1, 3..8; entry4 fixes the indices once per
+//   launch) and sums its SAD and the DC mode's in one packed word.  Each
+//   group carries its row of its own mode's residual through the forward
+//   transform, quantisation, dequantisation and inverse transform in
+//   registers (columns by butterfly shuffles within the group, with
+//   per-lane coefficients, not branches) while the argmin runs: one
+//   __reduce_min_sync of order-preserving cost keys and a ballot.  When
+//   DC wins, every group codes DC's residual after it; the winning group
+//   writes the recon rows to the tile.
+// - A block of shared memory holds the quantiser tables, the source, a
+//   17x25 luma tile (row 0 the top-left, top and top-right samples,
+//   column 0 the left column, the body the Intra4x4 recon), the chroma
+//   source and neighbours, the Intra16x16 recon and both sets of levels,
+//   and the warps' scratch (10.4 KB).
 //
 // Rounding.  The costs are the only floating-point values.  nvcc contracts
 // a*b + c into an FMA by default, and the twin rounds every operation, so
@@ -47,45 +78,51 @@
 // i16_cost + lam*6 < i4_cost.  Argmins take the first minimum, as
 // torch.argmin does.  Everything else is int32 with flooring >> and no
 // / or % of a negative value.
-//
-// What bounds it on the H100: bytes, about 2.7 KB an MB (the source, the
-// recon and 427 int32 words of levels and modes) or 0.6 us a CIF picture
-// at 3.35 TB/s.  What the kernel takes is the chain of dependent steps:
-// at CIF the latency of one MB a step (its 16 chained Intra4x4 blocks),
-// at 720p and 1080p, whose widest steps hold more MBs than the block has
-// warps, the issue rate of the one SM.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "device_prims.cuh"
 
 namespace {
 
 constexpr int PAD = 32;
-constexpr int THREADS = 512;
+// the block: two Intra4x4 warps, an Intra16x16 warp and a chroma warp
+constexpr int THREADS = 128;
 constexpr float BIG = 1e18f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// the wrapper's table (intra_encode_fast._tables), int32 words: the
-// Intra4x4 gather tables of ops/intra.py [idx (8,4,4,3) | wgt (8,4,4,3) |
-// rnd (8,4,4) | sht (8,4,4)] (bank row 0, 1, 2.. 7 = spec modes 0, 1,
-// 3.. 8), then QUANT_MF (6,4,4), QUANT_V (6,4,4), QUANT_QBITS (52), the
-// intra row of QUANT_F (52) and QP_SCALE_CHROMA (52) of core/tables.py
-constexpr int T_IDX = 0, T_WGT = 384, T_RND = 768, T_SHT = 896,
-              T_MF = 1024, T_V = 1120, T_QBITS = 1216, T_F = 1268,
-              T_QPC = 1320, T_WORDS = 1372;
+// the wrapper's table (intra_encode_fast._tables), int32 words: QUANT_MF
+// (6,4,4), QUANT_V (6,4,4), QUANT_QBITS (52), the intra row of QUANT_F (52)
+// and QP_SCALE_CHROMA (52) of core/tables.py
+constexpr int T_MF = 0, T_V = 96, T_QBITS = 192, T_F = 244, T_QPC = 296,
+              T_WORDS = 348;
 
-// a warp's shared memory, int32 words
-constexpr int W_SRC = 0;              // luma source, 16x16 raster
-constexpr int W_TILE = W_SRC + 256;   // 17x17: row 0 the top-left corner
-                                      // and top row, column 0 the left
-                                      // column, the body the I4x4 recon
-constexpr int W_TR = W_TILE + 289;    // the top-right MB's 8 samples
-constexpr int W_X = W_TR + 8;         // scratch
-constexpr int W_L = W_X + 256;        // coefficients, I4x4 levels
-constexpr int W_CS = W_L + 256;       // chroma source [c][8][8]
-constexpr int W_CN = W_CS + 128;      // chroma neighbours [c][tl, t0..7,
-                                      // l0..7]
-constexpr int W_WORDS = W_CN + 36;
-constexpr int SMEM_BYTES = (T_WORDS + (THREADS / 32) * W_WORDS) * 4;
+// the block's shared memory, int32 words
+constexpr int TW = 25;                  // row stride of the luma tile
+constexpr int S_TAB = 0;
+constexpr int S_SRC = S_TAB + T_WORDS;  // luma source, 16x16 raster
+constexpr int S_TILE = S_SRC + 256;     // 17 x TW: row 0 the top-left
+                                        // corner, top row and top-right
+                                        // MB's 8 samples, column 0 the
+                                        // left column, the body the
+                                        // Intra4x4 recon
+constexpr int S_CSRC = S_TILE + 17 * TW;  // chroma source [c][8][8]
+constexpr int S_CN = S_CSRC + 128;      // chroma neighbours [c][tl, t0..7,
+                                        // l0..7]
+constexpr int S_R16 = S_CN + 34;        // Intra16x16 recon, 16x16 raster
+constexpr int S_L16 = S_R16 + 256;      // Intra16x16 AC levels, (16 blkIdx,
+                                        // 4, 4)
+constexpr int S_DC16 = S_L16 + 256;     // Intra16x16 DC levels, raster
+constexpr int S_L4 = S_DC16 + 16;       // Intra4x4 levels, (16 blkIdx, 4, 4)
+constexpr int S_X16 = S_L4 + 256;       // warp 2's scratch
+constexpr int S_XC = S_X16 + 304;       // warp 3's scratch
+constexpr int S_LC = S_XC + 152;        // chroma coefficients
+constexpr int S_LEFT = S_LC + 128;      // the left MB's right column: luma
+                                        // 16, then U 8 and V 8
+constexpr int S_BEST = S_LEFT + 32;     // the Intra4x4 blocks' costs
+constexpr int S_SCAL = S_BEST + 16;     // i4_cost, i16_cost, i16_mode
+constexpr int SMEM_WORDS = S_SCAL + 4;
+constexpr int SMEM_BYTES = SMEM_WORDS * 4;
 
 // Intra4x4 modes reading the top, left and corner samples (8.3.1.2), as
 // bit masks over the mode number (the twin's _NEED_TOP / _NEED_LEFT /
@@ -102,14 +139,14 @@ struct Args {
   const float* lam;             // one value
   int32_t *ry, *ru, *rv;        // PAD-padded recon, zeroed by the caller
   int32_t *use16, *i16m, *i4m, *cm, *ldc, *lac, *cdc, *cac;
+  int* prog;                    // gh zeroed counters: MBs of a row done
   int gw, gh, cqo;
 };
 
 __device__ __forceinline__ int clip255(int v) { return min(max(v, 0), 255); }
 
 __device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+  return (int)__reduce_add_sync(FULL, (unsigned)v);
 }
 
 // blkIdx -> the block's pixel offsets in its MB, and its raster position
@@ -204,25 +241,94 @@ __device__ __forceinline__ int dequant(int c, int ls, int qp) {
                   : (c * ls + (1 << (3 - qdiv))) >> (4 - qdiv);
 }
 
-// Intra4x4 prediction of pixel p (raster in the block) in `mode`, from
-// the edge vector s = [l3, l2, l1, l0, tl, t0..t7]
-__device__ __forceinline__ int pred4(const int* tab, const int* s, int mode,
-                                     int p, int dc) {
-  if (mode == 2) return dc;
-  const int e = (mode < 2 ? mode : mode - 1) * 16 + p;
-  int acc = 0;
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    acc += s[tab[T_IDX + e * 3 + k]] * tab[T_WGT + e * 3 + k];
-  return (acc + tab[T_RND + e]) >> tab[T_SHT + e];
+// A float as an unsigned key of the same order (no NaN reaches it)
+__device__ __forceinline__ unsigned cost_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float key_cost(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
+// ---- the Intra4x4 predictions as 31 values of the edge vector -----------
+// s = [l3, l2, l1, l0, tl, t0..t7]; value k is
+// (s[i0] + w1 s[i1] + w2 s[i2] + rnd) >> sh:
+//   0-7    s[i], i = 0 1 2 3 5 6 7 8 (the left and top samples)
+//   8-17   (s[k] + s[k+1] + 1) >> 1, k = 0..9
+//   18-28  (s[c-1] + 2 s[c] + s[c+1] + 2) >> 2, c = 1..11
+//   29     (t6 + 3 t7 + 2) >> 2 (diagonal down-left at x = y = 3)
+//   30     (l2 + 3 l3 + 2) >> 2 (horizontal up at x + 2y = 5)
+struct Taps {
+  int i0, i1, i2, w1, w2, sh;
+};
+
+__device__ Taps entry_taps(int k) {
+  if (k < 8) {
+    const int i = k < 4 ? k : k + 1;
+    return {i, i, i, 0, 0, 0};
+  }
+  if (k < 18) return {k - 8, k - 7, k - 7, 1, 0, 1};
+  if (k < 29) return {k - 18, k - 17, k - 16, 2, 1, 2};
+  if (k == 29) return {11, 12, 12, 3, 0, 2};
+  if (k == 30) return {1, 0, 0, 3, 0, 2};
+  return {0, 0, 0, 0, 0, 0};
+}
+
+__device__ __forceinline__ int raw_e(int i) { return i < 4 ? i : i - 1; }
+__device__ __forceinline__ int f2_e(int k) { return 8 + k; }
+__device__ __forceinline__ int f3_e(int c) { return 17 + c; }
+
+// The value that sample (x, y) of Intra4x4 mode `mode` (not 2) takes
+// (8.3.1.2.1-9, ops/intra._mode_tables)
+__device__ int entry4(int mode, int x, int y) {
+  switch (mode) {
+    case 0:  // vertical: t[x]
+      return raw_e(5 + x);
+    case 1:  // horizontal: l[y]
+      return raw_e(3 - y);
+    case 3:  // diagonal down-left
+      return x == 3 && y == 3 ? 29 : f3_e(6 + x + y);
+    case 4:  // diagonal down-right
+      return f3_e(4 + x - y);
+    case 5: {  // vertical right
+      const int z = 2 * x - y, j = x - (y >> 1);
+      if (z >= 0) return (z & 1) ? f3_e(4 + j) : f2_e(4 + j);
+      return z == -1 ? f3_e(4) : f3_e(5 - y);
+    }
+    case 6: {  // horizontal down
+      const int z = 2 * y - x, j = y - (x >> 1);
+      if (z >= 0) return (z & 1) ? f3_e(4 - j) : f2_e(3 - j);
+      return z == -1 ? f3_e(4) : f3_e(3 + x);
+    }
+    case 7: {  // vertical left
+      const int j = x + (y >> 1);
+      return (y & 1) ? f3_e(6 + j) : f2_e(5 + j);
+    }
+    default: {  // 8, horizontal up
+      const int z = x + 2 * y, j = y + (x >> 1);
+      if (z > 5) return raw_e(0);
+      if (z == 5) return 30;
+      return (z & 1) ? f3_e(2 - j) : f2_e(2 - j);
+    }
+  }
+}
+
+// offset in the tile of edge sample i from the block's top-left corner
+// sample; the top-right four become t3 where the block never has them
+__device__ __forceinline__ int edge_off(int i) {
+  return i <= 4 ? (4 - i) * TW : i - 4;
+}
+__device__ __forceinline__ int edge_offs(int i) {
+  return edge_off(i) | (edge_off(i >= 9 ? 8 : i) << 16);
+}
+
+// ---- the luma 16x16 and chroma predictions -------------------------------
 struct Pred16 {
   const int* tile;
   int dc, pa, pb, pc;
   __device__ __forceinline__ int operator()(int mode, int y, int x) const {
     if (mode == 0) return tile[1 + x];
-    if (mode == 1) return tile[(1 + y) * 17];
+    if (mode == 1) return tile[(1 + y) * TW];
     if (mode == 2) return dc;
     return clip255((pa + pb * (x - 7) + pc * (y - 7) + 16) >> 5);
   }
@@ -262,67 +368,243 @@ __device__ PredC chroma_pred(const int* n, bool at, bool al) {
   return P;
 }
 
-// One MB by the 32 lanes of a warp; w is the warp's shared memory.
-__device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
-                          int mx, int my, float lam4, float nlam3,
-                          float lam6) {
-  const int gw = a.gw, m = my * gw + mx;
-  const int Wp = gw * 16 + 2 * PAD, Wcp = gw * 8 + 2 * PAD;
-  const int y0 = PAD + my * 16, x0 = PAD + mx * 16;
-  const int yc0 = PAD + my * 8, xc0 = PAD + mx * 8;
-  const bool al = a.al[m], at = a.at[m];
-  const bool atr = a.atr ? a.atr[m] != 0 : true;
-  const bool atl = a.atl ? a.atl[m] != 0 : true;
-  const bool intra = a.mask ? a.mask[m] != 0 : true;
-  // H.264 QPs lie in 0..51; a value outside is clamped, not read past the
-  // tables
-  const int qp = min(max(a.qp[m], 0), 51);
-  const int qpc = tab[T_QPC + min(max(qp + a.cqo, 0), 51)];
-  const int q6 = (qp % 6) * 16, qc6 = (qpc % 6) * 16;
-  int* S = w + W_SRC;
-  int* T = w + W_TILE;
-  int* TR = w + W_TR;
-  int* X = w + W_X;
-  int* L = w + W_L;
-  int* CS = w + W_CS;
-  int* CN = w + W_CN;
+// What an MB's four warps share: its position and parameters.
+struct Mb {
+  int m, mx, y0, x0, yc0, xc0, qp, qpc;
+  bool al, at, atr, atl, intra;
+};
 
-  for (int p = lane; p < 256; p += 32)
-    S[p] = a.sy[(y0 + (p >> 4)) * Wp + x0 + (p & 15)];
-  for (int p = lane; p < 128; p += 32)
-    CS[p] = (p < 64 ? a.su : a.sv)[(yc0 + ((p >> 3) & 7)) * Wcp + xc0 +
-                                   (p & 7)];
-  if (lane < 17)
-    T[lane] = a.ry[(y0 - 1) * Wp + x0 - 1 + lane];
-  else if (lane < 25)
-    TR[lane - 17] = a.ry[(y0 - 1) * Wp + x0 + 16 + lane - 17];
-  if (lane < 16) T[(lane + 1) * 17] = a.ry[(y0 + lane) * Wp + x0 - 1];
-  for (int p = lane; p < 34; p += 32) {
-    const int c = p / 17, k = p % 17;
-    const int32_t* P = c ? a.rv : a.ru;
-    CN[p] = k == 0 ? P[(yc0 - 1) * Wcp + xc0 - 1]
-            : k < 9 ? P[(yc0 - 1) * Wcp + xc0 + k - 1]
-                    : P[(yc0 + k - 9) * Wcp + xc0 - 1];
+// Lane (g, r)'s constants of the Intra4x4 chain, fixed for the launch.
+struct I4Lane {
+  int offs0, offs1, offs2;  // edge_offs of value `lane`'s three taps
+  int w1, w2, rnd, sh;
+  int idx;                  // the values of row r of mode g, 8 bits each
+  bool nt, nl, ntl;         // g's mode reads the top, left, top-left
+};
+
+__device__ I4Lane i4_lane(int lane) {
+  I4Lane c;
+  const Taps t = entry_taps(lane);
+  c.offs0 = edge_offs(t.i0);
+  c.offs1 = edge_offs(t.i1);
+  c.offs2 = edge_offs(t.i2);
+  c.w1 = t.w1;
+  c.w2 = t.w2;
+  c.rnd = t.sh ? 1 << (t.sh - 1) : 0;
+  c.sh = t.sh;
+  const int g = lane >> 2, r = lane & 3, mode = g < 2 ? g : g + 1;
+  c.idx = 0;
+  for (int x = 0; x < 4; ++x) c.idx |= entry4(mode, x, r) << (8 * x);
+  c.nt = NEED_TOP >> mode & 1;
+  c.nl = NEED_LEFT >> mode & 1;
+  c.ntl = NEED_TL >> mode & 1;
+  return c;
+}
+
+// ---- warps 0 and 1: the 16 Intra4x4 blocks ---------------------------------
+// Lane (g, r)'s constants of one MB: the quantiser of coefficient row
+// u(r), and the butterflies' coefficients of row r, so that the
+// transforms take no branch on r (a branch around each shuffle would
+// serialise them).
+struct I4Mb {
+  int mf[4], ls[4], fq, qbits, qp;
+  int s1, a2, b2, sha, aa, ba;
+};
+
+__device__ __forceinline__ I4Mb i4_mb(const int* tab, int qp, int r) {
+  I4Mb q;
+  const int u = ((r & 1) << 1) | (r >> 1), q6 = (qp % 6) * 16;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    q.mf[v] = tab[T_MF + q6 + u * 4 + v];
+    q.ls[v] = 16 * tab[T_V + q6 + u * 4 + v];
   }
-  __syncwarp();
+  q.fq = tab[T_F + qp];
+  q.qbits = tab[T_QBITS + qp];
+  q.qp = qp;
+  q.s1 = r < 2 ? 1 : -1;
+  q.a2 = r == 1 ? -1 : 1;
+  q.b2 = r < 2 ? 1 : (r == 2 ? 2 : -2);
+  q.sha = r >> 1;
+  q.aa = r == 1 ? -1 : 1;
+  q.ba = r == 2 ? -1 : 1;
+  return q;
+}
 
-  // ---- Intra16x16 ----------------------------------------------------------
+// Row r of a block's residual src - pred through the forward transform
+// (the row here, the column by two butterfly shuffles within the group of
+// four lanes), quantisation, dequantisation and the inverse transform
+// (likewise).  z: the levels of coefficient row u(r) = 0, 2, 1, 3 for
+// r = 0..3; rec: recon row r.
+__device__ __forceinline__ void code_row(const int* src, const int* pred,
+                                         const I4Mb& q, int* z, int* rec) {
+  int w[4];
+  {
+    const int x0 = src[0] - pred[0], x1 = src[1] - pred[1];
+    const int x2 = src[2] - pred[2], x3 = src[3] - pred[3];
+    const int s03 = x0 + x3, d03 = x0 - x3, s12 = x1 + x2, d12 = x1 - x2;
+    w[0] = s03 + s12;
+    w[1] = 2 * d03 + d12;
+    w[2] = s03 - s12;
+    w[3] = d03 - 2 * d12;
+  }
+  // the column: S03 S12 D12 D03, then coefficient rows 0 2 1 3
+  int p[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) p[v] = __shfl_xor_sync(FULL, w[v], 3);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) w[v] = p[v] + q.s1 * w[v];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) p[v] = __shfl_xor_sync(FULL, w[v], 1);
+  int d[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    z[v] = quant(q.a2 * w[v] + q.b2 * p[v], q.mf[v], q.fq, q.qbits);
+    d[v] = dequant(z[v], q.ls[v], q.qp);
+  }
+  // the inverse: the row here, then the column: e0 e1 e2 e3, then rows
+  // 0 1 2 3
+  int h[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) h[x] = ict(d[0], d[1], d[2], d[3], x);
+#pragma unroll
+  for (int x = 0; x < 4; ++x) p[x] = __shfl_xor_sync(FULL, h[x], 1);
+#pragma unroll
+  for (int x = 0; x < 4; ++x) h[x] = q.aa * (h[x] >> q.sha) + q.ba * p[x];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) p[x] = __shfl_xor_sync(FULL, h[x], 3);
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+    rec[x] = clip255(pred[x] + ((p[x] + q.s1 * h[x] + 32) >> 6));
+}
+
+// Intra4x4 block `blk` by the 32 lanes of a warp: the mode decision, the
+// recon rows into the tile T, the levels into L4 and the mode into i4m.
+// Returns the chosen cost.
+__device__ __forceinline__ float intra4_block(
+    const Args& a, const Mb& b, const I4Lane& c, const I4Mb& q,
+    const int* S, int* T, int* L4, int blk, int lane, float lam4,
+    float nlam3) {
+  const int g = lane >> 2, r = lane & 3;
+  const int u = ((r & 1) << 1) | (r >> 1);  // the coefficient row r holds
+  const int bx = blk_x(blk), by = blk_y(blk);
+  // the block's flags without branches: the top-right samples never
+  // available (blocks 3 7 11 13 15, and 5 at the right picture edge or
+  // without the top-right MB), the top, left and top-left samples
+  const bool sub = ((0xA888 >> blk) & 1) |
+                   ((blk == 5) & ((b.mx == a.gw - 1) | !b.atr));
+  const bool bat = b.at | (by != 0), bal = b.al | (bx != 0);
+  const bool batl = (bx | by) ? bat & bal : b.atl;
+  // value `lane` of the edge vector, the DC prediction, the source row
+  const int* base = T + by * TW + bx;
+  const int sel = sub ? 16 : 0;
+  const int ent = (base[(c.offs0 >> sel) & 0xffff] +
+                   c.w1 * base[(c.offs1 >> sel) & 0xffff] +
+                   c.w2 * base[(c.offs2 >> sel) & 0xffff] + c.rnd) >> c.sh;
+  int dc;
+  {  // dc_rule(bat, bal, ts, ls, 3, 2) as selects
+    const int ts = base[1] + base[2] + base[3] + base[4];
+    const int ls = base[TW] + base[2 * TW] + base[3 * TW] + base[4 * TW];
+    dc = bat ? (ts + 2) >> 2 : 128;
+    dc = bal ? (ls + 2) >> 2 : dc;
+    dc = bat & bal ? (ts + ls + 4) >> 3 : dc;
+  }
+  int src[4], pred[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    src[x] = S[(by + r) * 16 + bx + x];
+    pred[x] = __shfl_sync(FULL, ent, (c.idx >> (8 * x)) & 0xff);
+  }
+  // the group's own mode coded ahead of the decision, which it does not
+  // need
+  int z[4], rec[4];
+  code_row(src, pred, q, z, rec);
+  // row r's SAD of mode g (low half) and of DC (high half), then the
+  // group's: at most 16 x 255 each (8-bit samples)
+  int sad = 0;
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+    sad += abs(pred[x] - src[x]) + (abs(dc - src[x]) << 16);
+  sad += __shfl_xor_sync(FULL, sad, 1);
+  sad += __shfl_xor_sync(FULL, sad, 2);
+  const float pen = __fadd_rn(
+      __fadd_rn(c.nt && !bat ? BIG : 0.f, c.nl && !bal ? BIG : 0.f),
+      c.ntl && !batl ? BIG : 0.f);
+  const float cg = __fadd_rn(__fadd_rn((float)(sad & 0xffff), pen), lam4);
+  // DC reads no neighbour it may lack: its penalty is 0, and adding +0 to
+  // the SAD changes nothing
+  const float cd = __fadd_rn(__fadd_rn((float)(sad >> 16), lam4), nlam3);
+  // the first minimum in mode order 0, 1, 2 (DC), 3..8
+  const unsigned kg = cost_key(cg), kd = cost_key(cd);
+  const unsigned kmin = __reduce_min_sync(FULL, kg);
+  const int low = (__ffs(__ballot_sync(FULL, kg == kmin)) - 1) >> 2;
+  const bool dcw = kd < kmin || (kd == kmin && low >= 2);
+  if (dcw) {  // the same in every lane
+    const int flat[4] = {dc, dc, dc, dc};
+    code_row(src, flat, q, z, rec);
+  }
+  if (g == (dcw ? 0 : low)) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      T[(by + 1 + r) * TW + 1 + bx + x] = rec[x];
+      L4[blk * 16 + u * 4 + x] = z[x];
+    }
+  }
+  if (lane == 0) a.i4m[b.m * 16 + blk] = dcw ? 2 : (low < 2 ? low : low + 1);
+  return dcw ? cd : key_cost(kmin);
+}
+
+// Warps 0 and 1 (w): the 16 blocks as the ten slope-2 steps of the MB's
+// own 4x4 wavefront, block (bc, br) at step bc + 2 br: it reads its left,
+// top, top-left and top-right neighbours (steps - 1, - 2, - 3, - 1).  A
+// step holds one or two blocks, the one with the larger bc for warp 0; a
+// barrier of the two warps ends each step.  best: the 16 chosen costs,
+// summed from 0 in blkIdx order into i4_cost.
+__device__ __forceinline__ void intra4_chain(
+    const Args& a, const int* tab, const Mb& b, const I4Lane& c,
+    const int* S, int* T, int* L4, float* best, float* i4_cost, int w,
+    int lane, float lam4, float nlam3) {
+  const I4Mb q = i4_mb(tab, b.qp, lane & 3);
+  for (int s = 0; s < 10; ++s) {
+    const int br = (s < 3 ? 0 : (s - 2) >> 1) + w, bc = s - 2 * br;
+    if (br <= 3 && bc >= 0) {
+      const int blk = 8 * (br >> 1) + 2 * (br & 1) + 4 * (bc >> 1) + (bc & 1);
+      const float cost = intra4_block(a, b, c, q, S, T, L4, blk, lane, lam4,
+                                      nlam3);
+      if (lane == 0) best[blk] = cost;
+    }
+    bar_sync(1, 64);
+  }
+  if (w == 0 && lane == 0) {
+    float i4c = 0.f;
+    for (int blk = 0; blk < 16; ++blk) i4c = __fadd_rn(i4c, best[blk]);
+    *i4_cost = i4c;
+  }
+}
+
+// ---- warp 2: the Intra16x16 decision, residual and recon -----------------
+// Into R16 (the recon), L16 / DC16 (the levels) and the two scalars;
+// X: 304 words of scratch.
+__device__ void intra16(const int* tab, const Mb& b, const int* S,
+                        const int* T, int* X, int* R16, int* L16, int* DC16,
+                        float* i16_cost, int* i16_mode, int lane) {
+  const int qp = b.qp, q6 = (qp % 6) * 16;
   Pred16 p16;
   p16.tile = T;
   {
     int ts = 0, ls = 0, Hs = 0, Vs = 0;
     for (int k = 0; k < 16; ++k) {
       ts += T[1 + k];
-      ls += T[(1 + k) * 17];
+      ls += T[(1 + k) * TW];
     }
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       Hs += (k + 1) * (T[1 + 8 + k] - (k == 7 ? T[0] : T[1 + 6 - k]));
-      Vs += (k + 1) * (T[(1 + 8 + k) * 17] -
-                       (k == 7 ? T[0] : T[(1 + 6 - k) * 17]));
+      Vs += (k + 1) * (T[(1 + 8 + k) * TW] -
+                       (k == 7 ? T[0] : T[(1 + 6 - k) * TW]));
     }
-    p16.dc = dc_rule(at, al, ts, ls, 5, 4);
-    p16.pa = 16 * (T[16 * 17] + T[16]);
+    p16.dc = dc_rule(b.at, b.al, ts, ls, 5, 4);
+    p16.pa = 16 * (T[16 * TW] + T[16]);
     p16.pb = (5 * Hs + 32) >> 6;
     p16.pc = (5 * Vs + 32) >> 6;
   }
@@ -330,6 +612,7 @@ __device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
   float i16c;
   {
     int sad[4] = {0, 0, 0, 0};
+#pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int p = lane + 32 * i, y = p >> 4, x = p & 15, s = S[p];
 #pragma unroll
@@ -338,9 +621,9 @@ __device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
     float c[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) c[k] = (float)warp_sum(sad[k]);
-    c[0] = __fadd_rn(c[0], at ? 0.f : BIG);
-    c[1] = __fadd_rn(c[1], al ? 0.f : BIG);
-    c[3] = __fadd_rn(c[3], at && al && atl ? 0.f : BIG);
+    c[0] = __fadd_rn(c[0], b.at ? 0.f : BIG);
+    c[1] = __fadd_rn(c[1], b.al ? 0.f : BIG);
+    c[3] = __fadd_rn(c[3], b.at && b.al && b.atl ? 0.f : BIG);
     i16c = c[0];
 #pragma unroll
     for (int k = 1; k < 4; ++k)
@@ -349,21 +632,26 @@ __device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
         i16m = k;
       }
   }
-  // residual into X, forward transform into L (lane: coefficients ci =
-  // lane + 32 i of the (16 blkIdx, 4, 4) layout), DC Hadamard and
-  // quantisation, dequantised levels back into L
+  // the residual into R16 (scratch until the recon), the forward
+  // transform into registers (lane: coefficients ci = lane + 32 i of the
+  // (16 blkIdx, 4, 4) layout), the DCs in raster order into X[0..15], the
+  // DC levels into X[16..31], their dequantised values into X[32..47], the
+  // dequantised levels into D
+  int* D = X + 48;
   const int cu = (lane >> 2) & 3, cv = lane & 3;
+#pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int p = lane + 32 * i;
-    X[p] = S[p] - p16(i16m, p >> 4, p & 15);
+    R16[p] = S[p] - p16(i16m, p >> 4, p & 15);
   }
   __syncwarp();
+  int coef[8];
+#pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int b = (lane >> 4) + 2 * i;
-    L[lane + 32 * i] = fdct(X + blk_y(b) * 16 + blk_x(b), 16, cu, cv);
+    const int bk = (lane >> 4) + 2 * i;
+    coef[i] = fdct(R16 + blk_y(bk) * 16 + blk_x(bk), 16, cu, cv);
+    if ((lane & 15) == 0) X[blk_raster(bk)] = coef[i];
   }
-  __syncwarp();
-  if (lane < 16) X[blk_raster(lane)] = L[lane * 16];  // DCs, raster order
   __syncwarp();
   // lanes 0-15: the luma DC level at raster (cu, cv) (16-31 repeat them)
   const int dcq = quant(hadamard4(X, cu, cv) >> 1, tab[T_MF + q6],
@@ -381,134 +669,54 @@ __device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
   const int mf = tab[T_MF + q6 + cu * 4 + cv], ls = 16 * tab[T_V + q6 +
                                                              cu * 4 + cv];
   const int fq = tab[T_F + qp], qbits = tab[T_QBITS + qp];
+#pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int ci = lane + 32 * i;
     const bool dcs = (ci & 15) == 0;
-    const int z = dcs ? 0 : quant(L[ci], mf, fq, qbits);
-    a.lac[m * 256 + ci] = z;
-    L[ci] = dcs ? X[32 + blk_raster(ci >> 4)] : dequant(z, ls, qp);
+    const int z = dcs ? 0 : quant(coef[i], mf, fq, qbits);
+    L16[ci] = z;
+    D[ci] = dcs ? X[32 + blk_raster(ci >> 4)] : dequant(z, ls, qp);
   }
   __syncwarp();
-  // inverse transform: rows into X, then columns; the I16 recon goes
-  // straight to the recon plane (replaced below when I4 wins or the MB is
-  // not intra)
+  // inverse transform: the rows into R16, then the columns
+#pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = ((lane + 32 * i) & ~15) + cu * 4;
-    X[lane + 32 * i] = ict(L[r], L[r + 1], L[r + 2], L[r + 3], cv);
+    R16[lane + 32 * i] = ict(D[r], D[r + 1], D[r + 2], D[r + 3], cv);
   }
   __syncwarp();
+  int rec[8];
+#pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int ci = lane + 32 * i, base = ci & ~15, b = ci >> 4;
-    const int h = ict(X[base + cv], X[base + 4 + cv], X[base + 8 + cv],
-                      X[base + 12 + cv], cu);
-    const int y = blk_y(b) + cu, x = blk_x(b) + cv;
-    if (intra)
-      a.ry[(y0 + y) * Wp + x0 + x] = clip255(p16(i16m, y, x) +
-                                             ((h + 32) >> 6));
+    const int ci = lane + 32 * i, base = ci & ~15, bk = ci >> 4;
+    const int h = ict(R16[base + cv], R16[base + 4 + cv], R16[base + 8 + cv],
+                      R16[base + 12 + cv], cu);
+    rec[i] = clip255(p16(i16m, blk_y(bk) + cu, blk_x(bk) + cv) +
+                     ((h + 32) >> 6));
   }
   __syncwarp();
-
-  // ---- Intra4x4, 16 blocks in blkIdx order ---------------------------------
-  float i4c = 0.f;
-  const int p = lane & 15, py = p >> 2, px = p & 3, half = lane >> 4;
-  for (int blk = 0; blk < 16; ++blk) {
-    const int bx = blk_x(blk), by = blk_y(blk);
-    const bool sub = blk == 3 || blk == 7 || blk == 11 || blk == 13 ||
-                     blk == 15 || (blk == 5 && (mx == gw - 1 || !atr));
-    const bool bat = by == 0 ? at : true, bal = bx == 0 ? al : true;
-    const bool batl = (bx == 0 && by == 0) ? atl
-                      : by == 0            ? at
-                      : bx == 0            ? al
-                                           : true;
-    // the edge vector s = [l3, l2, l1, l0, tl, t0..t7] into X[0..12], the
-    // top-right four substituted by t3 where they are never available
-    if (lane < 13) {
-      int v;
-      if (lane < 4) {
-        v = T[(by + 4 - lane) * 17 + bx];
-      } else if (lane == 4) {
-        v = T[by * 17 + bx];
-      } else {
-        const int k = (sub && lane >= 9) ? 3 : lane - 5, xx = bx + k;
-        v = (by == 0 && xx >= 16) ? TR[xx - 16] : T[by * 17 + 1 + xx];
-      }
-      X[lane] = v;
-    }
-    __syncwarp();
-    const int src = S[(by + py) * 16 + bx + px];
-    const int dc4 = dc_rule(bat, bal, X[5] + X[6] + X[7] + X[8],
-                            X[0] + X[1] + X[2] + X[3], 3, 2);
-    int sd[5];
-#pragma unroll
-    for (int k = 0; k < 5; ++k) {
-      const int mode = 2 * k + half;  // half 0: 0 2 4 6 8, half 1: 1 3 5 7
-      sd[k] = mode < 9 ? abs(pred4(tab, X, mode, p, dc4) - src) : 0;
-#pragma unroll
-      for (int o = 8; o; o >>= 1) sd[k] += __shfl_xor_sync(FULL, sd[k], o);
-    }
-    int od[5];
-#pragma unroll
-    for (int k = 0; k < 5; ++k) od[k] = __shfl_xor_sync(FULL, sd[k], 16);
-    float best = 0.f;
-    int bm = 0;
-#pragma unroll
-    for (int mode = 0; mode < 9; ++mode) {
-      const int s = ((mode & 1) == half) ? sd[mode >> 1] : od[mode >> 1];
-      const float pen = __fadd_rn(
-          __fadd_rn((NEED_TOP >> mode & 1) && !bat ? BIG : 0.f,
-                    (NEED_LEFT >> mode & 1) && !bal ? BIG : 0.f),
-          (NEED_TL >> mode & 1) && !batl ? BIG : 0.f);
-      float c = __fadd_rn(__fadd_rn((float)s, pen), lam4);
-      if (mode == 2) c = __fadd_rn(c, nlam3);
-      if (mode == 0 || c < best) {
-        best = c;
-        bm = mode;
-      }
-    }
-    i4c = __fadd_rn(i4c, best);
-    const int pred = pred4(tab, X, bm, p, dc4);
-    if (lane < 16) X[16 + p] = src - pred;
-    if (lane == 0) a.i4m[m * 16 + blk] = bm;
-    __syncwarp();
-    const int q = quant(fdct(X + 16, 4, py, px), tab[T_MF + q6 + p], fq,
-                        qbits);
-    if (lane < 16) {
-      L[blk * 16 + p] = q;
-      X[32 + p] = dequant(q, 16 * tab[T_V + q6 + p], qp);
-    }
-    __syncwarp();
-    const int f = ict(X[32 + py * 4], X[33 + py * 4], X[34 + py * 4],
-                      X[35 + py * 4], px);
-    if (lane < 16) X[48 + p] = f;
-    __syncwarp();
-    const int h = ict(X[48 + px], X[52 + px], X[56 + px], X[60 + px], py);
-    if (lane < 16)
-      T[(by + 1 + py) * 17 + 1 + bx + px] = clip255(pred + ((h + 32) >> 6));
-    __syncwarp();
-  }
-
-  // ---- I16 against I4; the MB's luma outputs -------------------------------
-  const bool use16 = __fadd_rn(i16c, lam6) < i4c;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int ci = lane + 32 * i, b = ci >> 4;
-    const int y = blk_y(b) + cu, x = blk_x(b) + cv;
-    const int at_ = (y0 + y) * Wp + x0 + x;
-    if (!intra)
-      a.ry[at_] = a.by ? a.by[at_] : 0;
-    else if (!use16)
-      a.ry[at_] = T[(y + 1) * 17 + 1 + x];
-    if (!use16) a.lac[m * 256 + ci] = L[ci];
+    const int bk = (lane + 32 * i) >> 4;
+    R16[(blk_y(bk) + cu) * 16 + blk_x(bk) + cv] = rec[i];
   }
-  if (lane < 16) a.ldc[m * 16 + lane] = use16 ? dcq : 0;
+  if (lane < 16) DC16[lane] = dcq;
   if (lane == 0) {
-    a.use16[m] = use16;
-    a.i16m[m] = i16m;
+    *i16_cost = i16c;
+    *i16_mode = i16m;
   }
-  __syncwarp();
+}
 
-  // ---- chroma --------------------------------------------------------------
-  const PredC pu = chroma_pred(CN, at, al), pv = chroma_pred(CN + 17, at, al);
+// ---- warp 3: the chroma decision, residual and recon ---------------------
+// Writes the chroma outputs and recon planes, and the MB's right columns
+// into left[16..31]; X: 152 words and L: 128 words of scratch.
+__device__ void chroma(const Args& a, const int* tab, const Mb& b,
+                       const int* CS, const int* CN, int* X, int* L,
+                       int* left, int lane) {
+  const int Wcp = a.gw * 8 + 2 * PAD, qpc = b.qpc, qc6 = (qpc % 6) * 16;
+  const int cu = (lane >> 2) & 3, cv = lane & 3;
+  const PredC pu = chroma_pred(CN, b.at, b.al);
+  const PredC pv = chroma_pred(CN + 17, b.at, b.al);
   int cmode = 0;
   {
     int sad[4] = {0, 0, 0, 0};
@@ -522,9 +730,9 @@ __device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
     float c[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) c[k] = (float)warp_sum(sad[k]);
-    c[2] = __fadd_rn(c[2], at ? 0.f : BIG);
-    c[1] = __fadd_rn(c[1], al ? 0.f : BIG);
-    c[3] = __fadd_rn(c[3], at && al && atl ? 0.f : BIG);
+    c[2] = __fadd_rn(c[2], b.at ? 0.f : BIG);
+    c[1] = __fadd_rn(c[1], b.al ? 0.f : BIG);
+    c[3] = __fadd_rn(c[3], b.at && b.al && b.atl ? 0.f : BIG);
     float best = c[0];
 #pragma unroll
     for (int k = 1; k < 4; ++k)
@@ -543,8 +751,8 @@ __device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
   // (2 comp, 4 raster blocks, 4, 4) layout), DC Hadamard and quantisation
   // at X[128..], dequantised levels back into L
   for (int i = 0; i < 4; ++i) {
-    const int ci = lane + 32 * i, b = (ci >> 4) & 3;
-    L[ci] = fdct(X + (ci >> 6) * 64 + (b >> 1) * 32 + (b & 1) * 4, 8, cu,
+    const int ci = lane + 32 * i, bk = (ci >> 4) & 3;
+    L[ci] = fdct(X + (ci >> 6) * 64 + (bk >> 1) * 32 + (bk & 1) * 4, 8, cu,
                  cv);
   }
   __syncwarp();
@@ -555,7 +763,7 @@ __device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
     const int cdq = quant(hadamard2(X + 128 + (lane & 4), (lane >> 1) & 1,
                                     lane & 1),
                           tab[T_MF + qc6], 2 * cf, cq6 + 1);
-    a.cdc[m * 8 + lane] = cdq;
+    a.cdc[b.m * 8 + lane] = cdq;
     X[136 + lane] = cdq;
   }
   __syncwarp();
@@ -571,7 +779,7 @@ __device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
       const int ci = lane + 32 * i;
       const bool dcs = (ci & 15) == 0;
       const int z = dcs ? 0 : quant(L[ci], cmf, cf, cq6);
-      a.cac[m * 128 + ci] = z;
+      a.cac[b.m * 128 + ci] = z;
       L[ci] = dcs ? X[144 + (ci >> 4)] : dequant(z, cls, qpc);
     }
   }
@@ -582,39 +790,151 @@ __device__ void encode_mb(const Args& a, const int* tab, int* w, int lane,
   }
   __syncwarp();
   for (int i = 0; i < 4; ++i) {
-    const int ci = lane + 32 * i, base = ci & ~15, b = (ci >> 4) & 3;
+    const int ci = lane + 32 * i, base = ci & ~15, bk = (ci >> 4) & 3;
     const int h = ict(X[base + cv], X[base + 4 + cv], X[base + 8 + cv],
                       X[base + 12 + cv], cu);
-    const int y = (b >> 1) * 4 + cu, x = (b & 1) * 4 + cv;
-    const int at_ = (yc0 + y) * Wcp + xc0 + x;
+    const int y = (bk >> 1) * 4 + cu, x = (bk & 1) * 4 + cv;
+    const size_t at_ = (size_t)(b.yc0 + y) * Wcp + b.xc0 + x;
     const bool v = ci >= 64;
     const int32_t* B = v ? a.bv : a.bu;
-    (v ? a.rv : a.ru)[at_] =
-        intra ? clip255((v ? pv : pu)(cmode, y, x) + ((h + 32) >> 6))
-              : (B ? B[at_] : 0);
+    const int val = b.intra
+                        ? clip255((v ? pv : pu)(cmode, y, x) + ((h + 32) >> 6))
+                        : (B ? B[at_] : 0);
+    (v ? a.rv : a.ru)[at_] = val;
+    if (x == 7) left[16 + 8 * v + y] = val;
   }
-  if (lane == 0) a.cm[m] = cmode;
-  __syncwarp();
+  if (lane == 0) a.cm[b.m] = cmode;
 }
 
-__global__ void __launch_bounds__(THREADS) k_intra_encode(Args a) {
-  extern __shared__ int smem[];
-  int* tab = smem;
-  for (int i = threadIdx.x; i < T_WORDS; i += blockDim.x) tab[i] = a.tab[i];
+// One block of THREADS per MB row, SMEM_BYTES of dynamic shared memory;
+// launched cooperatively by hl_intra_encode_frame.  One block an SM is
+// all a launch needs (gh <= 68 rows up to 1080p on 132 SMs): without that
+// bound ptxas keeps to 128 registers, and spills.
+__global__ void __launch_bounds__(THREADS, 1) k_intra_encode(Args a) {
+  int* sm = block_smem();
+  int* tab = sm + S_TAB;
+  int* S = sm + S_SRC;
+  int* T = sm + S_TILE;
+  int* CS = sm + S_CSRC;
+  int* CN = sm + S_CN;
+  int* R16 = sm + S_R16;
+  int* L16 = sm + S_L16;
+  int* DC16 = sm + S_DC16;
+  int* L4 = sm + S_L4;
+  int* left = sm + S_LEFT;
+  float* cost = reinterpret_cast<float*>(sm + S_SCAL);  // I4, I16
+  int* i16mode = sm + S_SCAL + 2;
+  const int tid = threadIdx.x, nt = THREADS;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int my = blockIdx.x, gw = a.gw;
+  const int Wp = gw * 16 + 2 * PAD, Wcp = gw * 8 + 2 * PAD;
+  for (int i = tid; i < T_WORDS; i += nt) tab[i] = a.tab[i];
+  for (int i = tid; i < 32; i += nt) left[i] = 0;  // left of MB 0: the pad
   const float lam = *a.lam;
   const float lam4 = __fmul_rn(lam, 4.f), nlam3 = -__fmul_rn(lam, 3.f);
   const float lam6 = __fmul_rn(lam, 6.f);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int* w = smem + T_WORDS + warp * W_WORDS;
+  const I4Lane c4 = i4_lane(lane);
+
+  // an MB's 384 source samples (luma raster, then U and V), three a
+  // thread, read one MB ahead: nothing writes them
+  constexpr int PF = 384 / THREADS;
+  int pf[PF];
+  auto prefetch = [&](int mx) {
+#pragma unroll
+    for (int k = 0; k < PF; ++k) {
+      const int i = tid + k * nt;
+      if (i < 256)
+        pf[k] = a.sy[(size_t)(PAD + 16 * my + (i >> 4)) * Wp + PAD + 16 * mx +
+                     (i & 15)];
+      else
+        pf[k] = (i < 320 ? a.su : a.sv)[(size_t)(PAD + 8 * my +
+                                                 ((i >> 3) & 7)) * Wcp +
+                                        PAD + 8 * mx + (i & 7)];
+    }
+  };
+  prefetch(0);
   __syncthreads();
-  const int steps = a.gw + 2 * a.gh - 2;
-  for (int d = 0; d < steps; ++d) {
-    // the MBs (d - 2 my, my) inside the picture
-    const int lo = max(0, (d - a.gw + 2) / 2), hi = min(a.gh - 1, d / 2);
-    for (int my = lo + warp; my <= hi; my += nwarps)
-      encode_mb(a, tab, w, lane, d - 2 * my, my, lam4, nlam3, lam6);
+  for (int mx = 0; mx < gw; ++mx) {
+    Mb b;
+    b.m = my * gw + mx;
+    b.mx = mx;
+    b.y0 = PAD + 16 * my;
+    b.x0 = PAD + 16 * mx;
+    b.yc0 = PAD + 8 * my;
+    b.xc0 = PAD + 8 * mx;
+    b.al = a.al[b.m] != 0;
+    b.at = a.at[b.m] != 0;
+    b.atr = a.atr ? a.atr[b.m] != 0 : true;
+    b.atl = a.atl ? a.atl[b.m] != 0 : true;
+    b.intra = a.mask ? a.mask[b.m] != 0 : true;
+    // H.264 QPs lie in 0..51; a value outside is clamped, not read past
+    // the tables
+    b.qp = min(max(a.qp[b.m], 0), 51);
+    b.qpc = tab[T_QPC + min(max(b.qp + a.cqo, 0), 51)];
+#pragma unroll
+    for (int k = 0; k < PF; ++k) {
+      const int i = tid + k * nt;
+      if (i < 256)
+        S[i] = pf[k];
+      else
+        CS[i - 256] = pf[k];
+    }
+    // 1. wait for row my - 1 to publish MB min(mx + 1, gw - 1)
+    if (my > 0 && tid == 0) wait_progress(a.prog + my - 1, min(mx + 2, gw));
     __syncthreads();
+    if (mx + 1 < gw) prefetch(mx + 1);
+    // 2. the neighbours: the row above from the planes, the left column
+    // from the carry
+    for (int i = tid; i < 25 + 16 + 34; i += nt) {
+      if (i < 25) {
+        T[i] = __ldcg(a.ry + (size_t)(b.y0 - 1) * Wp + b.x0 - 1 + i);
+      } else if (i < 41) {
+        T[(i - 24) * TW] = left[i - 25];
+      } else {
+        const int p = i - 41, c = p / 17, k = p % 17;
+        CN[p] = k < 9 ? __ldcg((c ? a.rv : a.ru) + (size_t)(b.yc0 - 1) * Wcp +
+                               b.xc0 - 1 + k)
+                      : left[16 + 8 * c + k - 9];
+      }
+    }
+    __syncthreads();
+    // 3. the four warps
+    if (warp < 2)
+      intra4_chain(a, tab, b, c4, S, T, L4,
+                   reinterpret_cast<float*>(sm + S_BEST), cost, warp, lane,
+                   lam4, nlam3);
+    else if (warp == 2)
+      intra16(tab, b, S, T, sm + S_X16, R16, L16, DC16, cost + 1, i16mode,
+              lane);
+    else if (warp == 3)
+      chroma(a, tab, b, CS, CN, sm + S_XC, sm + S_LC, left, lane);
+    __syncthreads();
+    // 4. I16 against I4; the MB's bottom luma row, all that row my + 1
+    // reads of it (its chroma is written)
+    const bool use16 = __fadd_rn(cost[1], lam6) < cost[0];
+    auto luma = [&](int p) {
+      const int y = p >> 4, x = p & 15;
+      const size_t at_ = (size_t)(b.y0 + y) * Wp + b.x0 + x;
+      const int v = !b.intra ? (a.by ? a.by[at_] : 0)
+                    : use16  ? R16[p]
+                             : T[(y + 1) * TW + 1 + x];
+      a.ry[at_] = v;
+      if (x == 15) left[y] = v;
+    };
+    if (tid < 16) luma(240 + tid);
+    // 5. publish the MB to row my + 1: the barrier orders those stores
+    // before thread 0's release
+    __syncthreads();
+    if (tid == 0) st_release(a.prog + my, mx + 1);
+    // 6. the MB's other outputs, which no other row reads
+    for (int p = tid; p < 240; p += nt) luma(p);
+    for (int p = tid; p < 256; p += nt)
+      a.lac[b.m * 256 + p] = use16 ? L16[p] : L4[p];
+    if (tid < 16) a.ldc[b.m * 16 + tid] = use16 ? DC16[tid] : 0;
+    if (tid == 0) {
+      a.use16[b.m] = use16;
+      a.i16m[b.m] = *i16mode;
+    }
   }
 }
 
@@ -623,8 +943,11 @@ __global__ void __launch_bounds__(THREADS) k_intra_encode(Args a) {
 // Plain C entry point (loaded with ctypes).  Every pointer is device memory
 // that the caller allocated and checked: PAD-padded int32 planes of the
 // picture's size (ry/ru/rv zeroed), (gh, gw) maps, the outputs contiguous
-// int32 (gh, gw, ...) arrays; by/bu/bv, atr, atl and mask may be null.
-// Returns 0 or the CUDA error code of the launch.
+// int32 (gh, gw, ...) arrays, prog gh zeroed ints; by/bu/bv, atr, atl and
+// mask may be null.  `threads`: the block size the caller expects, THREADS.
+// Launches gh co-resident blocks (a cooperative
+// launch, refused when they cannot all be resident).  Returns 0 or the
+// CUDA error code of the launch.
 extern "C" int hl_intra_encode_frame(
     const int32_t* sy, const int32_t* su, const int32_t* sv,
     const int32_t* by, const int32_t* bu, const int32_t* bv,
@@ -632,30 +955,38 @@ extern "C" int hl_intra_encode_frame(
     const uint8_t* atr, const uint8_t* atl, const uint8_t* mask,
     const int32_t* tab, const float* lam, int32_t* ry, int32_t* ru,
     int32_t* rv, int32_t* use16, int32_t* i16m, int32_t* i4m, int32_t* cm,
-    int32_t* ldc, int32_t* lac, int32_t* cdc, int32_t* cac, int gw, int gh,
-    int chroma_qp_off, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      k_intra_encode, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  Args a{sy, su, sv, by, bu, bv, qp, al, at, atr, atl, mask, tab, lam,
-         ry, ru, rv, use16, i16m, i4m, cm, ldc, lac, cdc, cac, gw, gh,
-         chroma_qp_off};
-  k_intra_encode<<<1, THREADS, SMEM_BYTES, stream>>>(a);
-  return (int)cudaGetLastError();
+    int32_t* ldc, int32_t* lac, int32_t* cdc, int32_t* cac, int* prog,
+    int gw, int gh, int chroma_qp_off, int threads, cudaStream_t stream) {
+  if (threads != THREADS) return (int)cudaErrorInvalidValue;
+  Args a{sy,  su,  sv,   by,  bu,  bv,  qp,  al,  at,  atr, atl, mask, tab,
+         lam, ry,  ru,   rv,  use16, i16m, i4m, cm, ldc, lac, cdc, cac,
+         prog, gw, gh, chroma_qp_off};
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)k_intra_encode,
+                                          dim3(gh), dim3(THREADS), args,
+                                          SMEM_BYTES, stream);
 }
 
-// The kernel's resources as the runtime reports them: out[0..4] = the
+// The kernel's resources as the runtime reports them: out[0..5] = the
 // dynamic shared memory it launches with, registers per thread, local
 // (spill) bytes per thread, static shared memory, the most threads a
-// block may have.  Returns 0 or the CUDA error code.
+// block may have, and the most blocks (MB rows) that the current device
+// holds at once.  Returns 0 or the CUDA error code.
 extern "C" int hl_intra_encode_attributes(int* out) {
   cudaFuncAttributes f;
-  const cudaError_t err = cudaFuncGetAttributes(&f, k_intra_encode);
+  cudaError_t err = cudaFuncGetAttributes(&f, k_intra_encode);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_intra_encode,
+                                                      THREADS, SMEM_BYTES);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   out[0] = SMEM_BYTES;
   out[1] = f.numRegs;
   out[2] = (int)f.localSizeBytes;
   out[3] = (int)f.sharedSizeBytes;
   out[4] = f.maxThreadsPerBlock;
+  out[5] = per_sm * sms;
   return (int)err;
 }

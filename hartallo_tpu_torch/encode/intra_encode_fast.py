@@ -9,9 +9,10 @@ twin: the same arguments and the same (recY, recU, recV, arrays) result,
 every output int32 (the twin's recon planes are int64, of equal
 values).
 On CUDA tensors it launches ``hl_intra_encode_frame`` of
-``csrc/intra_encode.cu`` (one block of 512 threads walking the slope-2
-steps, one warp per MB) on the planes' current CUDA stream; on CPU
-tensors it runs the twin.  There is no other branch: a failed build or
+``csrc/intra_encode.cu`` (one cooperative block of ``THREADS`` per MB row,
+the rows spinning on per-row progress counters that the wrapper zeroes
+on the stream) on the planes' current CUDA stream; on CPU tensors it
+runs the twin.  There is no other branch: a failed build or a refused
 launch raises.
 """
 from __future__ import annotations
@@ -25,20 +26,19 @@ import torch
 from hartallo_tpu_torch.core import tables as T
 from hartallo_tpu_torch.decode.intra_recon import PAD
 from hartallo_tpu_torch.encode.intra_encode import intra_encode_frame
-from hartallo_tpu_torch.ops import intra as _intra
 
 LAUNCHES = 0         # pictures encoded by the CUDA kernel in this process
+# the kernel's block: two Intra4x4 warps, an Intra16x16 and a chroma warp
+THREADS = 128
 
 
 @lru_cache(maxsize=None)
 def _tables(device) -> torch.Tensor:
-    """The kernel's int32 table on ``device``, made once per device: the
-    Intra4x4 gather tables of ``ops/intra.py`` [idx | wgt | rnd | sht],
-    then QUANT_MF, QUANT_V, QUANT_QBITS, the intra row of QUANT_F and
+    """The kernel's int32 table on ``device``, made once per device:
+    QUANT_MF, QUANT_V, QUANT_QBITS, the intra row of QUANT_F and
     QP_SCALE_CHROMA (the offsets T_* of ``csrc/intra_encode.cu``).
     Shared: never written."""
-    parts = (_intra._IDX, _intra._WGT, _intra._RND, _intra._SHT, T.QUANT_MF,
-             T.QUANT_V, T.QUANT_QBITS, np.asarray(T.QUANT_F)[0],
+    parts = (T.QUANT_MF, T.QUANT_V, T.QUANT_QBITS, np.asarray(T.QUANT_F)[0],
              T.QP_SCALE_CHROMA)
     return torch.as_tensor(np.concatenate(
         [np.asarray(p).ravel() for p in parts]).astype(np.int32),
@@ -118,6 +118,7 @@ def _launch(src_y, src_u, src_v, qp, chroma_qp_off, avail_left, avail_top,
     arrays = {name: torch.empty((gh, gw, *shape), dtype=torch.int32,
                                 device=device)
               for name, shape in INTRA_FIELDS}
+    prog = torch.zeros(gh, dtype=torch.int32, device=device)
 
     def ptr(t):
         return ctypes.c_void_p(None if t is None else t.data_ptr())
@@ -125,8 +126,8 @@ def _launch(src_y, src_u, src_v, qp, chroma_qp_off, avail_left, avail_top,
     with torch.cuda.device(device):
         rc = lib.hl_intra_encode_frame(
             *map(ptr, (*src, *base, qp_t, *flags, _tables(device), lam_t,
-                       *rec, *arrays.values())),
-            gw, gh, int(chroma_qp_off),
+                       *rec, *arrays.values(), prog)),
+            gw, gh, int(chroma_qp_off), THREADS,
             ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"hl_intra_encode_frame: CUDA error {rc} "

@@ -91,7 +91,7 @@ def load():
         lib.hl_deblock_frame.restype = I
         lib.hl_deblock_frame.argtypes = [P] * 5 + [I] * 2 + [P]
         lib.hl_intra_encode_frame.restype = I
-        lib.hl_intra_encode_frame.argtypes = [P] * 25 + [I] * 3 + [P]
+        lib.hl_intra_encode_frame.argtypes = [P] * 26 + [I] * 4 + [P]
         lib.hl_intra_encode_attributes.restype = I
         lib.hl_intra_encode_attributes.argtypes = [P]
         lib.hl_full_search_int.restype = I

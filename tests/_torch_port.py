@@ -270,11 +270,15 @@ def slice_availability(gw: int, gh: int, rows_per_slice: int):
 
 def intra_case(gw: int, gh: int, seed: int, qp=None, cqo: int = 2,
                lam_qp: int = 30, rows: int = 2, flat: bool = False,
-               none_trtl: bool = False, masked: bool = False):
+               none_trtl: bool = False, masked: bool = False,
+               diagonal: bool = False):
     """numpy inputs of ``intra_encode_frame`` at gw x gh MBs: (the
     positional arguments, the keyword arguments).  The source is the
     first ``bench.make_clip`` frame edge-padded as the encoder pads it,
-    or a flat grey picture; qp per MB drawn from 20..39, or from the
+    a flat grey picture, or with ``diagonal`` seeded noise constant along
+    each anti-diagonal (x + y), which the diagonal down-left and vertical
+    left Intra4x4 modes predict from the top-right samples; qp per MB
+    drawn from 20..39, or from the
     values ``qp``; the availability maps of slices of ``rows`` MB rows
     (the top-right and top-left ones None with ``none_trtl``); with
     ``masked``, half the MBs in the mask and seeded base planes."""
@@ -287,6 +291,10 @@ def intra_case(gw: int, gh: int, seed: int, qp=None, cqo: int = 2,
     planes = (src[:H].astype(np.int32), uv[:, 0], uv[:, 1])
     if flat:
         planes = tuple(np.full_like(p, 128) for p in planes)
+    if diagonal:
+        planes = tuple(rng.integers(0, 256, sum(p.shape))[
+            np.add.outer(*map(np.arange, p.shape))].astype(np.int32)
+            for p in planes)
     planes = tuple(np.pad(p, 32, mode="edge") for p in planes)
     qpm = rng.integers(20, 40, (gh, gw)) if qp is None else \
         np.asarray(qp)[rng.integers(0, len(qp), (gh, gw))]

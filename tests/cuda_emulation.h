@@ -1,18 +1,33 @@
 // The few CUDA features of hartallo_tpu_torch/csrc/intra_encode.cu and
 // me_search.cu on the CPU, for tests/test_torch_intra_kernel_emulated.py
 // and tests/test_torch_me_kernel_emulated.py: one std::thread per CUDA
-// thread of a block, the blocks of a grid one after another,
-// std::barrier for __syncthreads and __syncwarp, a per-warp slot array
-// for __shfl_xor_sync, and float operations that round once each, as
-// __fadd_rn, __fmul_rn, __fdiv_rn and __fmaf_rn do.  Every lane of a warp
-// must reach each __syncwarp and shuffle, as the kernels' code does.
+// thread of a block, sleeping barriers for __syncthreads and __syncwarp, a
+// per-warp slot array for the warp shuffles, votes and reductions, and
+// float operations that round once each, as __fadd_rn, __fmul_rn,
+// __fdiv_rn and __fmaf_rn do.  Every lane of a warp must reach each
+// __syncwarp and warp collective, as the kernels' code does.
+//
+// Two launches: emu_launch_grid runs the blocks of a grid one after
+// another (me_search.cu, whose blocks share nothing); emu_launch_cooperative
+// runs every block of the grid at once, as a cooperative launch keeps them
+// resident (intra_encode.cu, whose rows wait on each other), with the
+// primitives of csrc/device_prims.cuh: acquire loads and release stores
+// on std::atomic_ref, a spin-wait that sleeps between polls, barriers of
+// some of a block's warps, and each block's own dynamic shared memory.  A
+// spin-wait whose counter does not move for EMU_STALL_SECONDS sets
+// emu_stalled and returns, and so does every later one: the launch ends
+// with wrong outputs instead of hanging.
 #include <algorithm>
-#include <barrier>
+#include <array>
+#include <atomic>
+#include <chrono>
+#include <condition_variable>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -23,31 +38,110 @@ using std::min;
 #define __device__
 #define __forceinline__ inline
 #define __global__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__
 
 struct EmuDim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-thread_local EmuDim3 threadIdx;
-EmuDim3 blockDim, blockIdx, gridDim;
-std::unique_ptr<std::barrier<>> emu_block_barrier;
-std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
-int emu_shfl_slots[64][32];
 
-inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+// A barrier whose waiters sleep at once (std::barrier spins first, which
+// takes the cores of the threads it waits for when there are many more
+// threads than cores).
+class EmuBarrier {
+ public:
+  explicit EmuBarrier(int n) : n_(n) {}
+  void arrive_and_wait() {
+    std::unique_lock<std::mutex> lock(m_);
+    const unsigned phase = phase_;
+    if (++count_ == n_) {
+      count_ = 0;
+      ++phase_;
+      cv_.notify_all();
+      return;
+    }
+    cv_.wait(lock, [&] { return phase_ != phase; });
+  }
+
+ private:
+  std::mutex m_;
+  std::condition_variable cv_;
+  const int n_;
+  int count_ = 0;
+  unsigned phase_ = 0;
+};
+
+// One block's barriers, warp exchange slots and dynamic shared memory.
+struct EmuBlock {
+  EmuBlock(int threads, size_t smem_words)
+      : bar(threads), slots(threads / 32 * 64), smem(smem_words) {
+    for (int w = 0; w < threads / 32; ++w)
+      warps.push_back(std::make_unique<EmuBarrier>(32));
+  }
+  EmuBarrier bar;
+  std::vector<std::unique_ptr<EmuBarrier>> warps;
+  std::array<std::unique_ptr<EmuBarrier>, 16> named;  // bar_sync's
+  std::mutex named_mutex;
+  std::vector<uint32_t> slots;  // per warp: two rounds of 32 lanes
+  std::vector<int> smem;
+};
+
+thread_local EmuDim3 threadIdx, blockIdx;
+thread_local EmuBlock* emu_block;
+thread_local int emu_round;  // which of the warp's two slot rounds is next
+EmuDim3 blockDim, gridDim;
+
+inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
 
 inline void __syncwarp(unsigned = 0xffffffffu) {
-  emu_warp_barriers[threadIdx.x >> 5]->arrive_and_wait();
+  emu_block->warps[threadIdx.x >> 5]->arrive_and_wait();
+}
+
+// Every lane posts v; returns the 32 posted values.  The two rounds
+// alternate, so one barrier suffices: a lane posts into a round again only
+// after every lane has passed the next collective, and so has read this
+// one.
+inline const uint32_t* emu_exchange(uint32_t v) {
+  uint32_t* s = emu_block->slots.data() + (threadIdx.x >> 5) * 64 +
+                emu_round * 32;
+  emu_round ^= 1;
+  s[threadIdx.x & 31] = v;
+  __syncwarp();
+  return s;
 }
 
 inline int __shfl_xor_sync(unsigned, int v, int lane_mask) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  emu_shfl_slots[w][l] = v;
-  __syncwarp();
-  const int r = emu_shfl_slots[w][l ^ lane_mask];
-  __syncwarp();
+  return (int)emu_exchange((uint32_t)v)[(threadIdx.x & 31) ^ lane_mask];
+}
+
+inline int __shfl_sync(unsigned, int v, int src_lane) {
+  return (int)emu_exchange((uint32_t)v)[src_lane & 31];
+}
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const uint32_t* s = emu_exchange(pred != 0);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= s[l] << l;
   return r;
+}
+
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  const uint32_t* s = emu_exchange(v);
+  return *std::min_element(s, s + 32);
+}
+
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  const uint32_t* s = emu_exchange(v);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r += s[l];
+  return r;
+}
+
+inline int __ffs(int x) { return __builtin_ffs(x); }
+
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
 }
 
 inline float __fadd_rn(float a, float b) {
@@ -83,26 +177,89 @@ inline float __uint_as_float(unsigned u) {
   return f;
 }
 
-// the block's dynamic shared memory (`extern __shared__ int smem[]`)
+// ---- csrc/device_prims.cuh ----------------------------------------------
+constexpr double EMU_STALL_SECONDS = 300;
+inline std::atomic<bool> emu_stalled{false};
+
+inline int ld_acquire(const int* p) {
+  return std::atomic_ref<int>(*const_cast<int*>(p))
+      .load(std::memory_order_acquire);
+}
+
+inline void st_release(int* p, int v) {
+  std::atomic_ref<int>(*p).store(v, std::memory_order_release);
+}
+
+// Polls every 100 us: a busy spin would take the cores that the rows it
+// waits for need, and a host running other work slows every row alike.
+inline void wait_progress(const int* p, int v) {
+  auto last = std::chrono::steady_clock::now();
+  int seen = ld_acquire(p);
+  while (seen < v) {
+    if (emu_stalled.load()) return;
+    std::this_thread::sleep_for(std::chrono::microseconds(100));
+    const int now = ld_acquire(p);
+    if (now != seen) {
+      seen = now;
+      last = std::chrono::steady_clock::now();
+    } else if (std::chrono::steady_clock::now() - last >
+               std::chrono::duration<double>(EMU_STALL_SECONDS)) {
+      emu_stalled = true;
+      return;
+    }
+  }
+}
+
+inline void bar_sync(int id, int threads) {
+  EmuBarrier* b;
+  {
+    std::lock_guard<std::mutex> lock(emu_block->named_mutex);
+    auto& slot = emu_block->named[id];
+    if (!slot) slot = std::make_unique<EmuBarrier>(threads);
+    b = slot.get();
+  }
+  b->arrive_and_wait();
+}
+
+inline int* block_smem() { return emu_block->smem.data(); }
+
+// the dynamic shared memory of a kernel that declares
+// `extern __shared__ int smem[]` (one block at a time)
 namespace {
 alignas(16) int smem[1 << 16];
 }
 
-// Run `kernel(args)` as one block of `threads` threads (a multiple of 32,
-// at most 2048).
+// Run `kernel(args)` as `blocks` blocks of `threads` threads each (a
+// multiple of 32), with `smem_words` ints of dynamic shared memory a
+// block; every block at once with `concurrent`, else one after another.
 template <class Kernel, class Args>
-void emu_launch(Kernel kernel, const Args& args, int threads) {
+void emu_run(Kernel kernel, const Args& args, int blocks, int threads,
+             size_t smem_words, bool concurrent) {
   blockDim.x = threads;
-  emu_block_barrier = std::make_unique<std::barrier<>>(threads);
-  emu_warp_barriers.clear();
-  for (int w = 0; w < threads / 32; ++w)
-    emu_warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
+  std::vector<std::unique_ptr<EmuBlock>> ctx;
   std::vector<std::thread> pool;
-  for (int t = 0; t < threads; ++t)
-    pool.emplace_back([t, &kernel, &args] {
-      threadIdx.x = t;
-      kernel(args);
-    });
+  auto start = [&](int b) {
+    ctx.push_back(std::make_unique<EmuBlock>(threads, smem_words));
+    EmuBlock* blk = ctx.back().get();
+    EmuDim3 bi;
+    bi.x = b % gridDim.x;
+    bi.y = b / gridDim.x;
+    for (int t = 0; t < threads; ++t)
+      pool.emplace_back([t, bi, blk, &kernel, &args] {
+        threadIdx.x = t;
+        blockIdx = bi;
+        emu_block = blk;
+        emu_round = 0;
+        kernel(args);
+      });
+  };
+  for (int b = 0; b < blocks; ++b) {
+    start(b);
+    if (!concurrent) {
+      for (auto& th : pool) th.join();
+      pool.clear();
+    }
+  }
   for (auto& th : pool) th.join();
 }
 
@@ -114,10 +271,18 @@ void emu_launch_grid(Kernel kernel, const Args& args, int gx, int gy,
   gridDim.x = gx;
   gridDim.y = gy;
   gridDim.z = 1;
-  for (int y = 0; y < gy; ++y)
-    for (int x = 0; x < gx; ++x) {
-      blockIdx.x = x;
-      blockIdx.y = y;
-      emu_launch(kernel, args, threads);
-    }
+  emu_run(kernel, args, gx * gy, threads, 0, false);
+}
+
+// Run `kernel(args)` on `blocks` blocks of `threads` threads with
+// `smem_words` ints of dynamic shared memory each, all at once.  Returns
+// false when a spin-wait stalled.
+template <class Kernel, class Args>
+bool emu_launch_cooperative(Kernel kernel, const Args& args, int blocks,
+                            int threads, size_t smem_words) {
+  gridDim.x = blocks;
+  gridDim.y = gridDim.z = 1;
+  emu_stalled = false;
+  emu_run(kernel, args, blocks, threads, smem_words, true);
+  return !emu_stalled;
 }

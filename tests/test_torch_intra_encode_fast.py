@@ -14,7 +14,8 @@ the twin on a GPU.
 - The table the wrapper hands the kernel has the layout
   ``csrc/intra_encode.cu`` reads.
 - On a GPU (``cuda``), the kernel equals the twin on the cases of
-  ``chip_smoke.py``'s intra phase up to 720p, and an encode of the QCIF
+  ``chip_smoke.py``'s intra phase up to 720p (a tall narrow picture of
+  68 MB rows, one MB row and one MB among them), and an encode of the QCIF
   fixtures launches it once per IDR picture and once per P picture that
   has an intra MB.
 
@@ -107,13 +108,11 @@ def test_table_layout_matches_the_kernel():
     where ``_tables`` puts each part."""
     from hartallo_tpu_torch.core import tables as T
     from hartallo_tpu_torch.encode import intra_encode_fast as F
-    from hartallo_tpu_torch.ops import intra as I
     text = (pathlib.Path(F.__file__).parent.parent / "csrc" /
             "intra_encode.cu").read_text()
     off = {k: int(v) for k, v in re.findall(r"\b(T_[A-Z]+) = (\d+)", text)}
     tab = F._tables("cpu").numpy()
-    parts = [("T_IDX", I._IDX), ("T_WGT", I._WGT), ("T_RND", I._RND),
-             ("T_SHT", I._SHT), ("T_MF", T.QUANT_MF), ("T_V", T.QUANT_V),
+    parts = [("T_MF", T.QUANT_MF), ("T_V", T.QUANT_V),
              ("T_QBITS", T.QUANT_QBITS), ("T_F", np.asarray(T.QUANT_F)[0]),
              ("T_QPC", T.QP_SCALE_CHROMA)]
     for name, part in parts:
@@ -175,7 +174,8 @@ def test_p_frame_body_reaches_the_wrapper(monkeypatch, intra_in_p):
 GPU_CASES = ["QCIF", "CIF", "4CIF", "720p", "CIF masked", "720p masked",
              "CIF 3 slices", "CIF flat",
              "CIF qp 0..51, offset -4, lambda of qp 12",
-             "CIF qp 0..51, offset +5, lambda of qp 45"]
+             "CIF qp 0..51, offset +5, lambda of qp 45",
+             "352x1088, 68 rows of 22 MBs", "1920x16, one MB row", "one MB"]
 
 
 @pytest.mark.cuda

@@ -2,14 +2,22 @@
 emulation of the CUDA features it uses, against its plain twin.
 
 ``csrc/intra_encode.cu`` up to its C entry point is compiled with g++
-after ``tests/cuda_emulation.h``, which runs the one block as one
-``std::thread`` per CUDA thread with barriers for ``__syncthreads`` and
-``__syncwarp``; it is launched with 64 threads (two warps, so the MBs of
-a wide step take several rounds).  This holds the kernel's indexing,
-lane mapping, costs and wavefront order against the twin on every run
-where there is no card; nvcc's build and the card stay the authority
-(the ``cuda`` tests and ``chip_smoke.py``).  Inputs: ``intra_case`` of
-``tests/_torch_port.py``.  Tolerance: exact equality of every output.
+after ``tests/cuda_emulation.h`` and launched as the wrapper launches it:
+one block of ``intra_encode_fast.THREADS`` per MB row, every row's block
+at once (one ``std::thread`` per CUDA thread, barriers for
+``__syncthreads`` and ``__syncwarp``, the rows' progress counters on
+``std::atomic_ref`` with acquire loads and release stores, a yielding
+spin-wait).  The rows run as freely as on the card, so a row that reads
+its neighbours before they are published reads zeros or stale values.
+This holds the kernel's indexing, lane mapping, costs, the Intra4x4
+warps' steps, the four warps' join and the rows' waits against the twin
+on every run where there is no card; nvcc's build and the card stay the
+authority (the ``cuda`` tests and ``chip_smoke.py``).  Inputs:
+``intra_case`` of
+``tests/_torch_port.py``, among them a picture taller than wide and one
+whose texture runs along the anti-diagonals, so that the Intra4x4 blocks
+predict from their top-right neighbours.  Tolerance: exact equality of
+every output.
 """
 import ctypes
 import os
@@ -26,25 +34,24 @@ from _torch_port import intra_case
 TESTS = pathlib.Path(__file__).resolve().parent
 REPO = TESTS.parent
 SOURCE = REPO / "hartallo_tpu_torch" / "csrc" / "intra_encode.cu"
-THREADS = 64
-
 HARNESS = r"""
 #include "cuda_emulation.h"
 #include "intra_encode_body.inc"
 
-extern "C" void emu_intra_encode_frame(
+extern "C" int emu_intra_encode_frame(
     const int32_t* sy, const int32_t* su, const int32_t* sv,
     const int32_t* by, const int32_t* bu, const int32_t* bv,
     const int32_t* qp, const uint8_t* al, const uint8_t* at,
     const uint8_t* atr, const uint8_t* atl, const uint8_t* mask,
     const int32_t* tab, const float* lam, int32_t* ry, int32_t* ru,
     int32_t* rv, int32_t* use16, int32_t* i16m, int32_t* i4m, int32_t* cm,
-    int32_t* ldc, int32_t* lac, int32_t* cdc, int32_t* cac, int gw, int gh,
-    int chroma_qp_off, int threads) {
+    int32_t* ldc, int32_t* lac, int32_t* cdc, int32_t* cac, int* prog,
+    int gw, int gh, int chroma_qp_off, int threads) {
   Args a{sy, su, sv, by, bu, bv, qp, al, at, atr, atl, mask, tab, lam,
-         ry, ru, rv, use16, i16m, i4m, cm, ldc, lac, cdc, cac, gw, gh,
-         chroma_qp_off};
-  emu_launch(k_intra_encode, a, threads);
+         ry, ru, rv, use16, i16m, i4m, cm, ldc, lac, cdc, cac, prog, gw,
+         gh, chroma_qp_off};
+  return emu_launch_cooperative(k_intra_encode, a, gh, threads,
+                                SMEM_WORDS) ? 0 : 1;
 }
 """
 
@@ -56,7 +63,10 @@ def emulated():
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernel")
-    text = SOURCE.read_text().replace("#include <cuda_runtime.h>\n", "")
+    text = SOURCE.read_text()
+    for line in ("#include <cuda_runtime.h>\n",
+                 '#include "device_prims.cuh"\n'):
+        text = text.replace(line, "")
     body = text[:text.index("// Plain C entry point")]
     out = REPO / "build" / "emulated" / str(os.getpid())
     out.mkdir(parents=True, exist_ok=True)
@@ -68,7 +78,8 @@ def emulated():
                     f"-I{out}", "-o", str(lib), str(out / "harness.cpp")],
                    check=True, capture_output=True, timeout=300)
     dll = ctypes.CDLL(str(lib))
-    dll.emu_intra_encode_frame.argtypes = [ctypes.c_void_p] * 25 + \
+    dll.emu_intra_encode_frame.restype = ctypes.c_int
+    dll.emu_intra_encode_frame.argtypes = [ctypes.c_void_p] * 26 + \
         [ctypes.c_int] * 4
     yield dll
     shutil.rmtree(out, ignore_errors=True)
@@ -91,9 +102,13 @@ def _run(dll, args, kw, gw, gh):
     rec = [np.zeros(p.shape, np.int32) for p in (sy, su, sv)]
     arrays = {n: np.full((gh, gw, *s), -1, np.int32)
               for n, s in INTRA_FIELDS}
-    dll.emu_intra_encode_frame(
+    prog = np.zeros(gh, np.int32)
+    stalled = dll.emu_intra_encode_frame(
         *(None if a is None else a.ctypes.data
-          for a in (*keep, *rec, *arrays.values())), gw, gh, cqo, THREADS)
+          for a in (*keep, *rec, *arrays.values(), prog)), gw, gh, cqo,
+        F.THREADS)
+    assert not stalled, "a row waited for a neighbour that never came"
+    np.testing.assert_array_equal(prog, gw)
     return (*map(torch.tensor, rec),
             {n: torch.tensor(v) for n, v in arrays.items()})
 
@@ -107,6 +122,8 @@ CASES = [
      {"qp": tuple(range(52)), "cqo": 5, "lam_qp": 45, "none_trtl": True}),
     ("6x4 masked, qp 0..12, lambda of qp 12", 6, 4,
      {"masked": True, "qp": tuple(range(13)), "lam_qp": 12}),
+    ("6x12, taller than wide", 6, 12, {"rows": 12}),
+    ("8x5 diagonal texture", 8, 5, {"rows": 5, "diagonal": True}),
 ]
 
 

@@ -3,6 +3,7 @@ in one run.
 
     python tools/port_kernel_times.py dump PAYLOADS.npz
     python tools/port_kernel_times.py time PAYLOADS.npz [--tree DIR] [--plain]
+        [--intra-only]
 
 ``dump`` parses the fixtures with this tree's decoder (nothing is
 decoded) and stores the GOP kernel's payloads: the 16 pictures of
@@ -19,17 +20,25 @@ limit:
   with slice-edge flags (``chip_smoke.deblock_inputs``): the launch
   alone and the wrapper with its parameter gather, µs per frame;
 - the intra encode kernel (``intra_encode_frame_fast``) on the first
-  ``bench.make_clip`` frame at CIF, 720p and 1080p
-  (``chip_smoke.intra_inputs``), µs per picture, where the tree has it;
+  ``bench.make_clip`` frame of one MB, CIF, 720p and 1080p
+  (``chip_smoke.intra_inputs``), µs per picture with the wrapper (CUDA
+  events) and of the kernel alone (``chip_smoke.kernel_us``, the
+  profiler's device time), where the tree has it, and its chain floor at
+  each size: the gw + 2 gh - 2 MBs of the wavefront's critical path
+  times the one-MB picture's kernel time (its launch included);
 - the motion search kernels (``full_search_int_fast`` and one
   quarter-pel round of ``refine_subpel_fast``) on the ``bench.make_clip``
   frame pair at CIF, 720p and 1080p (``chip_smoke.me_inputs``), µs per
   call, where the tree has them;
 - with ``--plain``, the plain twins once each (the CIF batch, the 720p
-  IDR picture, every deblock grid, the intra encode at CIF and 720p, the
+  IDR picture, every deblock grid, the intra encode at one MB, CIF and
+  720p, the
   motion search at CIF, 720p and 1080p);
 - each kernel's bound (``chip_smoke.gop_bound`` / ``deblock_bound`` /
   ``intra_bound`` / ``me_bound``).
+
+``--intra-only`` times the intra encode kernel alone (for turns of two
+trees on one card); the payloads are then not read.
 """
 from __future__ import annotations
 
@@ -79,7 +88,8 @@ def _payloads(path: str):
     return out
 
 
-def time_kernels(path: str, tree: str, plain: bool) -> None:
+def time_kernels(path: str, tree: str, plain: bool,
+                 intra_only: bool = False) -> None:
     sys.path.insert(0, str(REPO))
     import numpy as np
     import torch
@@ -88,7 +98,8 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
     from chip_smoke import (SEED, DEBLOCK_GRIDS, INTRA_CASES, INTRA_TIMED,
                             ME_CASES, ME_TIMED, card_line, deblock_bound,
                             deblock_inputs, event_ms, gop_bound,
-                            intra_bound, intra_inputs, me_bound, me_inputs)
+                            intra_bound, intra_inputs, kernel_us, me_bound,
+                            me_inputs)
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     from hartallo_tpu_torch import kernels
     from hartallo_tpu_torch.decode import d_gop_fast as F
@@ -104,10 +115,13 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
            "gop_bound_us_per_picture": {}, "deblock_launch_us": {},
            "deblock_wrapper_us": {}, "deblock_plain_us": {},
            "deblock_bound_us": {}, "intra_us": {}, "intra_plain_us": {},
-           "intra_bound_us": {}, "full_search_us": {},
+           "intra_kernel_us": {}, "intra_bound_us": {},
+           "intra_chain_floor_us": {},
+           "full_search_us": {},
            "full_search_plain_us": {}, "full_search_bound_us": {},
            "refine_us": {}, "refine_plain_us": {}, "refine_bound_us": {}}
-    for key, (pay, gw, gh, S) in _payloads(path).items():
+    for key, (pay, gw, gh, S) in ({} if intra_only else
+                                  _payloads(path)).items():
         K = pay["sf"].shape[0]
         rng = np.random.default_rng(SEED)
         rings = F.rings_from_numpy(*(rng.integers(0, 256, s, dtype=np.uint8)
@@ -126,7 +140,7 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
             res["gop_plain_us_per_picture"][key] = 1e3 * event_ms(
                 torch, lambda: F.decode_gop_fast_plain(*args, *rings, gw=gw,
                                                        gh=gh), 1) / K
-    for name, gw, gh, flags in DEBLOCK_GRIDS:
+    for name, gw, gh, flags in () if intra_only else DEBLOCK_GRIDS:
         planes, rest = deblock_inputs(gw, gh, SEED + gw, flags)
         tp = tuple(torch.tensor(x, device="cuda") for x in planes)
         ta = tuple(torch.tensor(a, device="cuda") for a in rest)
@@ -144,23 +158,31 @@ def time_kernels(path: str, tree: str, plain: bool) -> None:
     if importlib.util.find_spec(
             "hartallo_tpu_torch.encode.intra_encode_fast") is not None:
         from hartallo_tpu_torch.encode import intra_encode_fast as IF
+        grids = {}
         for k, (name, W, H, opts) in enumerate(INTRA_CASES):
             if name not in INTRA_TIMED:
                 continue
             gw, gh, args, kw = intra_inputs(W, H, SEED + k, **opts)
             ta = [torch.tensor(a, device="cuda") if isinstance(a, np.ndarray)
                   else a for a in args]
-            res["intra_us"][name] = 1e3 * event_ms(
-                torch, lambda: IF.intra_encode_frame_fast(*ta, gw=gw, gh=gh),
-                10)
+            def call():
+                IF.intra_encode_frame_fast(*ta, gw=gw, gh=gh)
+            res["intra_us"][name] = 1e3 * event_ms(torch, call, 10)
+            res["intra_kernel_us"][name] = kernel_us(torch, call, 10,
+                                                     "intra_encode")
             res["intra_bound_us"][name] = 1e3 * intra_bound(gw, gh,
                                                             False)[0]
             if plain and name != "1080p":
                 res["intra_plain_us"][name] = 1e3 * event_ms(
                     torch, lambda: IF.intra_encode_frame(*ta, gw=gw, gh=gh),
                     1)
-    if importlib.util.find_spec("hartallo_tpu_torch.encode.me_fast") \
-            is not None:
+            grids[name] = (gw, gh)
+        mb_us = res["intra_kernel_us"]["one MB"]
+        for name, (gw, gh) in grids.items():
+            res["intra_chain_floor_us"][name] = None if mb_us is None \
+                else (gw + 2 * gh - 2) * mb_us
+    if not intra_only and importlib.util.find_spec(
+            "hartallo_tpu_torch.encode.me_fast") is not None:
         from hartallo_tpu_torch.encode import me as M
         from hartallo_tpu_torch.encode import me_fast as MF
         from hartallo_tpu_torch.ops.wide import halfpel_planes
@@ -195,7 +217,8 @@ def main(argv) -> None:
     elif len(argv) >= 2 and argv[0] == "time":
         tree = argv[argv.index("--tree") + 1] if "--tree" in argv else \
             str(REPO)
-        time_kernels(argv[1], tree, "--plain" in argv)
+        time_kernels(argv[1], tree, "--plain" in argv,
+                     "--intra-only" in argv)
     else:
         raise SystemExit(__doc__)
 
