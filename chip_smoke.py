@@ -11,7 +11,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    source, all at once) and print
    ptxas' registers and spills, and the intra encode kernel's dynamic
    shared memory, registers, spills, block size and the most MB rows
-   (blocks) the card holds at once, as the runtime reports them; the
+   (blocks) the card holds at once, and both motion search kernels'
+   registers, spills, shared memory, block size and grid at 1080p, as the
+   runtime reports them, and how many byte-SIMD instructions (VABSDIFF4,
+   IDP.4A) ``cuobjdump`` finds in the full search kernel's SASS (a SASS
+   with none fails the run); the
    port's native slice parser and packer
    (``hartallo_tpu_torch/native``, built with gcc into ``build/native/``)
    must have loaded, or the timed host path would be pure Python;
@@ -36,13 +40,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    row (1920x16) (INTRA_CASES) go through the kernel (one block per MB
    row) and its plain twin; all eleven outputs must be equal;
 6. ME kernel phase: the ``bench.make_clip`` frame pair (the second frame
-   searched in the first) at QCIF, CIF, 4CIF, 720p and 1080p, the shard
-   phase's 1080p band of 17 MB rows with its halo reference, ranges 12
-   and 5 and the lambdas of qp 12, 30 and 45 (ME_CASES) go through the
-   full search kernel and its plain twin (all eight outputs equal), then
-   seeded MVs and partition maps through the refinement kernel and its
-   twin, the half-pel round and then the quarter-pel round on its
-   result (MVs and costs equal);
+   searched in the first) at one MB, QCIF, CIF, 4CIF, 720p and 1080p, the
+   shard phase's 1080p band of 17 MB rows with its halo reference, ranges
+   1, 5, 12 and 24 and the lambdas of qp 12, 30 and 45 (ME_CASES) go
+   through the full search kernel and its plain twin (all eight outputs
+   equal), then seeded MVs and partition maps through the refinement:
+   one-round launches (the half-pel round, then the quarter-pel round on
+   its result) against the twin's rounds, and the two-round launch
+   against the twin's chain, also on the MVs and partition map the path
+   derives from the search (MVs and costs equal);
 7. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
@@ -58,8 +64,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fixture byte for byte, the deblock kernel must have run once per
    picture, the intra kernel once for the IDR picture and once for each
    P picture that took the intra-in-P branch, the full search kernel
-   once and the refinement kernel twice per P picture, and the port's
-   decoder must decode the port's streams to the recorded MD5s;
+   and the refinement kernel (both rounds) once each per P picture, and
+   the port's decoder must decode the port's streams to the recorded
+   MD5s;
 10. SVC phase (the SVC round trip), launch counts set to 0 just before
    it: the three layers of ``svc3_4cif_8`` (176x144, 352x288 and
    704x576, 8 pictures each, two temporal layers; the 4CIF
@@ -70,7 +77,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    once per kernel-route picture, the deblock kernel once per encoded
    picture of every layer and once per general-route picture of the
    decodes, the intra kernel once per base-layer IDR picture, the
-   refinement kernel twice per full search; in the
+   refinement kernel once per full search; in the
    encode and the full decode every call of any kernel is held against
    its plain twin on the same inputs, at the path's own shapes (QCIF,
    CIF and 4CIF), tolerance 0;
@@ -78,7 +85,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    before it, on ``Mesh(("cuda:0",) * 4)``: the 1080p P step
    (``p_encode_step_sharded``, four bands of 17 MB rows) must give the
    eight outputs whose MD5s the JAX package recorded
-   (``shard_p_1080p.json``) with 4 deblock, 4 full search and 8
+   (``shard_p_1080p.json``) with 4 deblock, 4 full search and 4
    refinement kernel launches, and
    ``decode_gops_grouped`` of ``shard_1080p_8`` with 2 groups (two
    bands of 34 MB rows each) every frame's MD5 with 16 deblock kernel
@@ -96,8 +103,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1080p, with its wrapper and alone (the profiler's device time),
    beside its chain floor (the gw + 2 gh - 2 MBs of its critical path
    times the one-MB picture's kernel time), the twin at CIF and 720p
-   (each twin timed on its check run); the full search and a refinement
-   round per picture at CIF, 720p and 1080p beside their twins; each
+   (each twin timed on its check run); the full search and the two-round
+   refinement launch per picture at CIF, 720p and 1080p, with the
+   wrapper (CUDA events), alone (the profiler's device time) and the
+   wrapper's host time per call (no sync), beside their twins; each
    beside its bound
    (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``);
    encode fps at CIF, 720p and
@@ -157,7 +166,9 @@ INTRA_TIMED = ("one MB", "CIF", "720p", "1080p")
 # the motion search kernels' cases: (label, width, height, options of
 # me_inputs); the defaults are bench.py's settings (me_range 12, the
 # lambda of qp 30); the band is the shard phase's second band of 17 MB
-# rows with its halo reference
+# rows with its halo reference; range 24 is the encoder's largest
+# (encoder.py clamps me_range to PAD - 8); 4CIF's 44 MBs a row end in a
+# short strip of the full search's 8
 ME_CASES = (
     ("QCIF", 176, 144, {}), ("CIF", 352, 288, {}), ("4CIF", 704, 576, {}),
     ("720p", 1280, 720, {}), ("1080p", 1920, 1080, {}),
@@ -165,7 +176,10 @@ ME_CASES = (
     ("CIF range 5, lambda of qp 12", 352, 288, {"rng": 5, "lam_qp": 12}),
     ("CIF lambda of qp 45", 352, 288, {"lam_qp": 45}),
     ("720p range 5, lambda of qp 45", 1280, 720, {"rng": 5, "lam_qp": 45}),
-    ("1080p lambda of qp 12", 1920, 1080, {"lam_qp": 12}))
+    ("1080p lambda of qp 12", 1920, 1080, {"lam_qp": 12}),
+    ("720p range 24", 1280, 720, {"rng": 24}),
+    ("one MB", 16, 16, {}),
+    ("CIF range 1", 352, 288, {"rng": 1}))
 ME_TIMED = ("CIF", "720p", "1080p")
 # NVIDIA's data sheet for the H100 SXM at 700 W: HBM3 rate, and the
 # float32 rate outside the tensor cores, the nearest published rate for
@@ -173,13 +187,26 @@ ME_TIMED = ("CIF", "720p", "1080p")
 # bound stays a lower bound)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# Hopper's integer pipes: 64 int32 lanes a clock on each SM; a byte-SIMD
+# instruction (VABSDIFF4, IDP.4A) takes four samples a lane
+H100_SMS = 132
+INT32_LANES_PER_SM = 64
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = SCALAR_OPS_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take
-    to move ``nbytes`` and do ``ops``."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    to move ``nbytes`` and do ``ops`` at ``ops_per_s``."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, ``nvidia-smi``'s clocks.max.sm."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    return float(out) * 1e6
 
 
 def gop_bound(pay, gw: int, gh: int):
@@ -227,24 +254,51 @@ def intra_bound(gw: int, gh: int, masked: bool):
     return bound(nbytes, 3 * (4 * 256 + 9 * 256 + 4 * 128) * gw * gh)
 
 
-def me_bound(gw: int, gh: int, rng: int, kernel: str):
-    """Bound of one ``full_search_int_fast`` or ``refine_subpel_fast``
-    call (one refinement round).  Full search: the int32 source interior
-    and the reference window of the picture ((H + 2R) x (W + 2R)) read,
-    9 costs and MVs per MB written; operations: 3 per candidate sample
-    (difference, absolute value, sum), (2R+1)^2 H W 3.  Refinement: the
-    int32 source interior and the four half-pel planes over the picture
-    read, the MVs read and written, the partition map read, 4 costs per
-    MB written; operations: 10 per sample and delta (the two-tap
-    average 3, the difference 1, two Hadamard butterfly stages 4, the
-    absolute value and the sum 2)."""
+def me_bound(gw: int, gh: int, rng: int, kernel: str, clock_hz: float):
+    """Bound of one ``full_search_int_fast`` call or one two-round
+    ``refine_subpel_rounds_fast`` launch, the least the card could take
+    whatever implements it.  Full search: bytes, the int32 source
+    interior and the reference window of the picture ((H + 2R) x (W +
+    2R)) read, 9 costs and MVs per MB written; operations, the (2R+1)^2
+    H W candidate samples at four a lane-instruction (byte SIMD) on
+    ``INT32_LANES_PER_SM`` lanes a clock of each SM at ``clock_hz`` (it
+    assumes no instruction does more than four samples' absolute
+    differences and sums, and counts nothing else).  Refinement: bytes,
+    the int32 source interior and the four half-pel planes over the
+    picture read once, the MVs and the partition map read, the final MVs
+    and 4 costs per MB written; operations, 10 per sample and delta of
+    each of the two rounds (the two-tap average 3, the difference 1, two
+    Hadamard butterfly stages 4, the absolute value and the sum 2) at
+    the float32 rate."""
     H, W, nmb = gh * 16, gw * 16, gw * gh
     if kernel == "full_search":
         nbytes = 4 * H * W + 4 * (H + 2 * rng) * (W + 2 * rng) + \
             nmb * 9 * (4 + 8)
-        return bound(nbytes, (2 * rng + 1) ** 2 * H * W * 3)
+        return bound(nbytes, (2 * rng + 1) ** 2 * H * W,
+                     4 * INT32_LANES_PER_SM * H100_SMS * clock_hz)
     nbytes = 4 * H * W * 5 + nmb * (2 * 16 * 2 * 4 + 16 * 4 + 4 * 4)
-    return bound(nbytes, 9 * H * W * 10)
+    return bound(nbytes, 2 * 9 * H * W * 10)
+
+
+def sass_simd(lib, kernel: str):
+    """How many VABSDIFF4 and IDP.4A instructions ``cuobjdump -sass``
+    finds in the SASS of the kernels of ``lib`` whose names hold
+    ``kernel``, or None where the toolkit has no cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts = dict.fromkeys(("VABSDIFF4", "IDP.4A"), 0)
+    inside = False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            for op in counts:
+                counts[op] += f" {op}" in line
+    return counts
 
 
 def card_line() -> str:
@@ -293,22 +347,40 @@ def event_ms(torch, fn, reps, warm=True):
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_us(torch, fn, reps: int, name: str):
-    """Mean device time in µs of the kernel whose name holds ``name``,
-    over reps calls of fn() after one warm-up, from ``torch.profiler``'s
-    device-side events (no host time: for a kernel that the host's
-    set-up outlasts), or None when the trace holds none."""
+def kernel_us(torch, fn, reps: int, name: str, launches: int = 1):
+    """Device time in µs per call of fn(), which launches the kernel whose
+    name holds ``name`` ``launches`` times: the mean of its launches over
+    reps calls after one warm-up, from ``torch.profiler``'s device-side
+    events (no host time: for a kernel that the host's set-up outlasts),
+    times ``launches``; None when the trace holds none.  A trace may drop
+    events, so the mean is taken over the launches it holds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total / e.count for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key]
-    return sum(times) if times else None
+    for _ in range(3):           # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.device_time_total, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and name in e.key]
+        if events:
+            return launches * sum(t for t, _ in events) / \
+                sum(n for _, n in events)
+    return None
+
+
+def host_us(fn, reps: int) -> float:
+    """Host time in µs per call of fn() (``time.perf_counter``, no sync:
+    what the wrapper costs the host before the card runs it), over reps
+    calls after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def check_gop(torch, frames, gw, gh, S, stages_list, label):
@@ -612,6 +684,34 @@ def me_inputs(W: int, H: int, seed: int, rng=12, lam_qp=30, band=False):
         "part": r.integers(0, 4, (gh, gw, 16)).astype(np.int32)}
 
 
+def me_path_maps(fs, lam):
+    """The quarter-pel MVs and the partition map (numpy int32) that
+    ``p_device.p_frame_device`` derives from the full search's eight
+    outputs ``fs`` (numpy) and the f32 lambda: each MB's cheapest
+    partitioning, its partitions' MVs on their 4x4 blocks.  The timing
+    input of the refinement as the path gives it: a partition's blocks
+    share their MV."""
+    import numpy as np
+    from hartallo_tpu_torch.encode.me import _PART_OF_BLK
+    c16, v16, c168, v168, c816, v816, c88, v88 = fs
+    lam = np.float32(lam)
+    costs = np.stack([c16 + lam * np.float32(1),
+                      (c168[..., 0] + c168[..., 1]) + lam * np.float32(3),
+                      (c816[..., 0] + c816[..., 1]) + lam * np.float32(3),
+                      (((c88[..., 0] + c88[..., 1]) + c88[..., 2]) +
+                       c88[..., 3]) + lam * np.float32(9)])
+    choice = costs.argmin(0)
+    parts = np.stack([_PART_OF_BLK[k].reshape(16) for k in
+                      ("16x16", "16x8", "8x16", "8x8")]).astype(np.int32)
+    part = parts[choice]                                  # (gh, gw, 16)
+    mv_part = np.zeros(choice.shape + (4, 2), np.int32)   # per partition
+    for k, v in enumerate((v16[:, :, None], v168, v816, v88)):
+        sel = choice == k
+        mv_part[sel, :v.shape[2]] = v[sel]
+    mv = np.take_along_axis(mv_part, part[..., None].astype(np.int64), 2)
+    return 4 * mv, part
+
+
 def me_diff(got, want):
     """(max_abs_err, equal) of two motion-search results (tuples of
     tensors); equal means the same shapes, types and values (an error of
@@ -632,15 +732,22 @@ def abs_err(a, b):
 
 def me_phase(torch, card):
     """The motion search kernels against their plain twins on ME_CASES,
-    tolerance 0: the full search's eight outputs, then the refinement's
-    MVs and costs for the half-pel round on the seeded MVs and the
-    quarter-pel round on its result, as the path chains them (each twin
-    timed on its check run); then each kernel's time per picture at
-    ME_TIMED beside its bound.  Returns (max_abs_err of each kernel, and
-    at 720p: each kernel's and twin's ms per launch and its bound)."""
+    tolerance 0: the full search's eight outputs; then, on seeded MVs and
+    partition maps, the one-round launches (the half-pel round, then the
+    quarter-pel round on its result) against the twin's rounds, and the
+    two-round launch against the twin's chain, MVs and costs (each twin
+    timed on its check run), and the two-round launch on the MVs and
+    partition map the path derives from this search (``me_path_maps``).
+    Then at ME_TIMED each kernel's time per picture with its wrapper
+    (CUDA events), alone (the profiler's device time) and the wrapper's
+    host time per call, beside its bound; the refinement on the search's
+    MVs (the path's input) and on the seeded ones.  Returns (max_abs_err
+    of each kernel, and at 720p: each kernel's and twin's ms per picture
+    and its bound)."""
     from hartallo_tpu_torch.encode import me as M
     from hartallo_tpu_torch.encode import me_fast as MF
     from hartallo_tpu_torch.ops.wide import halfpel_planes
+    clock = sm_clock_hz()
     max_err = {"full_search": 0, "refine": 0}
     plain_ms, timed = {}, {}
     for k, (label, W, H, opts) in enumerate(ME_CASES):
@@ -653,49 +760,82 @@ def me_phase(torch, card):
         fs_plain = event_ms(torch, lambda: plain.append(M.full_search_int(
             src, ref, lam, gw=gw, gh=gh, rng=rng)), 1, warm=False)
         fs_err, fs_same = me_diff(got, plain[0])
+        plain_fs = plain[0]
         hp = halfpel_planes(ref)
-        rf_err, rf_same, rf_plain = 0, True, 0.0
+        rf_err, rf_same, rf_plain, want, one = 0, True, 0.0, (mv, None), mv
         for step in (2, 1):
-            got = MF.refine_subpel_fast(src, ref, mv, part, lam, step, gw=gw,
-                                        gh=gh, nparts=4, hp=hp)
             plain = []
             rf_plain += event_ms(torch, lambda: plain.append(
-                M.refine_subpel(src, ref, mv, part, lam, step, gw=gw, gh=gh,
-                                nparts=4, hp=hp)), 1, warm=False)
-            err, same = me_diff(got, plain[0])
-            rf_err, rf_same = max(rf_err, err), rf_same and same
-            mv = got[0]
+                M.refine_subpel(src, ref, want[0], part, lam, step, gw=gw,
+                                gh=gh, nparts=4, hp=hp)), 1, warm=False)
+            want = plain[0]
+            got = MF.refine_subpel_fast(src, ref, one, part, lam, step,
+                                        gw=gw, gh=gh, nparts=4, hp=hp)
+            err, same = me_diff(got, want)
+            rf_err, rf_same, one = max(rf_err, err), rf_same and same, got[0]
+        got = MF.refine_subpel_rounds_fast(src, ref, mv, part, lam, (2, 1),
+                                           gw=gw, gh=gh, nparts=4, hp=hp)
+        err, two_same = me_diff(got, want)
+        rf_err = max(rf_err, err)
+        # the MVs and partition map the path derives from this search
+        path_mv, path_part = (torch.tensor(a, device="cuda") for a in
+                              me_path_maps([t.cpu().numpy() for t in
+                                            plain_fs], c["lam"]))
+        want = (path_mv, None)
+        for step in (2, 1):
+            want = M.refine_subpel(src, ref, want[0], path_part, lam, step,
+                                   gw=gw, gh=gh, nparts=4, hp=hp)
+        got = MF.refine_subpel_rounds_fast(src, ref, path_mv, path_part,
+                                           lam, (2, 1), gw=gw, gh=gh,
+                                           nparts=4, hp=hp)
+        err, path_same = me_diff(got, want)
+        rf_err = max(rf_err, err)
         print(f"ME kernel phase {label} ({gw}x{gh} MBs, range {rng}): full "
               f"search equal={fs_same} max_abs_err={fs_err}; refinement "
-              f"(half-pel, then quarter-pel) equal={rf_same} "
+              f"one round at a time (half-pel, then quarter-pel) "
+              f"equal={rf_same}, both rounds in one launch equal="
+              f"{two_same}, on the search's own MVs equal={path_same}, "
               f"max_abs_err={rf_err}", flush=True)
-        if not (fs_same and rf_same):
+        if not (fs_same and rf_same and two_same and path_same):
             raise SystemExit(f"ME kernels != plain at {label}")
         max_err["full_search"] = max(max_err["full_search"], fs_err)
         max_err["refine"] = max(max_err["refine"], rf_err)
         if label in ME_TIMED:
-            plain_ms[label] = (fs_plain, rf_plain / 2)
-            timed[label] = (event_ms(torch, lambda: MF.full_search_int_fast(
-                src, ref, lam, gw=gw, gh=gh, rng=rng), 10), event_ms(
-                torch, lambda: MF.refine_subpel_fast(
-                    src, ref, mv, part, lam, 1, gw=gw, gh=gh, nparts=4,
-                    hp=hp), 10), gw, gh, rng)
-    for label, (fs_ms, rf_ms, gw, gh, rng) in timed.items():
-        fb, fby = me_bound(gw, gh, rng, "full_search")
-        rb, rby = me_bound(gw, gh, rng, "refine")
-        fp, rp = plain_ms[label]
-        print(f"[{card}] ME kernels {label}: full search {fs_ms * 1e3:.1f} "
-              f"us/picture (plain torch {fp * 1e3:.1f}, bound "
-              f"{fb * 1e3:.3f} us, {fby}); refinement {rf_ms * 1e3:.1f} us "
-              f"a round, {2 * rf_ms * 1e3:.1f} us/picture (plain torch "
-              f"{rp * 1e3:.1f} a round, bound {rb * 1e3:.3f} us a round, "
-              f"{rby})", flush=True)
-    fs_ms, rf_ms, gw, gh, rng = timed["720p"]
-    fp, rp = plain_ms["720p"]
-    return max_err, {"full_search": (fs_ms, fp, *me_bound(gw, gh, rng,
-                                                           "full_search")),
-                     "refine": (rf_ms, rp, *me_bound(gw, gh, rng,
-                                                     "refine"))}
+            plain_ms[label] = (fs_plain, rf_plain)
+            calls = {
+                "full_search": (lambda: MF.full_search_int_fast(
+                    src, ref, lam, gw=gw, gh=gh, rng=rng), "k_full_search"),
+                "refine": (lambda: MF.refine_subpel_rounds_fast(
+                    src, ref, path_mv, path_part, lam, (2, 1), gw=gw, gh=gh,
+                    nparts=4, hp=hp), "k_refine"),
+                "refine_seeded": (lambda: MF.refine_subpel_rounds_fast(
+                    src, ref, mv, part, lam, (2, 1), gw=gw, gh=gh, nparts=4,
+                    hp=hp), "k_refine")}
+            timed[label] = ({key: (event_ms(torch, fn, 10),
+                                   kernel_us(torch, fn, 10, kname),
+                                   host_us(fn, 10))
+                             for key, (fn, kname) in calls.items()},
+                            gw, gh, rng)
+    for label, (t, gw, gh, rng) in timed.items():
+        for key, what in (("full_search", "full search"),
+                          ("refine", "refinement, both rounds, on the "
+                           "search's MVs"),
+                          ("refine_seeded", "refinement, both rounds, on "
+                           "seeded MVs of every 4x4 block")):
+            ms, dev_us, h_us = t[key]
+            b, by = me_bound(gw, gh, rng, key[:6] if key != "full_search"
+                             else key, clock)
+            dev = "not measured" if dev_us is None else f"{dev_us:.1f} us"
+            twin = plain_ms[label][key != "full_search"]
+            print(f"[{card}] ME kernels {label}: {what} {ms * 1e3:.1f} "
+                  f"us/picture with the wrapper, kernel alone {dev}, the "
+                  f"wrapper's host time {h_us:.1f} us/call (plain torch "
+                  f"{twin * 1e3:.1f} on seeded MVs, bound {b * 1e3:.3f} us, "
+                  f"{by}; SM clock {clock / 1e9:.3f} GHz)", flush=True)
+    t, gw, gh, rng = timed["720p"]
+    return max_err, {key: (t[key][0], plain_ms["720p"][key == "refine"],
+                           *me_bound(gw, gh, rng, key, clock))
+                     for key in ("full_search", "refine")}
 
 
 def decode_fixture(torch, name):
@@ -793,8 +933,9 @@ def encode_phase(torch):
     """The encode path, launch counts set to 0 just before it: each clip
     byte-equal to its fixture, the intra kernel launched once for the IDR
     picture and once for each P picture that took the intra branch
-    (counted where ``e_device`` decides it), the full search once and the
-    refinement twice per P picture, the deblock kernel once per picture;
+    (counted where ``e_device`` decides it), the full search and the
+    refinement (both rounds) once each per P picture, the deblock kernel
+    once per picture;
     then the port's decoder reads the port's streams back.  Returns
     (deblock launches, intra kernel launches, full search launches,
     refinement launches)."""
@@ -843,7 +984,7 @@ def encode_phase(torch):
             raise SystemExit(f"{name}: {n} intra kernel launches for one "
                              f"IDR picture and {n_p} P pictures with intra "
                              "MBs")
-        if (n_fs, n_rf) != (n_pic, 2 * n_pic):
+        if (n_fs, n_rf) != (n_pic, n_pic):
             raise SystemExit(f"{name}: {n_fs} full search and {n_rf} "
                              f"refinement launches for {n_pic} P pictures")
         want, _ = load_fixture(name)
@@ -926,11 +1067,12 @@ class TwinChecks:
     general route, ``d_gop.deblock_frame_fast`` for the GOP scan and the
     sharded decode, ``e_device.intra_encode_frame_fast`` for the
     encoder, and ``p_device.full_search_int_fast`` and
-    ``refine_subpel_fast`` for the encoder's motion search), is held
+    ``refine_subpel_rounds_fast`` for the encoder's motion search), is held
     against the plain twin on the same inputs, tolerance 0: the GOP
     kernel's output and ring (the ring cloned before the call), the
     deblocked planes, the intra encode's eleven outputs, the full
-    search's eight outputs and the refinement's MVs and costs.  The twins launch nothing,
+    search's eight outputs and the refinement's MVs and costs (against
+    the twin's chain of its rounds).  The twins launch nothing,
     so the launch counts stay the path's.  The deblock twin (some 150,000
     small ops at a 1080p band grid) runs through ``ops/graphs.replayed``:
     eager ops the first time its input shapes are seen, the same ops
@@ -997,10 +1139,14 @@ class TwinChecks:
                      me_diff(got, want)[1])
         return got
 
-    def _refine(self, *args, gw, gh, **kw):
+    def _refine(self, src, ref, mv, part, lam, steps, *, gw, gh, **kw):
         from hartallo_tpu_torch.encode import me as M
-        got = self.real_rf(*args, gw=gw, gh=gh, **kw)
-        want = M.refine_subpel(*args, gw=gw, gh=gh, **kw)
+        got = self.real_rf(src, ref, mv, part, lam, steps, gw=gw, gh=gh,
+                           **kw)
+        want = (mv, None)
+        for step in steps:
+            want = M.refine_subpel(src, ref, want[0], part, lam, step,
+                                   gw=gw, gh=gh, **kw)
         self._record("refine", gw, gh, list(zip(got, want)),
                      me_diff(got, want)[1])
         return got
@@ -1021,12 +1167,12 @@ class TwinChecks:
             self.DM.decode_gop_fast, self.E.deblock_frame_fast, \
             self.E.intra_encode_frame_fast
         self.real_fs, self.real_rf = self.PD.full_search_int_fast, \
-            self.PD.refine_subpel_fast
+            self.PD.refine_subpel_rounds_fast
         self.DM.decode_gop_fast = self._gop
         self.E.deblock_frame_fast = self.G.deblock_frame_fast = self._deblock
         self.E.intra_encode_frame_fast = self._intra
         self.PD.full_search_int_fast = self._full_search
-        self.PD.refine_subpel_fast = self._refine
+        self.PD.refine_subpel_rounds_fast = self._refine
         return self
 
     def __exit__(self, *exc):
@@ -1034,7 +1180,7 @@ class TwinChecks:
         self.E.deblock_frame_fast = self.G.deblock_frame_fast = self.real_db
         self.E.intra_encode_frame_fast = self.real_intra
         self.PD.full_search_int_fast = self.real_fs
-        self.PD.refine_subpel_fast = self.real_rf
+        self.PD.refine_subpel_rounds_fast = self.real_rf
 
 
 def svc_phase(torch):
@@ -1108,7 +1254,7 @@ def svc_phase(torch):
         raise SystemExit(f"SVC: twin checks {twins.calls} do not cover the "
                          f"encode and the full decode ({intra} intra kernel "
                          "launches)")
-    if not me[0] or me[1] != 2 * me[0] or \
+    if not me[0] or me[1] != me[0] or \
             (twins.calls["full_search"], twins.calls["refine"]) != me:
         raise SystemExit(f"SVC: {me[0]} full search and {me[1]} refinement "
                          f"launches, twin checks {twins.calls}")
@@ -1169,8 +1315,8 @@ def shard_decode(torch, mesh, stream):
 def shard_phase(torch):
     """The row-sharded path on ``Mesh(("cuda:0",) * 4)``, launch counts
     set to 0 just before it: the 1080p P step's eight outputs equal the
-    JAX package's MD5s (4 deblock launches, 4 full search and 8
-    refinement launches, one and two per band), and the grouped decode of
+    JAX package's MD5s (4 deblock launches, 4 full search and 4
+    refinement launches, one each per band), and the grouped decode of
     shard_1080p_8 (2 GOPs on 2 groups of 2 bands of 34 MB rows) equals
     every frame's MD5 (2 bands x 8 pictures = 16 deblock launches, no GOP
     kernel); every deblock and motion search call of both held against
@@ -1227,13 +1373,13 @@ def shard_phase(torch):
             twins.shapes["deblock"] != {(120, 17), (120, 34)}:
         raise SystemExit(f"shard: twin checks {twins.calls} at "
                          f"{twins.shapes} do not cover the path")
-    if me != (SHARD_BANDS, 2 * SHARD_BANDS) or \
+    if me != (SHARD_BANDS, SHARD_BANDS) or \
             (twins.calls["full_search"], twins.calls["refine"]) != me or \
             twins.shapes["refine"] != {(120, 17)}:
         raise SystemExit(f"shard: {me[0]} full search and {me[1]} "
                          f"refinement launches, twin checks {twins.calls} "
-                         f"at {twins.shapes}; expected {SHARD_BANDS} and "
-                         f"{2 * SHARD_BANDS} at 120x17 MBs")
+                         f"at {twins.shapes}; expected {SHARD_BANDS} of "
+                         f"each at 120x17 MBs")
     return db, me, twins, planes
 
 
@@ -1350,6 +1496,22 @@ def main() -> int:
           f"dynamic shared memory, {attrs[1]} registers, {attrs[2]} bytes "
           f"of local (spill) memory per thread, {attrs[3]} bytes of static "
           f"shared memory, at most {attrs[4]} threads a block", flush=True)
+    me_attrs = (ctypes.c_int * 14)()
+    rc = kernels.load().hl_me_attributes(me_attrs)
+    if rc != 0:
+        raise SystemExit(f"ME kernel attributes: CUDA error {rc} "
+                         f"({kernels.error_string(rc)})")
+    for what, a in (("full search", me_attrs[:7]),
+                    ("refinement", me_attrs[7:])):
+        print(f"ME kernel {what}: {a[0]} registers, {a[1]} bytes of local "
+              f"(spill) memory per thread, {a[2]} bytes of static and "
+              f"{a[3]} of dynamic shared memory, blocks of {a[4]} threads, "
+              f"a grid of {a[5]} x {a[6]} blocks at 1080p", flush=True)
+    simd = sass_simd(lib, "k_full_search")
+    print(f"full search kernel SASS: {simd}", flush=True)
+    if simd is not None and not any(simd.values()):
+        raise SystemExit("the full search kernel's SASS has no byte-SIMD "
+                         "instruction (VABSDIFF4 or IDP.4A)")
     max_err, ms, plain_ms, bound_ms, bound_by = kernel_phase(torch, card)
     db_err, (db_ms, db_plain_ms, db_bound_ms, db_bound_by) = \
         deblock_phase(torch, card)
@@ -1422,10 +1584,10 @@ def main() -> int:
                "hartallo_tpu/encode/me.py:36 full_search_int (XLA, in "
                "p_device.p_frame_device)", fs_launches, svc_me[0],
                shard_me[0]),
-              ("refine_subpel_fast", "refine",
-               "hartallo_tpu/encode/me.py:124 refine_subpel (XLA, in "
-               "p_device.p_frame_device)", rf_launches, svc_me[1],
-               shard_me[1])))]}))
+              ("refine_subpel_rounds_fast", "refine",
+               "hartallo_tpu/encode/me.py:124 refine_subpel (XLA, two "
+               "rounds in p_device.p_frame_device)", rf_launches,
+               svc_me[1], shard_me[1])))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

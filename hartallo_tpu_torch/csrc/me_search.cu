@@ -1,5 +1,5 @@
 // The encoder's motion search for Hopper (sm_90a): the integer full search
-// and one 9-point sub-pel refinement round.
+// and the 9-point sub-pel refinement, one or two rounds in one launch.
 //
 // Replaces hartallo_tpu/encode/me.py:full_search_int and refine_subpel,
 // the XLA code inside p_device.p_frame_device (one full search and two
@@ -8,30 +8,63 @@
 // these kernels match bit for bit; the wrappers are
 // hartallo_tpu_torch/encode/me_fast.py.
 //
-// k_full_search, one block per MB.  Computes, for each candidate c of the
-// (2R+1)^2 offsets (dy = c / side - R, dx = c % side - R), the SADs s8[k]
-// of the MB's four 8x8 quadrants against the reference shifted by
-// (dy, dx); the cost of quadrant k is s8[k] + lam * (se(4 dx) + se(4 dy)),
-// and the 16x16, 16x8 and 8x16 costs are sums of those.  For each of the 9
-// partitions it keeps the first minimum in candidate order, as the twin's
-// chunked argmin with its "strictly better than the carry" does.  The
-// block holds the MB's source and the (16 + 2R)^2 reference window in
-// shared memory, strides the candidates over its 256 threads, keeps a
-// per-thread best for each partition as one 64-bit key (the cost's bits,
-// ordered, above the candidate index plus one) and reduces the keys with
-// warp shuffles and then across the warps.  Index 0 is the twin's carry
-// (cost 1e18, MV 0), which a candidate must beat strictly.
+// Samples.  Every plane that reaches these kernels holds samples 0..255:
+// the source is packed from uint8 (e_device.pack_src), the reference is a
+// clamped recon, and the edge and halo pads copy samples.  The full search
+// relies on it: it keeps the planes as bytes.  Nothing checks it on the
+// device (that needs a host sync).
 //
-// k_refine, one block per MB.  Computes, for each 4x4 block (raster in the
-// MB) and each of the 9 deltas in the twin's order, the quarter-pel
-// prediction from the half-pel stack [G, b, h, j] exactly as
+// k_full_search, one block per strip of `strip` neighbouring MBs of one MB
+// row, one warp per MB.  For each candidate c of the (2R+1)^2 offsets
+// (dy = c / side - R, dx = c % side - R) it computes the SADs s8[k] of the
+// MB's four 8x8 quadrants against the reference shifted by (dy, dx); the
+// cost of quadrant k is s8[k] + lam * (se(4 dx) + se(4 dy)), and the 16x16,
+// 16x8 and 8x16 costs are sums of those.  For each of the 9 partitions it
+// keeps the first minimum in candidate order, as the twin's chunked argmin
+// with its "strictly better than the carry" does.
+//   - The block loads the strip's (16 + 2R) x (16 strip + 2R) reference
+//     window once, as bytes, in four copies: copy s holds the window
+//     shifted left by s bytes, so that the four samples at any dx are one
+//     aligned 32-bit word (dx = 4q + s reads copy s at word q).
+//   - Each lane keeps its MB's 256 source samples in 64 registers and
+//     takes items (dx, a run of FS_G candidate rows dy): it streams the
+//     FS_G + 15 window rows once and adds each row's four words into the
+//     SADs of every candidate of the run that the row overlaps, four
+//     samples a __vsadu4.  So a window word is read from shared memory
+//     once for FS_G candidates, and no source sample is.
+//   - The items of an MB (side x ceil(side / FS_G): 125 at R = 12) are
+//     strided over the warp's lanes (4 passes of 32, 3 lanes idle in the
+//     last).  A lane keeps a best (cost, index) per partition, ties broken
+//     by the index, and the warp reduces them as one 64-bit key each (the
+//     cost's bits, ordered, above the candidate index plus one) with
+//     shuffles.  Index 0 is the twin's carry (cost 1e18, MV 0), which a
+//     candidate must beat strictly.
+//   - The strip is 8 MBs where that still gives every SM a block, else 4,
+//     2 or 1 (fs_strip: 8 at 720p and 1080p, 2 at CIF); the warps of a
+//     ragged last strip past the row's end only help load.
+//
+// k_refine, a warp per two MBs, a lane per 4x4 block, the nine deltas in
+// the lane's registers; blocks of RF_WARPS warps that share nothing but
+// the QPT table, so nothing waits on more than its warp.  Each round the
+// warp first stages its 32 blocks' windows into shared memory, a window a
+// pass, neighbouring lanes on neighbouring words: a window is the RS x RS
+// samples of each plane of the half-pel stack [G, b, h, j] that the
+// block's nine deltas' taps reach (RS 6 for steps up to 2).  Then a lane
+// computes each delta's quarter-pel prediction from its window exactly as
 // ops/wide.mc_luma_plane does (clamped block origin, two taps chosen by
-// the quarter-pel case, (A + B + 1) >> 1, identity weighting) and its
-// SATD (sum |H d H| >> 1) or SAD; then per partition of part_of_blk and
-// delta the integer distortion sum and the mean MV bits, the cost
-// lam * pbits + psad rounded once, the first minimum over the deltas,
-// and every block's MV moved by its partition's delta.  Threads
-// 0..143 take one (block, delta) pair each.
+// the quarter-pel case, (A + B + 1) >> 1, identity weighting), the SATD
+// (sum |H d H| >> 1, the last butterfly stage folded into a maximum) or
+// SAD in registers and the MV's bits, and adds them into its partition's
+// exact integer sums for the delta in shared memory (distortion and bits
+// packed in one word, integer atomics: the order does not change a sum).
+// Lane n of an MB then takes partition n: the mean bits, the cost
+// lam * pbits + psad rounded once for each delta, and the first minimum
+// in me._DELTAS order; every lane moves its block's MV by its
+// partition's delta.  With two steps the MVs stay in the lanes' registers
+// and the second round (the quarter-pel one on p_device's path) runs on
+// the MVs the first just chose: the twin's chain refine_subpel(step 2) ->
+// refine_subpel(step 1).  It writes the final MVs and the last round's
+// costs.
 //
 // Rounding.  The costs are the only floating-point values.  nvcc contracts
 // a*b + c into an FMA by default, so each is spelt out in the twin's order:
@@ -41,24 +74,29 @@
 // on the CPU).  Integers: flooring >> and & on negative MVs, no / or % of
 // a negative value.
 //
-// What bounds them on the H100.  The full search: operations, 3 per
-// candidate sample (difference, absolute value, sum), (2R+1)^2 H W 3 in
-// all: 58.5 us a 1080p picture (1,088 coded rows) at R = 12 and 67 T/s.
-// What the kernel takes is two int32 shared-memory loads a candidate
-// sample (about 7.5x the bound at 1080p).  The refinement round: bytes,
-// the source and the four half-pel planes over the picture read, the MVs
+// What bounds them on the H100.  The full search: operations, (2R+1)^2 H W
+// candidate samples at four a byte-SIMD lane-instruction, 64 int32 lanes a
+// clock on each of the 132 SMs: 19.5 us a 1080p picture (1,088 coded rows)
+// at R = 12 and 1.98 GHz.  The kernel issues about two integer
+// instructions (VABSDIFF4, add) per four samples, plus about 60 a
+// candidate for the costs and keys.  The refinement launch: bytes, the
+// source and the four half-pel planes over the picture read once, the MVs
 // and the partition map read, the MVs and costs written (13.3 us a 1080p
-// round at 3.35 TB/s); it reads 9 x 2 taps a sample through L1.  At CIF
-// and 720p a launch costs more on the host than on the card.
+// launch at 3.35 TB/s).  Measured, it issues instructions: the nine
+// deltas' predictions and transforms are most of the work, and the
+// staged windows keep the per-pair overhead and the global loads down.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int PAD = 32;
-constexpr int FS_THREADS = 256;
-constexpr int FS_WARPS = FS_THREADS / 32;
-constexpr int RF_THREADS = 160;       // 144 (block, delta) pairs
+constexpr int FS_STRIP_MAX = 8;       // MBs a full-search block, a warp each
+constexpr int FS_G = 5;               // candidate rows an item runs over
+constexpr int H100_SMS = 132;
+constexpr int RF_WARPS = 2;           // warps a refinement block, 2 MBs each
+constexpr int RF_THREADS = RF_WARPS * 32;
+constexpr int RF_MAX_STEP = 8;        // the widest step the windows cover
 constexpr float BIG = 1e18f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -71,9 +109,14 @@ __constant__ int QPT[16 * 6] = {
     2, 0, 0, 3, 0, 0,  3, 0, 0, 3, 0, 0,  3, 0, 0, 2, 1, 0,
     2, 0, 0, 0, 0, 1,  2, 0, 0, 1, 0, 1,  3, 0, 0, 1, 0, 1,
     2, 1, 0, 1, 0, 1};
-// the refinement deltas in the twin's order (me._DELTAS)
-__constant__ int DDX[9] = {0, -1, 1, 0, 0, -1, 1, -1, 1};
-__constant__ int DDY[9] = {0, 0, 0, -1, 1, -1, -1, 1, 1};
+// the refinement deltas in the twin's order (me._DELTAS): (0, 0), (-1, 0),
+// (1, 0), (0, -1), (0, 1), (-1, -1), (1, -1), (-1, 1), (1, 1)
+__host__ __device__ constexpr int delta_x(int d) {
+  return d == 0 ? 0 : d == 1 ? -1 : d == 2 ? 1 : d < 5 ? 0 : (d & 1) ? -1 : 1;
+}
+__host__ __device__ constexpr int delta_y(int d) {
+  return d < 3 ? 0 : d == 3 ? -1 : d == 4 ? 1 : d < 7 ? -1 : 1;
+}
 
 // Exp-Golomb signed code length of v: 2 floor(log2(2|v| + 1)) + 1
 __device__ __forceinline__ int se_bits(int v) {
@@ -118,108 +161,193 @@ struct FsArgs {
   float* c88;           // (gh, gw, 4)
   int32_t* v88;         // (gh, gw, 4, 2)
   int src_stride, ref_stride, gw, gh, rng;
+  int strip;            // MBs a block
+  int side, groups;     // 2R + 1 candidates a side; ceil(side / FS_G)
+  int ww, copy;         // words a window row; words a window copy
 };
 
-// dynamic shared memory of k_full_search at range rng, bytes
-inline int fs_smem_bytes(int rng) {
-  const int ws = 16 + 2 * rng;
-  return ((256 + ws * ws + 1) / 2) * 8 + 9 * FS_WARPS * 8;
+// the widest strip (8, 4, 2 MBs) that still gives each SM a block, else 1
+inline int fs_strip(int gw, int gh) {
+  for (int k = FS_STRIP_MAX; k > 1; k >>= 1)
+    if (gh * ((gw + k - 1) / k) >= H100_SMS) return k;
+  return 1;
 }
 
-__global__ void __launch_bounds__(FS_THREADS) k_full_search(FsArgs a) {
-  extern __shared__ int smem[];
-  const int rng = a.rng, ws = 16 + 2 * rng, side = 2 * rng + 1;
-  const int n_cand = side * side;
-  const int mx = blockIdx.x, my = blockIdx.y, t = threadIdx.x;
-  int* s_src = smem;                                   // 16 x 16
-  int* s_win = smem + 256;                             // ws x ws
-  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(
-      smem + ((256 + ws * ws + 1) / 2) * 2);           // [9][FS_WARPS]
-  for (int i = t; i < 256; i += blockDim.x)
-    s_src[i] = a.src[(long long)(PAD + my * 16 + (i >> 4)) * a.src_stride +
-                     PAD + mx * 16 + (i & 15)];
-  const int y0 = PAD + my * 16 - rng, x0 = PAD + mx * 16 - rng;
-  for (int i = t; i < ws * ws; i += blockDim.x)
-    s_win[i] = a.ref[(long long)(y0 + i / ws) * a.ref_stride + x0 + i % ws];
-  const float lam = *a.lam;
-  __syncthreads();
+inline FsArgs fs_args(const int32_t* src, const int32_t* ref,
+                      const float* lam, float* c16, int32_t* v16,
+                      float* c168, int32_t* v168, float* c816,
+                      int32_t* v816, float* c88, int32_t* v88,
+                      int src_stride, int ref_stride, int gw, int gh,
+                      int rng, int strip) {
+  const int side = 2 * rng + 1, groups = (side + FS_G - 1) / FS_G;
+  // the last word of a row is never read (it only feeds the shifts)
+  const int ww = (16 * strip + 2 * rng + 3) / 4 + 1;
+  // a copy's size is 8 words past a multiple of 32, so that the four
+  // copies of one word sit in four banks 8 apart
+  const int words = (groups * FS_G + 15) * ww;
+  const int copy = words + (40 - words % 32) % 32;
+  return FsArgs{src, ref, lam, c16, v16, c168, v168, c816, v816, c88, v88,
+                src_stride, ref_stride, gw, gh, rng, strip, side, groups,
+                ww, copy};
+}
 
-  unsigned long long best[9];
-  const unsigned long long carry = cost_key(BIG, 0);
+// dynamic shared memory of k_full_search, bytes: the four window copies
+// and the strip's source, packed
+inline int fs_smem_bytes(const FsArgs& a) {
+  return 4 * (4 * a.copy + 64 * a.strip);
+}
+
+// sum of |a_i - b_i| over the four bytes, added to acc
+__device__ __forceinline__ unsigned sad4(unsigned a, unsigned b,
+                                         unsigned acc) {
+  return __vsadu4(a, b) + acc;
+}
+
+__global__ void __launch_bounds__(FS_STRIP_MAX * 32) k_full_search(
+    FsArgs a) {
+  extern __shared__ int smem[];
+  unsigned* win = reinterpret_cast<unsigned*>(smem);       // [4][copy]
+  unsigned* s_src = win + 4 * a.copy;                      // [strip][16][4]
+  const int rng = a.rng, ww = a.ww, side = a.side;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int m0 = blockIdx.x * a.strip, my = blockIdx.y;
+  const int live = min(a.strip, a.gw - m0);                // MBs in the strip
+  const int rows = a.groups * FS_G + 15;
+  const int wrows = 16 + 2 * rng, wcols = 16 * live + 2 * rng;
+  const int32_t* ref = a.ref + (long long)(PAD + my * 16 - rng) *
+                       a.ref_stride + PAD + m0 * 16 - rng;
+  // copy 0: the window as bytes (rows past the window, for the masked
+  // candidates of a last run, and columns past it are 0)
+  for (int r = warp; r < rows; r += nwarps) {
+    const int32_t* p = ref + (long long)r * a.ref_stride;
+    for (int w = lane; w < ww; w += 32) {
+      unsigned word = 0;
+      if (r < wrows) {
 #pragma unroll
-  for (int p = 0; p < 9; ++p) best[p] = carry;
-  for (int c = t; c < n_cand; c += blockDim.x) {
-    const int oy = c / side, ox = c % side;            // dy + R, dx + R
-    const int* w = s_win + oy * ws + ox;
-    int s8[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int* sq = s_src + (k >> 1) * 128 + (k & 1) * 8;
-      const int* wq = w + (k >> 1) * 8 * ws + (k & 1) * 8;
-      int s = 0;
-      for (int y = 0; y < 8; ++y) {
-#pragma unroll
-        for (int x = 0; x < 8; ++x) {
-          const int d = sq[y * 16 + x] - wq[y * ws + x];
-          s += d < 0 ? -d : d;
-        }
+        for (int b = 0; b < 4; ++b)
+          if (4 * w + b < wcols) word |= (unsigned)p[4 * w + b] << (8 * b);
       }
-      s8[k] = s;
-    }
-    const float pen = __fmul_rn(
-        lam, (float)(se_bits(4 * (ox - rng)) + se_bits(4 * (oy - rng))));
-    float q[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = __fadd_rn((float)s8[k], pen);
-    float cost[9];
-    cost[0] = __fadd_rn(__fadd_rn(__fadd_rn(q[0], q[1]), q[2]), q[3]);
-    cost[1] = __fadd_rn(q[0], q[1]);
-    cost[2] = __fadd_rn(q[2], q[3]);
-    cost[3] = __fadd_rn(q[0], q[2]);
-    cost[4] = __fadd_rn(q[1], q[3]);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) cost[5 + k] = q[k];
-#pragma unroll
-    for (int p = 0; p < 9; ++p) {
-      const unsigned long long key = cost_key(cost[p], (unsigned)c + 1u);
-      best[p] = key < best[p] ? key : best[p];
+      win[r * ww + w] = word;
     }
   }
-  const int lane = t & 31, warp = t >> 5;
+  for (int i = t; i < live * 64; i += blockDim.x) {
+    const int m = i >> 6, y = (i >> 2) & 15, w = i & 3;
+    const int32_t* p = a.src + (long long)(PAD + my * 16 + y) *
+                       a.src_stride + PAD + (m0 + m) * 16 + 4 * w;
+    s_src[i] = (unsigned)p[0] | (unsigned)p[1] << 8 |
+               (unsigned)p[2] << 16 | (unsigned)p[3] << 24;
+  }
+  __syncthreads();
+  // copies 1..3: the window shifted left by 1..3 bytes
+  for (int r = warp; r < rows; r += nwarps) {
+    const unsigned* c0 = win + r * ww;
+    for (int w = lane; w < ww; w += 32) {
+      const unsigned lo = c0[w], hi = w + 1 < ww ? c0[w + 1] : 0u;
+#pragma unroll
+      for (int s = 1; s < 4; ++s)
+        win[s * a.copy + r * ww + w] = __funnelshift_r(lo, hi, 8 * s);
+    }
+  }
+  __syncthreads();
+  const int m = warp;
+  if (m >= live) return;                 // past the row's end: loads only
+
+  unsigned S[16][4];
+#pragma unroll
+  for (int y = 0; y < 16; ++y)
+#pragma unroll
+    for (int w = 0; w < 4; ++w) S[y][w] = s_src[(m * 16 + y) * 4 + w];
+  const float lam = *a.lam;
+  float bc[9];
+  unsigned bi[9];
 #pragma unroll
   for (int p = 0; p < 9; ++p) {
-    const unsigned long long k = warp_min(best[p]);
-    if (lane == 0) s_key[p * FS_WARPS + warp] = k;
+    bc[p] = BIG;
+    bi[p] = 0;
   }
-  __syncthreads();
-  if (t < 9) {
-    unsigned long long k = s_key[t * FS_WARPS];
-    for (int w = 1; w < FS_WARPS; ++w) {
-      const unsigned long long o = s_key[t * FS_WARPS + w];
-      k = o < k ? o : k;
+  const int items = side * a.groups;
+  for (int i = lane; i < items; i += 32) {
+    const int g = i / side, ox = i - g * side, oy0 = g * FS_G;
+    const unsigned* wp = win + (ox & 3) * a.copy + oy0 * ww + 4 * m +
+                         (ox >> 2);
+    unsigned acc[FS_G][4];
+#pragma unroll
+    for (int j = 0; j < FS_G; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[j][k] = 0;
+#pragma unroll
+    for (int r = 0; r < FS_G + 15; ++r) {
+      const unsigned w0 = wp[r * ww], w1 = wp[r * ww + 1],
+                     w2 = wp[r * ww + 2], w3 = wp[r * ww + 3];
+#pragma unroll
+      for (int j = 0; j < FS_G; ++j) {
+        const int y = r - j;             // the source row candidate j reads
+        if (y >= 0 && y < 16) {
+          const int h = (y >> 3) * 2;    // quadrants 0 1 above, 2 3 below
+          acc[j][h] = sad4(w1, S[y][1], sad4(w0, S[y][0], acc[j][h]));
+          acc[j][h + 1] = sad4(w3, S[y][3], sad4(w2, S[y][2],
+                                                 acc[j][h + 1]));
+        }
+      }
     }
-    const unsigned idx = (unsigned)k;
+    const int bx = se_bits(4 * (ox - rng));
+#pragma unroll
+    for (int j = 0; j < FS_G; ++j) {
+      const int oy = oy0 + j;
+      if (oy >= side) break;
+      const float pen = __fmul_rn(
+          lam, (float)(bx + se_bits(4 * (oy - rng))));
+      float q[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) q[k] = __fadd_rn((float)acc[j][k], pen);
+      float cost[9];
+      cost[0] = __fadd_rn(__fadd_rn(__fadd_rn(q[0], q[1]), q[2]), q[3]);
+      cost[1] = __fadd_rn(q[0], q[1]);
+      cost[2] = __fadd_rn(q[2], q[3]);
+      cost[3] = __fadd_rn(q[0], q[2]);
+      cost[4] = __fadd_rn(q[1], q[3]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cost[5 + k] = q[k];
+      const unsigned idx = (unsigned)(oy * side + ox) + 1u;
+#pragma unroll
+      for (int p = 0; p < 9; ++p) {
+        if (cost[p] < bc[p] || (cost[p] == bc[p] && idx < bi[p])) {
+          bc[p] = cost[p];
+          bi[p] = idx;
+        }
+      }
+    }
+  }
+  unsigned long long mine = 0;
+#pragma unroll
+  for (int p = 0; p < 9; ++p) {
+    const unsigned long long k = warp_min(cost_key(bc[p], bi[p]));
+    if (lane == p) mine = k;
+  }
+  if (lane < 9) {
+    const unsigned idx = (unsigned)mine;
     int dx = 0, dy = 0;
     if (idx != 0) {
       dx = (int)(idx - 1) % side - rng;
       dy = (int)(idx - 1) / side - rng;
     }
-    const float cost = key_cost(k);
-    const int mb = my * a.gw + mx;
+    const float cost = key_cost(mine);
+    const int mb = my * a.gw + m0 + m;
     float* cp;
     int32_t* vp;
-    if (t == 0) {
+    if (lane == 0) {
       cp = a.c16 + mb;
       vp = a.v16 + mb * 2;
-    } else if (t < 3) {
-      cp = a.c168 + mb * 2 + (t - 1);
-      vp = a.v168 + (mb * 2 + (t - 1)) * 2;
-    } else if (t < 5) {
-      cp = a.c816 + mb * 2 + (t - 3);
-      vp = a.v816 + (mb * 2 + (t - 3)) * 2;
+    } else if (lane < 3) {
+      cp = a.c168 + mb * 2 + (lane - 1);
+      vp = a.v168 + (mb * 2 + (lane - 1)) * 2;
+    } else if (lane < 5) {
+      cp = a.c816 + mb * 2 + (lane - 3);
+      vp = a.v816 + (mb * 2 + (lane - 3)) * 2;
     } else {
-      cp = a.c88 + mb * 4 + (t - 5);
-      vp = a.v88 + (mb * 4 + (t - 5)) * 2;
+      cp = a.c88 + mb * 4 + (lane - 5);
+      vp = a.v88 + (mb * 4 + (lane - 5)) * 2;
     }
     *cp = cost;
     vp[0] = dx;
@@ -234,26 +362,58 @@ struct RfArgs {
   const int32_t* part;  // (gh, gw, 16) partition of each 4x4 block
   const float* lam;     // lambda_motion, one f32 on the device
   int32_t* mv_out;      // (gh, gw, 16, 2)
-  float* cost_out;      // (gh, gw, nparts)
-  int src_stride, hp_h, hp_w, gw, gh, nparts, step, use_satd;
+  float* cost_out;      // (gh, gw, nparts), the last round's
+  int src_stride, hp_h, hp_w, gw, gh, nparts;
+  int nsteps, step0, step1, use_satd;
 };
 
-// shared memory of k_refine, int32 words
-constexpr int R_SRC = 0;                // 16 x 16 source
-constexpr int R_DIST = R_SRC + 256;     // [9][16] distortion per delta, block
-constexpr int R_BITS = R_DIST + 144;    // [9][16] MV bits
-constexpr int R_MV = R_BITS + 144;      // [16][2]
-constexpr int R_PART = R_MV + 32;       // [16]
-constexpr int R_COST = R_PART + 16;     // [16][9] f32 costs
-constexpr int R_BEST = R_COST + 144;    // [16] chosen delta per partition
-constexpr int R_WORDS = R_BEST + 16;
+// A 4x4 block's window: the RS x RS samples of each of the four planes
+// that the two taps of its nine deltas reach in a round.  The block
+// origins of the deltas span ((2|step| + 3) >> 2) + 1 positions (the
+// clamp only narrows them), and the taps reach 4 + 1 past an origin: RS 6
+// covers |step| <= 2, RS 9 any |step| <= RF_MAX_STEP.  Windows are 16-bit
+// (the samples are 0..255); a warp's 32 windows lie WS apart, WS = 2 mod
+// 4, so that they start in 32 different banks.  (Staging the union of an
+// MB's windows instead, a plane's row a warp load, serialised its rows'
+// loads: slower at every size on the H100.)
+template <int RS>
+struct RfWin {
+  static constexpr int WORDS = 4 * RS * RS;
+  static constexpr int WS = WORDS + (6 - WORDS % 4) % 4;
+};
 
-// the distortion of one 4x4 block: SATD (sum |H d H| >> 1) or SAD
+inline int rf_side(int step0, int step1, int nsteps) {
+  const int s0 = step0 < 0 ? -step0 : step0;
+  const int s1 = nsteps > 1 ? (step1 < 0 ? -step1 : step1) : 0;
+  const int widest = s0 > s1 ? s0 : s1;
+  return widest <= 2 ? 6 : widest <= RF_MAX_STEP ? 9 : 0;
+}
+
+// shared memory of k_refine: the packed QPT table, then per warp its two
+// MBs' partition sums [2][9][16] and chosen deltas [2][16], int32 words,
+// then the warps' windows
+constexpr int R_QPT = 0;
+constexpr int R_WARP = 16;
+constexpr int R_WARP_WORDS = 2 * 9 * 16 + 2 * 16;
+
+inline int rf_smem_bytes(int rs) {
+  const int ws = rs == 6 ? RfWin<6>::WS : RfWin<9>::WS;
+  return 4 * (R_WARP + RF_WARPS * R_WARP_WORDS) + 2 * RF_WARPS * 32 * ws;
+}
+
+// Partition sums pack a block's distortion above its MV bits: 16 blocks'
+// SATDs (each < 2^15 for samples 0..255) stay below 2^19, and their bits
+// (each < 2 x 62 for |MV| < 2^30) below 2^11.
+constexpr int BITS_SHIFT = 11;
+
+// SATD (sum |H d H| >> 1) of a 4x4 difference block, or its SAD.  The
+// last butterfly stage is folded: |a + b| + |a - b| = 2 max(|a|, |b|), so
+// the halved sum is the sum of the maxima, exactly.
 __device__ __forceinline__ int block_distortion(const int* d, int use_satd) {
+  int s = 0;
   if (!use_satd) {
-    int s = 0;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) s += d[i] < 0 ? -d[i] : d[i];
+    for (int i = 0; i < 16; ++i) s += abs(d[i]);
     return s;
   }
   int m[16];
@@ -265,98 +425,149 @@ __device__ __forceinline__ int block_distortion(const int* d, int use_satd) {
     m[8 + c] = a0 - a1 - a2 + a3;
     m[12 + c] = a0 - a1 + a2 - a3;
   }
-  int s = 0;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int a0 = m[4 * r], a1 = m[4 * r + 1], a2 = m[4 * r + 2],
               a3 = m[4 * r + 3];
-    const int v[4] = {a0 + a1 + a2 + a3, a0 + a1 - a2 - a3,
-                      a0 - a1 - a2 + a3, a0 - a1 + a2 - a3};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s += v[i] < 0 ? -v[i] : v[i];
+    const int p0 = a0 + a1, p1 = a0 - a1, q0 = a2 + a3, q1 = a2 - a3;
+    s += max(abs(p0), abs(q0)) + max(abs(p1), abs(q1));
   }
-  return s >> 1;
+  return s;
 }
 
+template <int RS>
 __global__ void __launch_bounds__(RF_THREADS) k_refine(RfArgs a) {
+  constexpr int RS2 = RS * RS, WIN = RfWin<RS>::WORDS, WS = RfWin<RS>::WS;
+  constexpr int ITEMS = (WIN + 31) / 32;   // words a lane stages a window
   extern __shared__ int smem[];
-  const int mx = blockIdx.x, my = blockIdx.y, t = threadIdx.x;
-  const int mb = my * a.gw + mx;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int h = lane >> 4, b = lane & 15;  // the lane's MB and 4x4 block
+  const int* s_qpt = smem + R_QPT;
+  unsigned* s_sum = reinterpret_cast<unsigned*>(
+      smem + R_WARP + warp * R_WARP_WORDS) + h * 144;     // [9][16]
+  int* s_best = smem + R_WARP + warp * R_WARP_WORDS + 288 + h * 16;
+  int16_t* s_win = reinterpret_cast<int16_t*>(
+      smem + R_WARP + RF_WARPS * R_WARP_WORDS) + warp * 32 * WS;
+  const int nmb = a.gw * a.gh;
+  const int slot = (blockIdx.x * RF_WARPS + warp) * 2 + h;
+  // a spare slot (an odd MB count) recomputes the last MB, writes nothing
+  const bool live = slot < nmb;
+  const int mb = live ? slot : nmb - 1;
+  const int my = mb / a.gw, mx = mb - my * a.gw;
   const int H = a.gh * 16, W = a.gw * 16;
-  float* s_cost = reinterpret_cast<float*>(smem + R_COST);
-  for (int i = t; i < 256; i += blockDim.x)
-    smem[R_SRC + i] = a.src[(long long)(PAD + my * 16 + (i >> 4)) *
-                                a.src_stride + PAD + mx * 16 + (i & 15)];
+  const int bx = mx * 16 + (b & 3) * 4, by = my * 16 + (b >> 2) * 4;
   if (t < 16) {
-    smem[R_MV + 2 * t] = a.mv[(mb * 16 + t) * 2];
-    smem[R_MV + 2 * t + 1] = a.mv[(mb * 16 + t) * 2 + 1];
-    smem[R_PART + t] = a.part[mb * 16 + t];
+    // a tap as plane | dx << 2 | dy << 3, the case's two taps a word
+    const int* q = QPT + 6 * t;
+    smem[R_QPT + t] = (q[0] | q[1] << 2 | q[2] << 3) |
+                      (q[3] | q[4] << 2 | q[5] << 3) << 8;
   }
+  int mvx = a.mv[(mb * 16 + b) * 2], mvy = a.mv[(mb * 16 + b) * 2 + 1];
+  const int n_mine = a.part[mb * 16 + b];
+  int src[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    src[i] = a.src[(long long)(PAD + by + (i >> 2)) * a.src_stride + PAD +
+                   bx + (i & 3)];
   const float lam = *a.lam;
-  __syncthreads();
-
-  if (t < 144) {
-    const int b = t & 15, dl = t >> 4;
-    const int mvx = smem[R_MV + 2 * b] + DDX[dl] * a.step;
-    const int mvy = smem[R_MV + 2 * b + 1] + DDY[dl] * a.step;
-    const int bx = mx * 16 + (b & 3) * 4, by = my * 16 + (b >> 2) * 4;
-    const int xi = min(max(bx + (mvx >> 2), -(PAD - 2)), W + PAD - 7);
-    const int yi = min(max(by + (mvy >> 2), -(PAD - 2)), H + PAD - 7);
-    const int* cs = QPT + (4 * (mvy & 3) + (mvx & 3)) * 6;
-    const long long plane = (long long)a.hp_h * a.hp_w;
-    const int32_t* A = a.hp + cs[0] * plane +
-                       (long long)(yi + cs[2] + PAD) * a.hp_w + xi + cs[1] +
-                       PAD;
-    const int32_t* B = a.hp + cs[3] * plane +
-                       (long long)(yi + cs[5] + PAD) * a.hp_w + xi + cs[4] +
-                       PAD;
-    const int* s = smem + R_SRC + (b >> 2) * 64 + (b & 3) * 4;
-    int d[16];
+  int count = 0;                         // blocks in partition b of the MB
+  for (int n = 0; n < a.nparts; ++n) {
+    const unsigned m = __ballot_sync(FULL, n_mine == n) >> (16 * h);
+    if (b == n) count = __popc(m & 0xffffu);
+  }
+  // the plane offsets of the window words this lane stages: word
+  // lane + 32 q of a window is plane w / RS2, row and column of w % RS2
+  const int plane = a.hp_h * a.hp_w;
+  int goff[ITEMS];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+  for (int q = 0; q < ITEMS; ++q) {
+    const int w = min(lane + 32 * q, WIN - 1), pl = w / RS2, rc = w % RS2;
+    goff[q] = pl * plane + (rc / RS) * a.hp_w + rc % RS;
+  }
+  __syncthreads();                       // the QPT table
+  for (int round = 0; round < a.nsteps; ++round) {
+    const int step = round == 0 ? a.step0 : a.step1;
+    const int low = step < 0 ? step : -step;
+    // the window's origin in the padded planes: the block origin of the
+    // lowest delta, pulled inside the planes where the clamp put the
+    // block at their far edge
+    const int y0 = min(min(max(by + ((mvy + low) >> 2), -(PAD - 2)),
+                           H + PAD - 7) + PAD, a.hp_h - RS);
+    const int x0 = min(min(max(bx + ((mvx + low) >> 2), -(PAD - 2)),
+                           W + PAD - 7) + PAD, a.hp_w - RS);
+    const int org = y0 * a.hp_w + x0;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int p = (A[r * a.hp_w + c] + B[r * a.hp_w + c] + 1) >> 1;
-        d[4 * r + c] = min(max(p, 0), 255) - s[r * 16 + c];
-      }
+    for (int d = 0; d < 9; ++d) s_sum[d * 16 + b] = 0;
+    // the warp stages its 32 windows, one window a pass, four passes'
+    // loads in flight
+#pragma unroll 4
+    for (int k = 0; k < 32; ++k) {
+      const int ok = __shfl_sync(FULL, org, k);
+#pragma unroll
+      for (int q = 0; q < ITEMS; ++q)
+        if (lane + 32 * q < WIN)
+          s_win[k * WS + lane + 32 * q] = (int16_t)a.hp[ok + goff[q]];
     }
-    smem[R_DIST + dl * 16 + b] = block_distortion(d, a.use_satd);
-    smem[R_BITS + dl * 16 + b] = se_bits(mvx) + se_bits(mvy);
-  }
-  __syncthreads();
-  if (t < a.nparts * 9) {
-    const int n = t / 9, dl = t % 9;
-    int psad = 0, bits = 0, count = 0;
-    for (int b = 0; b < 16; ++b) {
-      if (smem[R_PART + b] == n) {
-        psad += smem[R_DIST + dl * 16 + b];
-        bits += smem[R_BITS + dl * 16 + b];
-        ++count;
+    __syncwarp();
+    const int16_t* win = s_win + lane * WS;
+#pragma unroll
+    for (int d = 0; d < 9; ++d) {
+      const int vx = mvx + delta_x(d) * step, vy = mvy + delta_y(d) * step;
+      const int xi = min(max(bx + (vx >> 2), -(PAD - 2)), W + PAD - 7) +
+                     PAD - x0;
+      const int yi = min(max(by + (vy >> 2), -(PAD - 2)), H + PAD - 7) +
+                     PAD - y0;
+      const int taps = s_qpt[4 * (vy & 3) + (vx & 3)];
+      const int16_t* A = win + (taps & 3) * RS2 +
+                         (yi + ((taps >> 3) & 1)) * RS + xi +
+                         ((taps >> 2) & 1);
+      const int16_t* B = win + ((taps >> 8) & 3) * RS2 +
+                         (yi + ((taps >> 11) & 1)) * RS + xi +
+                         ((taps >> 10) & 1);
+      int dd[16];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // the taps are 0..255, so their rounded mean needs no clamp
+          dd[4 * r + c] = ((A[r * RS + c] + B[r * RS + c] + 1) >> 1) -
+                          src[4 * r + c];
+        }
       }
+      const unsigned packed =
+          (unsigned)block_distortion(dd, a.use_satd) << BITS_SHIFT |
+          (unsigned)(se_bits(vx) + se_bits(vy));
+      if (n_mine >= 0 && n_mine < 16) atomicAdd(&s_sum[d * 16 + n_mine],
+                                                packed);
     }
-    const float pbits = __fdiv_rn((float)bits, fmaxf((float)count, 1.f));
-    s_cost[n * 9 + dl] = __fmaf_rn(lam, pbits, (float)psad);
-  }
-  __syncthreads();
-  if (t < a.nparts) {
-    int bd = 0;
-    float bc = s_cost[t * 9];
-    for (int dl = 1; dl < 9; ++dl) {
-      if (s_cost[t * 9 + dl] < bc) {
-        bc = s_cost[t * 9 + dl];
-        bd = dl;
+    __syncwarp();
+    if (b < a.nparts) {
+      // partition b: its cost at each delta, the first minimum
+      const float n = fmaxf((float)count, 1.f);
+      float best = 0.f;
+      int bd = 0;
+      for (int d = 0; d < 9; ++d) {
+        const unsigned sums = s_sum[d * 16 + b];
+        const float cost = __fmaf_rn(
+            lam, __fdiv_rn((float)(sums & ((1u << BITS_SHIFT) - 1)), n),
+            (float)(sums >> BITS_SHIFT));
+        if (d == 0 || cost < best) {
+          best = cost;
+          bd = d;
+        }
       }
+      s_best[b] = bd;
+      if (round == a.nsteps - 1 && live) a.cost_out[mb * a.nparts + b] = best;
     }
-    a.cost_out[mb * a.nparts + t] = bc;
-    smem[R_BEST + t] = bd;
+    __syncwarp();
+    const int bd = n_mine >= 0 && n_mine < a.nparts ? s_best[n_mine] : 0;
+    mvx += delta_x(bd) * step;
+    mvy += delta_y(bd) * step;
+    __syncwarp();
   }
-  __syncthreads();
-  if (t < 16) {
-    const int n = smem[R_PART + t];
-    const int bd = (n >= 0 && n < a.nparts) ? smem[R_BEST + n] : 0;
-    a.mv_out[(mb * 16 + t) * 2] = smem[R_MV + 2 * t] + DDX[bd] * a.step;
-    a.mv_out[(mb * 16 + t) * 2 + 1] =
-        smem[R_MV + 2 * t + 1] + DDY[bd] * a.step;
+  if (live) {
+    a.mv_out[(mb * 16 + b) * 2] = mvx;
+    a.mv_out[(mb * 16 + b) * 2 + 1] = mvy;
   }
 }
 
@@ -364,16 +575,27 @@ __global__ void __launch_bounds__(RF_THREADS) k_refine(RfArgs a) {
 
 // Plain C entry points (loaded with ctypes).  Every pointer is device
 // memory that the caller allocated and checked (the shapes above, int32
-// and f32 contiguous); 0 <= rng <= PAD, 1 <= nparts <= 16.  Each returns 0
-// or the CUDA error code of the launch.
+// and f32, the maps contiguous, the planes with unit column stride);
+// every plane sample is in 0..255 (see the top); 0 <= rng <= PAD,
+// 1 <= nparts <= 16, 1 <= nsteps <= 2, |step| <= RF_MAX_STEP.  Each
+// returns 0 or the CUDA error code of the launch.
 extern "C" int hl_full_search_int(
     const int32_t* src, const int32_t* ref, const float* lam, float* c16,
     int32_t* v16, float* c168, int32_t* v168, float* c816, int32_t* v816,
     float* c88, int32_t* v88, int src_stride, int ref_stride, int gw,
     int gh, int rng, cudaStream_t stream) {
-  FsArgs a{src, ref, lam, c16, v16, c168, v168, c816, v816, c88, v88,
-           src_stride, ref_stride, gw, gh, rng};
-  k_full_search<<<dim3(gw, gh), FS_THREADS, fs_smem_bytes(rng), stream>>>(a);
+  const int strip = fs_strip(gw, gh);
+  const FsArgs a = fs_args(src, ref, lam, c16, v16, c168, v168, c816, v816,
+                           c88, v88, src_stride, ref_stride, gw, gh, rng,
+                           strip);
+  const int smem = fs_smem_bytes(a);
+  if (smem > 48 * 1024) {                // R > 20 at a strip of 8
+    const cudaError_t e = cudaFuncSetAttribute(
+        k_full_search, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  k_full_search<<<dim3((gw + strip - 1) / strip, gh), 32 * strip, smem,
+                  stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -382,9 +604,44 @@ extern "C" int hl_refine_subpel(const int32_t* src, const int32_t* hp,
                                 const float* lam, int32_t* mv_out,
                                 float* cost_out, int src_stride, int hp_h,
                                 int hp_w, int gw, int gh, int nparts,
-                                int step, int use_satd, cudaStream_t stream) {
-  RfArgs a{src, hp, mv, part, lam, mv_out, cost_out, src_stride, hp_h,
-           hp_w, gw, gh, nparts, step, use_satd};
-  k_refine<<<dim3(gw, gh), RF_THREADS, R_WORDS * 4, stream>>>(a);
+                                int nsteps, int step0, int step1,
+                                int use_satd, cudaStream_t stream) {
+  const int rs = rf_side(step0, step1, nsteps);
+  if (nsteps < 1 || nsteps > 2 || rs == 0) return (int)cudaErrorInvalidValue;
+  const RfArgs a{src, hp, mv, part, lam, mv_out, cost_out, src_stride,
+                 hp_h, hp_w, gw, gh, nparts, nsteps, step0, step1,
+                 use_satd};
+  const int blocks = (gw * gh + 2 * RF_WARPS - 1) / (2 * RF_WARPS);
+  if (rs == 6)
+    k_refine<6><<<blocks, RF_THREADS, rf_smem_bytes(6), stream>>>(a);
+  else
+    k_refine<9><<<blocks, RF_THREADS, rf_smem_bytes(9), stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Both kernels' attributes at 1080p (120 x 68 MBs, range 12, the
+// refinement's steps 2 and 1), seven ints each, the full search first:
+// registers, local (spill) bytes a thread, static shared bytes, dynamic
+// shared bytes, threads a block, grid x, y.
+extern "C" int hl_me_attributes(int* out) {
+  cudaFuncAttributes f;
+  cudaError_t err = cudaFuncGetAttributes(&f, k_full_search);
+  if (err != cudaSuccess) return (int)err;
+  const int strip = fs_strip(120, 68);
+  const FsArgs fa = fs_args(nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, 0, 0, 120, 68, 12, strip);
+  const int fs[7] = {f.numRegs, (int)f.localSizeBytes,
+                     (int)f.sharedSizeBytes, fs_smem_bytes(fa), 32 * strip,
+                     (120 + strip - 1) / strip, 68};
+  err = cudaFuncGetAttributes(&f, k_refine<6>);
+  if (err != cudaSuccess) return (int)err;
+  const int rf[7] = {f.numRegs, (int)f.localSizeBytes,
+                     (int)f.sharedSizeBytes, rf_smem_bytes(6), RF_THREADS,
+                     (120 * 68 + 2 * RF_WARPS - 1) / (2 * RF_WARPS), 1};
+  for (int i = 0; i < 7; ++i) {
+    out[i] = fs[i];
+    out[7 + i] = rf[i];
+  }
+  return 0;
 }

@@ -1,8 +1,8 @@
 """P-frame encode on the device (torch): full-search ME -> partition
 decision -> sub-pel refine -> MC -> residual transform/quant -> recon.
 The motion search takes the CUDA kernels of ``encode/me_fast`` (one full
-search and two refinement rounds a picture) on CUDA tensors, and their
-plain twins of ``encode/me`` on CPU tensors.
+search and one launch of both refinement rounds a picture) on CUDA
+tensors, and their plain twins of ``encode/me`` on CPU tensors.
 
 Port of ``hartallo_tpu/encode/p_device.py``, with the JVT-O079 single
 coefficient elimination (reference ``hl_codec_264_residual.c:881-897``,
@@ -23,8 +23,8 @@ from hartallo_tpu_torch.encode.intra_encode import (_blocks_of_mb,
                                                     chroma_recon,
                                                     chroma_residual, qpc_of)
 from hartallo_tpu_torch.encode.me import _PART_OF_BLK, sum4
-from hartallo_tpu_torch.encode.me_fast import (full_search_int_fast,
-                                               refine_subpel_fast)
+from hartallo_tpu_torch.encode.me_fast import (
+    full_search_int_fast, refine_subpel_rounds_fast)
 from hartallo_tpu_torch.ops.transform import (dequant_4x4, forward_dct_4x4,
                                               forward_quant_4x4,
                                               inverse_transform_4x4)
@@ -94,15 +94,15 @@ def p_frame_device(srcY, srcU, srcV, refY, refU, refV, qp, lam, *, gw: int,
                     torch.where(ch == 2, blk_of(b816v, "8x16"),
                                 blk_of(b88v, "8x8")))) * 4
     pmaps = torch.stack([torch.as_tensor(_PART_OF_BLK[k].reshape(16),
-                                         device=dev) for k in _PARTS])
+                                         dtype=torch.int32, device=dev)
+                         for k in _PARTS])
     part_of_blk = pmaps[choice]
 
     if refine:
-        hp = halfpel_planes(refY)           # shared by both rounds
-        mv_blk, _ = refine_subpel_fast(srcY, refY, mv_blk, part_of_blk,
-                                       lamf, 2, gw=gw, gh=gh, nparts=4, hp=hp)
-        mv_blk, _ = refine_subpel_fast(srcY, refY, mv_blk, part_of_blk,
-                                       lamf, 1, gw=gw, gh=gh, nparts=4, hp=hp)
+        # the half-pel round, then the quarter-pel round on its MVs
+        mv_blk, _ = refine_subpel_rounds_fast(
+            srcY, refY, mv_blk, part_of_blk, lamf, (2, 1), gw=gw, gh=gh,
+            nparts=4, hp=halfpel_planes(refY))
 
     mv44 = mv_blk.reshape(gh, gw, 4, 4, 2)
     zeros_ref = torch.zeros((gh, gw, 4), dtype=torch.int32, device=dev)

@@ -97,7 +97,9 @@ def load():
         lib.hl_full_search_int.restype = I
         lib.hl_full_search_int.argtypes = [P] * 11 + [I] * 5 + [P]
         lib.hl_refine_subpel.restype = I
-        lib.hl_refine_subpel.argtypes = [P] * 7 + [I] * 8 + [P]
+        lib.hl_refine_subpel.argtypes = [P] * 7 + [I] * 10 + [P]
+        lib.hl_me_attributes.restype = I
+        lib.hl_me_attributes.argtypes = [P]
         lib.hl_cuda_error_string.restype = ctypes.c_char_p
         lib.hl_cuda_error_string.argtypes = [I]
         _lib = lib

@@ -2,10 +2,13 @@
 // me_search.cu on the CPU, for tests/test_torch_intra_kernel_emulated.py
 // and tests/test_torch_me_kernel_emulated.py: one std::thread per CUDA
 // thread of a block, sleeping barriers for __syncthreads and __syncwarp, a
-// per-warp slot array for the warp shuffles, votes and reductions, and
-// float operations that round once each, as __fadd_rn, __fmul_rn,
-// __fdiv_rn and __fmaf_rn do.  Every lane of a warp must reach each
-// __syncwarp and warp collective, as the kernels' code does.
+// per-warp slot array for the warp shuffles, votes and reductions, float
+// operations that round once each, as __fadd_rn, __fmul_rn, __fdiv_rn and
+// __fmaf_rn do, and the byte-SIMD intrinsics (__vabsdiffu4, __vsadu4,
+// __dp4a, __byte_perm, __funnelshift_r) as integer code, and atomicAdd on
+// std::atomic_ref.  Every lane of
+// a warp must reach each __syncwarp and warp collective, as the kernels'
+// code does.
 //
 // Two launches: emu_launch_grid runs the blocks of a grid one after
 // another (me_search.cu, whose blocks share nothing); emu_launch_cooperative
@@ -38,6 +41,7 @@ using std::min;
 #define __device__
 #define __forceinline__ inline
 #define __global__
+#define __host__
 #define __launch_bounds__(...)
 #define __shared__
 
@@ -138,6 +142,60 @@ inline unsigned __reduce_add_sync(unsigned, unsigned v) {
 }
 
 inline int __ffs(int x) { return __builtin_ffs(x); }
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+
+// The byte-SIMD and byte-permute intrinsics, each its exact integer
+// definition (bytes numbered from the least significant).
+inline unsigned emu_byte(unsigned x, int i) { return (x >> (8 * i)) & 255u; }
+
+inline unsigned __vabsdiffu4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) {
+    const unsigned x = emu_byte(a, i), y = emu_byte(b, i);
+    r |= (x > y ? x - y : y - x) << (8 * i);
+  }
+  return r;
+}
+
+inline unsigned __vsadu4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) {
+    const unsigned x = emu_byte(a, i), y = emu_byte(b, i);
+    r += x > y ? x - y : y - x;
+  }
+  return r;
+}
+
+inline unsigned __dp4a(unsigned a, unsigned b, unsigned c) {
+  for (int i = 0; i < 4; ++i) c += emu_byte(a, i) * emu_byte(b, i);
+  return c;
+}
+
+inline int __dp4a(int a, int b, int c) {
+  for (int i = 0; i < 4; ++i)
+    c += (int)(int8_t)emu_byte((unsigned)a, i) *
+         (int)(int8_t)emu_byte((unsigned)b, i);
+  return c;
+}
+
+// byte i of the result is byte (s >> 4 i) & 7 of the eight bytes {y, x}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t xy = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (unsigned)((xy >> (8 * ((s >> (4 * i)) & 7))) & 255u) << (8 * i);
+  return r;
+}
+
+// the low 32 bits of {hi, lo} shifted right by shift & 31
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  return (unsigned)((((uint64_t)hi << 32) | lo) >> (shift & 31));
+}
 
 template <class T>
 inline T __ldcg(const T* p) {

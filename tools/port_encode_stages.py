@@ -9,12 +9,14 @@ wrapped, each ended by ``torch.cuda.synchronize`` and counted without the
 stages nested in it: host ``pack_src`` and uploads, the intra kernel
 (``intra_encode_frame_fast``: the IDR picture and every P picture with an
 intra MB), integer full search and sub-pel refinement (the motion search
-kernels, ``full_search_int_fast`` and ``refine_subpel_fast``, where
+kernels, ``full_search_int_fast`` and ``refine_subpel_rounds_fast``, where
 ``p_device`` calls them), the rest of the P and I bodies, the deblock
 kernel (parameter gather included), the fetch with MVD/skip derivation,
-and CAVLC packing, with the three kernels' launches; then one encode of the whole clip under ``torch.profiler`` for
-the device's busy share and its heaviest kernels (the profiler takes
-about a millisecond for each of the eager P bodies' small kernels).
+and CAVLC packing, with the three kernels' launches (one refinement
+launch a P picture runs both rounds); then one encode of the whole clip
+under ``torch.profiler`` for the device's busy share and its heaviest
+kernels (the profiler takes about a millisecond for each of the eager P
+bodies' small kernels).
 Prints two JSON objects per fixture, in ms per frame, with the card's
 name and power limit.  Needs a CUDA device.
 """
@@ -62,7 +64,7 @@ def stages(name: str) -> dict:
                (EN.Encoder, "_tensor", "upload"),
                (E, "intra_encode_frame_fast", "intra_kernel"),
                (PD, "full_search_int_fast", "full_search"),
-               (PD, "refine_subpel_fast", "subpel_refine"),
+               (PD, "refine_subpel_rounds_fast", "subpel_refine"),
                (E, "_p_frame_body", "p_body_rest"),
                (EN, "i_frame_fused", "i_body_rest"),
                (E, "deblock_frame_fast", "deblock_kernel"),

@@ -3,7 +3,7 @@ in one run.
 
     python tools/port_kernel_times.py dump PAYLOADS.npz
     python tools/port_kernel_times.py time PAYLOADS.npz [--tree DIR] [--plain]
-        [--intra-only]
+        [--intra-only | --me-only]
 
 ``dump`` parses the fixtures with this tree's decoder (nothing is
 decoded) and stores the GOP kernel's payloads: the 16 pictures of
@@ -26,10 +26,18 @@ limit:
   profiler's device time), where the tree has it, and its chain floor at
   each size: the gw + 2 gh - 2 MBs of the wavefront's critical path
   times the one-MB picture's kernel time (its launch included);
-- the motion search kernels (``full_search_int_fast`` and one
-  quarter-pel round of ``refine_subpel_fast``) on the ``bench.make_clip``
-  frame pair at CIF, 720p and 1080p (``chip_smoke.me_inputs``), µs per
-  call, where the tree has them;
+- the motion search kernels on the ``bench.make_clip`` frame pair at
+  CIF, 720p and 1080p (``chip_smoke.me_inputs``), where the tree has
+  them: the full search (``full_search_int_fast``) and a P picture's
+  refinement, the half-pel round and then the quarter-pel round on its
+  MVs (one ``refine_subpel_rounds_fast`` call, or on a tree without it
+  two ``refine_subpel_fast`` calls), on the MVs and partition map the
+  path derives from the search (``chip_smoke.me_path_maps``) and, as
+  ``refine_seeded``, on seeded MVs of every 4x4 block; each in µs per
+  picture with the
+  wrapper (CUDA events), alone (``chip_smoke.kernel_us``, every launch
+  of the call) and the wrapper's host time per call
+  (``chip_smoke.host_us``, no sync);
 - with ``--plain``, the plain twins once each (the CIF batch, the 720p
   IDR picture, every deblock grid, the intra encode at one MB, CIF and
   720p, the
@@ -37,8 +45,9 @@ limit:
 - each kernel's bound (``chip_smoke.gop_bound`` / ``deblock_bound`` /
   ``intra_bound`` / ``me_bound``).
 
-``--intra-only`` times the intra encode kernel alone (for turns of two
-trees on one card); the payloads are then not read.
+``--intra-only`` times the intra encode kernel alone and ``--me-only``
+the motion search kernels alone (for turns of two trees on one card);
+the payloads are then not read.
 """
 from __future__ import annotations
 
@@ -89,7 +98,7 @@ def _payloads(path: str):
 
 
 def time_kernels(path: str, tree: str, plain: bool,
-                 intra_only: bool = False) -> None:
+                 intra_only: bool = False, me_only: bool = False) -> None:
     sys.path.insert(0, str(REPO))
     import numpy as np
     import torch
@@ -97,9 +106,9 @@ def time_kernels(path: str, tree: str, plain: bool,
     # this tree's chip_smoke, then the package of the tree under test
     from chip_smoke import (SEED, DEBLOCK_GRIDS, INTRA_CASES, INTRA_TIMED,
                             ME_CASES, ME_TIMED, card_line, deblock_bound,
-                            deblock_inputs, event_ms, gop_bound,
+                            deblock_inputs, event_ms, gop_bound, host_us,
                             intra_bound, intra_inputs, kernel_us, me_bound,
-                            me_inputs)
+                            me_inputs, me_path_maps, sm_clock_hz)
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     from hartallo_tpu_torch import kernels
     from hartallo_tpu_torch.decode import d_gop_fast as F
@@ -117,10 +126,15 @@ def time_kernels(path: str, tree: str, plain: bool,
            "deblock_bound_us": {}, "intra_us": {}, "intra_plain_us": {},
            "intra_kernel_us": {}, "intra_bound_us": {},
            "intra_chain_floor_us": {},
-           "full_search_us": {},
-           "full_search_plain_us": {}, "full_search_bound_us": {},
-           "refine_us": {}, "refine_plain_us": {}, "refine_bound_us": {}}
-    for key, (pay, gw, gh, S) in ({} if intra_only else
+           "full_search_us": {}, "full_search_kernel_us": {},
+           "full_search_host_us": {}, "full_search_plain_us": {},
+           "full_search_bound_us": {}, "refine_us": {},
+           "refine_kernel_us": {}, "refine_host_us": {},
+           "refine_plain_us": {}, "refine_bound_us": {},
+           "refine_seeded_us": {}, "refine_seeded_kernel_us": {},
+           "refine_seeded_host_us": {}}
+    alone = intra_only or me_only
+    for key, (pay, gw, gh, S) in ({} if alone else
                                   _payloads(path)).items():
         K = pay["sf"].shape[0]
         rng = np.random.default_rng(SEED)
@@ -140,7 +154,7 @@ def time_kernels(path: str, tree: str, plain: bool,
             res["gop_plain_us_per_picture"][key] = 1e3 * event_ms(
                 torch, lambda: F.decode_gop_fast_plain(*args, *rings, gw=gw,
                                                        gh=gh), 1) / K
-    for name, gw, gh, flags in () if intra_only else DEBLOCK_GRIDS:
+    for name, gw, gh, flags in () if alone else DEBLOCK_GRIDS:
         planes, rest = deblock_inputs(gw, gh, SEED + gw, flags)
         tp = tuple(torch.tensor(x, device="cuda") for x in planes)
         ta = tuple(torch.tensor(a, device="cuda") for a in rest)
@@ -155,7 +169,7 @@ def time_kernels(path: str, tree: str, plain: bool,
             res["deblock_plain_us"][name] = 1e3 * event_ms(
                 torch, lambda: D.deblock_frame_fast_plain(tp, *ta, gw=gw,
                                                           gh=gh), 1)
-    if importlib.util.find_spec(
+    if not me_only and importlib.util.find_spec(
             "hartallo_tpu_torch.encode.intra_encode_fast") is not None:
         from hartallo_tpu_torch.encode import intra_encode_fast as IF
         grids = {}
@@ -186,28 +200,66 @@ def time_kernels(path: str, tree: str, plain: bool,
         from hartallo_tpu_torch.encode import me as M
         from hartallo_tpu_torch.encode import me_fast as MF
         from hartallo_tpu_torch.ops.wide import halfpel_planes
+        clock = sm_clock_hz()
+        res["sm_clock_hz"] = clock
+        rounds = getattr(MF, "refine_subpel_rounds_fast", None)
+        res["refine_calls_per_picture"] = 1 if rounds else 2
         for k, (name, W, H, opts) in enumerate(ME_CASES):
             if name not in ME_TIMED:
                 continue
             gw, gh, c = me_inputs(W, H, SEED + k, **opts)
-            src, ref, mv, part = (torch.tensor(c[n], device="cuda")
-                                  for n in ("src", "ref", "mv", "part"))
+            src, ref, seeded_mv, seeded_part = (
+                torch.tensor(c[n], device="cuda")
+                for n in ("src", "ref", "mv", "part"))
             lam, rng = torch.tensor(c["lam"], device="cuda"), c["rng"]
             hp = halfpel_planes(ref)
-            calls = {
-                "full_search": (MF.full_search_int_fast, M.full_search_int,
-                                (src, ref, lam), {"rng": rng}),
-                "refine": (MF.refine_subpel_fast, M.refine_subpel,
-                           (src, ref, mv, part, lam, 1),
-                           {"nparts": 4, "hp": hp})}
-            for key, (fast, twin, args, kw) in calls.items():
-                res[f"{key}_us"][name] = 1e3 * event_ms(
-                    torch, lambda: fast(*args, gw=gw, gh=gh, **kw), 10)
-                res[f"{key}_bound_us"][name] = 1e3 * me_bound(gw, gh, rng,
-                                                              key)[0]
+            # the MVs and partitions the path derives from the search
+            path_mv, path_part = (
+                torch.tensor(a, device="cuda") for a in me_path_maps(
+                    [t.cpu().numpy() for t in M.full_search_int(
+                        src, ref, lam, gw=gw, gh=gh, rng=rng)], c["lam"]))
+            mv, part = path_mv, path_part
+
+            def full_search():
+                MF.full_search_int_fast(src, ref, lam, gw=gw, gh=gh,
+                                        rng=rng)
+
+            def refine():
+                if rounds:
+                    rounds(src, ref, mv, part, lam, (2, 1), gw=gw, gh=gh,
+                           nparts=4, hp=hp)
+                    return
+                half = MF.refine_subpel_fast(src, ref, mv, part, lam, 2,
+                                             gw=gw, gh=gh, nparts=4, hp=hp)
+                MF.refine_subpel_fast(src, ref, half[0], part, lam, 1,
+                                      gw=gw, gh=gh, nparts=4, hp=hp)
+
+            def twin_chain():
+                half = M.refine_subpel(src, ref, mv, part, lam, 2, gw=gw,
+                                       gh=gh, nparts=4, hp=hp)
+                M.refine_subpel(src, ref, half[0], part, lam, 1, gw=gw,
+                                gh=gh, nparts=4, hp=hp)
+            calls = {"full_search": (full_search, "k_full_search",
+                                     lambda: M.full_search_int(
+                                         src, ref, lam, gw=gw, gh=gh,
+                                         rng=rng)),
+                     "refine": (refine, "k_refine", twin_chain)}
+            for key, (fn, kname, twin) in calls.items():
+                launches = 1 if key == "full_search" or rounds else 2
+                res[f"{key}_us"][name] = 1e3 * event_ms(torch, fn, 10)
+                res[f"{key}_kernel_us"][name] = kernel_us(
+                    torch, fn, 10, kname, launches)
+                res[f"{key}_host_us"][name] = host_us(fn, 10)
+                res[f"{key}_bound_us"][name] = 1e3 * me_bound(
+                    gw, gh, rng, key, clock)[0]
                 if plain:
                     res[f"{key}_plain_us"][name] = 1e3 * event_ms(
-                        torch, lambda: twin(*args, gw=gw, gh=gh, **kw), 1)
+                        torch, twin, 1)
+            mv, part = seeded_mv, seeded_part
+            res["refine_seeded_us"][name] = 1e3 * event_ms(torch, refine, 10)
+            res["refine_seeded_kernel_us"][name] = kernel_us(
+                torch, refine, 10, "k_refine", 1 if rounds else 2)
+            res["refine_seeded_host_us"][name] = host_us(refine, 10)
     print(json.dumps(res), flush=True)
 
 
@@ -218,7 +270,7 @@ def main(argv) -> None:
         tree = argv[argv.index("--tree") + 1] if "--tree" in argv else \
             str(REPO)
         time_kernels(argv[1], tree, "--plain" in argv,
-                     "--intra-only" in argv)
+                     "--intra-only" in argv, "--me-only" in argv)
     else:
         raise SystemExit(__doc__)
 

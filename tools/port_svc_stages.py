@@ -117,7 +117,7 @@ def encode_split(name: str) -> dict:
         (EN.Encoder, "_tensor", "upload", None),
         (E, "intra_encode_frame_fast", "intra_kernel", None),
         (PD, "full_search_int_fast", "full_search", None),
-        (PD, "refine_subpel_fast", "subpel_refine", None),
+        (PD, "refine_subpel_rounds_fast", "subpel_refine", None),
         (E, "_p_frame_body", "p_body_rest", None),
         (EN, "i_frame_fused", "i_body_rest", None),
         (E, "deblock_frame_fast", "deblock_kernel", None),
