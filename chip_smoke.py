@@ -6,16 +6,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. stop at once when torch sees no CUDA device; print the card's name
    and power limit (``nvidia-smi``);
-2. build the CUDA kernels from the four sources of
+2. build the CUDA kernels from the five sources of
    ``hartallo_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per
    source, all at once) and print
    ptxas' registers and spills, and the intra encode kernel's dynamic
    shared memory, registers, spills, block size and the most MB rows
    (blocks) the card holds at once, and both motion search kernels'
-   registers, spills, shared memory, block size and grid at 1080p, as the
-   runtime reports them, and how many byte-SIMD instructions (VABSDIFF4,
-   IDP.4A) ``cuobjdump`` finds in the full search kernel's SASS (a SASS
-   with none fails the run); the
+   registers, spills, shared memory, block size and grid at 1080p, and
+   the four P body kernels' registers, spills, shared memory and block
+   size, as the runtime reports them, and how many byte-SIMD
+   instructions (VABSDIFF4, IDP.4A) ``cuobjdump`` finds in the full
+   search kernel's SASS (a SASS with none fails the run); the
    port's native slice parser and packer
    (``hartallo_tpu_torch/native``, built with gcc into ``build/native/``)
    must have loaded, or the timed host path would be pure Python;
@@ -49,6 +50,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its result) against the twin's rounds, and the two-round launch
    against the twin's chain, also on the MVs and partition map the path
    derives from the search (MVs and costs equal);
+6b. P body kernel phase: the ``bench.make_clip`` frame pair's Y, U and V
+   planes at one MB, QCIF, CIF, 4CIF, 720p and 1080p, the shard phase's
+   1080p band of 17 MB rows with its halo reference planes, qp 0 with
+   chroma offset -4, qp 51 with +5, per-MB qp over 0..51 with seeded
+   slice-edge flags, seeded MVs up to 100 pels into the pad at every
+   edge, an intra-heavy and a flat source (P_CASES) go through the
+   path's chain (the full search kernel, then the partition decision,
+   the half-pel stack, the refinement kernel, the residual and the
+   deblock parameters), each of the four P body kernels held against its
+   plain twin on the same inputs, every output equal;
 7. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
@@ -63,10 +74,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    counts set to 0 just before; each stream must equal the JAX package's
    fixture byte for byte, the deblock kernel must have run once per
    picture, the intra kernel once for the IDR picture and once for each
-   P picture that took the intra-in-P branch, the full search kernel
-   and the refinement kernel (both rounds) once each per P picture, and
-   the port's decoder must decode the port's streams to the recorded
-   MD5s;
+   P picture that took the intra-in-P branch, the full search kernel,
+   the partition decision, the half-pel stack, the refinement kernel
+   (both rounds) and the residual kernel once each per P picture, the
+   deblock parameters kernel once per picture, and the port's decoder
+   must decode the port's streams to the recorded MD5s; then
+   ``torch.profiler`` lists the device kernels of one CIF P picture, the
+   hand kernels apart from the rest;
 10. SVC phase (the SVC round trip), launch counts set to 0 just before
    it: the three layers of ``svc3_4cif_8`` (176x144, 352x288 and
    704x576, 8 pictures each, two temporal layers; the 4CIF
@@ -77,7 +91,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    once per kernel-route picture, the deblock kernel once per encoded
    picture of every layer and once per general-route picture of the
    decodes, the intra kernel once per base-layer IDR picture, the
-   refinement kernel once per full search; in the
+   refinement kernel once per full search, the partition decision and the
+   residual kernel once per full search, the half-pel stack once per
+   refinement, the deblock parameters once per encoded picture; in the
    encode and the full decode every call of any kernel is held against
    its plain twin on the same inputs, at the path's own shapes (QCIF,
    CIF and 4CIF), tolerance 0;
@@ -85,12 +101,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    before it, on ``Mesh(("cuda:0",) * 4)``: the 1080p P step
    (``p_encode_step_sharded``, four bands of 17 MB rows) must give the
    eight outputs whose MD5s the JAX package recorded
-   (``shard_p_1080p.json``) with 4 deblock, 4 full search and 4
-   refinement kernel launches, and
+   (``shard_p_1080p.json``) with 4 deblock, 4 full search, 4
+   refinement and 4 of each P body kernel launches, and
    ``decode_gops_grouped`` of ``shard_1080p_8`` with 2 groups (two
    bands of 34 MB rows each) every frame's MD5 with 16 deblock kernel
-   launches and none of the GOP kernel; every deblock and motion search
-   call of both is held against its plain twin, tolerance 0 (in the SVC
+   launches and none of the GOP kernel; every deblock, motion search and
+   P body kernel call of both is held against its plain twin, tolerance 0
+   (in the SVC
    and shard
    phases a twin whose input shapes recur replays as a CUDA graph of its
    own ops, and so does a band's intra wavefront in the sharded decode:
@@ -106,9 +123,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (each twin timed on its check run); the full search and the two-round
    refinement launch per picture at CIF, 720p and 1080p, with the
    wrapper (CUDA events), alone (the profiler's device time) and the
-   wrapper's host time per call (no sync), beside their twins; each
+   wrapper's host time per call (no sync), beside their twins; the four
+   P body kernels per picture at CIF, 720p and 1080p the same way; each
    beside its bound
-   (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``);
+   (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``,
+   ``p_bound``);
    encode fps at CIF, 720p and
    1080p, decode fps at CIF, 720p and 1080p, the SVC
    clip's encode and decode rates, ms per sharded 1080p P step on four
@@ -117,7 +136,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a warm-up (for the encodes and the four-band runs, the encode, SVC
    and shard phases' runs).
 
-Then one JSON object describing the five kernels, the card's name and
+Then one JSON object describing the nine kernels, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -181,6 +200,23 @@ ME_CASES = (
     ("one MB", 16, 16, {}),
     ("CIF range 1", 352, 288, {"rng": 1}))
 ME_TIMED = ("CIF", "720p", "1080p")
+# the P-picture body kernels' cases: (label, width, height, options of
+# p_inputs); the defaults are bench.py's settings (qp 30,
+# chroma_qp_index_offset 0, the lambda of qp 30, me_range 12); the band is
+# the shard phase's second band of 17 MB rows with its halo reference
+P_CASES = (
+    ("one MB", 16, 16, {}), ("QCIF", 176, 144, {}), ("CIF", 352, 288, {}),
+    ("4CIF", 704, 576, {}), ("720p", 1280, 720, {}),
+    ("1080p", 1920, 1080, {}),
+    ("1080p band of 17 rows, halo reference", 1920, 1080, {"band": True}),
+    ("CIF qp 0, offset -4", 352, 288, {"qp": 0, "cqo": -4}),
+    ("CIF qp 51, offset +5", 352, 288, {"qp": 51, "cqo": 5}),
+    ("CIF qp 0..51, slice-edge flags", 352, 288, {"qp": None,
+                                                  "flags": True}),
+    ("CIF MVs into the pad at every edge", 352, 288, {"mv_max": 400}),
+    ("CIF intra-heavy", 352, 288, {"intra": True}),
+    ("CIF flat", 352, 288, {"flat": True}))
+P_TIMED = ("CIF", "720p", "1080p")
 # NVIDIA's data sheet for the H100 SXM at 700 W: HBM3 rate, and the
 # float32 rate outside the tensor cores, the nearest published rate for
 # the kernels' int32 arithmetic (their integer rate is no higher, so the
@@ -684,6 +720,66 @@ def me_inputs(W: int, H: int, seed: int, rng=12, lam_qp=30, band=False):
         "part": r.integers(0, 4, (gh, gw, 16)).astype(np.int32)}
 
 
+def p_inputs(W: int, H: int, seed: int, qp=30, cqo=0, lam_qp=30,
+             band=False, flat=False, intra=False, mv_max=None, flags=False):
+    """numpy inputs of the P-picture body kernels at the MB grid of W x H:
+    the second ``bench.make_clip`` frame's Y, U and V planes as the source
+    and the first's as the reference, edge-padded as the encoder pads them
+    (with ``band``, the second of four bands of MB rows, its reference
+    planes halo-padded by ``parallel/shard._halo_pad``); with ``flat`` a
+    grey source; with ``intra`` flat grey squares pasted into about half
+    of the source's MBs, which the intra-in-P estimate takes; qp ``qp``
+    everywhere, or per MB over 0..51 where it is None; the f32 lambda of
+    ``lam_qp``; seeded quarter-pel MVs in +-``mv_max`` for the residual
+    where it is set (else the path's, from the search); a seeded
+    intra map and, with ``flags``, seeded MB edge flags (the picture's
+    edges among them) for the deblock parameters.  Returns (gw, gh, a
+    dict of the inputs)."""
+    import numpy as np
+    import torch
+    from bench import make_clip
+    from hartallo_tpu_torch.encode.e_device import pack_src
+    from hartallo_tpu_torch.encode.encoder import _lambda
+    from hartallo_tpu_torch.parallel.shard import _halo_pad
+    gw, gh = -(-W // 16), -(-H // 16)
+    r = np.random.default_rng(seed)
+    frames = []
+    for f in make_clip(W, H, 2):
+        buf = pack_src(f, W, H, gw, gh)
+        uv = buf[gh * 16:].reshape(gh * 8, 2, gw * 8).astype(np.int32)
+        frames.append([buf[:gh * 16].astype(np.int32), uv[:, 0], uv[:, 1]])
+    ref, src = frames
+    if flat:
+        src = [np.full_like(p, 128) for p in src]
+    if intra:
+        for my in range(gh):
+            for mx in range(gw):
+                if r.random() < 0.5:
+                    v = int(r.integers(16, 240))
+                    src[0][16 * my:16 * my + 16, 16 * mx:16 * mx + 16] = v
+                    for c in src[1:]:
+                        c[8 * my:8 * my + 8, 8 * mx:8 * mx + 8] = v
+    if band:
+        gh //= SHARD_BANDS
+        ref = [_halo_pad([torch.from_numpy(b) for b in
+                          np.split(p, SHARD_BANDS)], 1).numpy() for p in ref]
+        src = [np.pad(np.split(p, SHARD_BANDS)[1], 32, mode="edge")
+               for p in src]
+    else:
+        ref, src = ([np.pad(p, 32, mode="edge") for p in ps]
+                    for ps in (ref, src))
+    c = {"src": src, "ref": ref, "lam": _lambda(lam_qp), "rng": 12,
+         "cqo": cqo,
+         "qp": (r.integers(0, 52, (gh, gw)) if qp is None else
+                np.full((gh, gw), qp)).astype(np.int32),
+         "mv": None if mv_max is None else
+         r.integers(-mv_max, mv_max + 1, (gh, gw, 16, 2)).astype(np.int32),
+         "intra": r.random((gh, gw)) < 0.25, "fmb_v": None, "fmb_h": None}
+    if flags:
+        c["fmb_v"], c["fmb_h"] = (r.random((gh, gw)) < 0.8 for _ in "vh")
+    return gw, gh, c
+
+
 def me_path_maps(fs, lam):
     """The quarter-pel MVs and the partition map (numpy int32) that
     ``p_device.p_frame_device`` derives from the full search's eight
@@ -838,6 +934,158 @@ def me_phase(torch, card):
                      for key in ("full_search", "refine")}
 
 
+def outputs_diff(torch, got, want):
+    """(max_abs_err, equal, the pairs of tensors) of two results, each a
+    tensor or a tuple of tensors and Nones; equal means the same Nones,
+    shapes, types and values."""
+    g = got if isinstance(got, tuple) else (got,)
+    w = want if isinstance(want, tuple) else (want,)
+    pairs = [(a, b) for a, b in zip(g, w) if a is not None and b is not None]
+    same = len(g) == len(w) and \
+        all((a is None) == (b is None) for a, b in zip(g, w)) and \
+        all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in pairs)
+    err = max((abs_err(a, b) if a.shape == b.shape else float("inf")
+               for a, b in pairs), default=0)
+    return err, same, pairs
+
+
+P_KERNELS = {"part_decide": "k_part_decide", "halfpel": "k_halfpel_enc",
+             "p_residual": "k_p_residual",
+             "deblock_params": "k_deblock_params"}
+
+
+def p_case_tensors(torch, k: int):
+    """P_CASES[k]'s inputs (``p_inputs``, seed SEED + k) on the card:
+    (label, gw, gh, a dict of tensors and ints)."""
+    label, W, H, opts = P_CASES[k]
+    gw, gh, c = p_inputs(W, H, SEED + k, **opts)
+
+    def cuda(a):
+        if a is None or isinstance(a, int):
+            return a
+        if isinstance(a, list):
+            return [cuda(x) for x in a]
+        return torch.tensor(a, device="cuda")
+    return label, gw, gh, {n: cuda(v) for n, v in c.items()}
+
+
+def p_check(torch, label, gw, gh, t):
+    """The P-picture body's four kernels against their plain twins on one
+    case, in the path's order: the full search (its kernel), the partition
+    decision on its outputs, the half-pel stack of the reference, the
+    refinement (its kernel) on both, the residual on the refined MVs (or
+    the case's seeded ones) and the deblock parameters on the residual's
+    levels with the case's intra map and edge flags.  Each wrapper is
+    launched once.  Returns {kernel: (max_abs_err, equal, the twin's ms on
+    its check run, a call of the wrapper on the same inputs)}."""
+    from hartallo_tpu_torch.encode import e_device as E
+    from hartallo_tpu_torch.encode import me_fast as MF
+    from hartallo_tpu_torch.encode import p_body_fast as PB
+    from hartallo_tpu_torch.encode import p_device as PD
+    from hartallo_tpu_torch.ops.wide import halfpel_planes
+    src, ref, lam, qp, cqo = t["src"], t["ref"], t["lam"], t["qp"], t["cqo"]
+    out = {}
+
+    def stage(name, fast, plain):
+        got = fast()
+        box = []
+        ms = event_ms(torch, lambda: box.append(plain()), 1, warm=False)
+        err, same, _ = outputs_diff(torch, got, box[0])
+        out[name] = (err, same, ms, fast)
+        return got
+
+    fs = MF.full_search_int_fast(src[0], ref[0], lam, gw=gw, gh=gh,
+                                 rng=t["rng"])
+    _, best, mv, part = stage(
+        "part_decide", lambda: PB.partition_decide_fast(fs, lam, gw=gw,
+                                                        gh=gh),
+        lambda: PD.partition_decide(fs, lam, gw=gw, gh=gh))
+    hp = stage("halfpel", lambda: PB.halfpel_planes_fast(ref[0]),
+               lambda: halfpel_planes(ref[0]))
+    mv = MF.refine_subpel_rounds_fast(src[0], ref[0], mv, part, lam, (2, 1),
+                                      gw=gw, gh=gh, nparts=4, hp=hp)[0] \
+        if t["mv"] is None else t["mv"]
+    wq = stage(
+        "p_residual", lambda: PB.p_residual_fast(
+            *src, *ref, mv, qp, best, lam, gw=gw, gh=gh, chroma_qp_off=cqo,
+            intra_in_p=True),
+        lambda: PD.p_residual(*src, *ref, mv, qp, best, lam, gw=gw, gh=gh,
+                              chroma_qp_off=cqo, intra_in_p=True))[0]
+    mv44 = mv.reshape(gh, gw, 4, 4, 2)
+    ref44 = torch.zeros((gh, gw, 4, 4), dtype=torch.int32, device="cuda")
+    flags = (t["fmb_v"], t["fmb_h"])
+    stage("deblock_params", lambda: PB.deblock_params_fast(
+        wq, mv44, ref44, t["intra"], qp, cqo, *flags, gw=gw, gh=gh),
+        lambda: E.deblock_params(wq, mv44, ref44, t["intra"], qp, cqo,
+                                 *flags, gw=gw, gh=gh))
+    return out
+
+
+def p_bound(kernel: str, gw: int, gh: int):
+    """Bound of one call of a P-picture body kernel at gw x gh MBs, each
+    input read once and each output written once.  part_decide: the full
+    search's 27 words an MB read, the choice (int64), cost, 16 MVs and 16
+    partition indices written; 16 operations an MB.  halfpel: the padded
+    int32 plane read and the four written; three 6-tap filters (11
+    operations each) and three roundings a sample.  p_residual: the
+    source's and, at least, one reference sample per predicted sample
+    read (int32), the MVs, qp and cost read, the levels (427 words an MB
+    with the mask) and the padded recon planes written; 20 operations a
+    sample (the transforms, quantisers and recon).  deblock_params: the
+    luma levels, MVs, references, intra map and qp read, the int16
+    rows written; 12 operations a bS."""
+    nmb, H, W = gw * gh, gh * 16, gw * 16
+    Hp, Wp, Hcp, Wcp = H + 64, W + 64, H // 2 + 64, W // 2 + 64
+    if kernel == "part_decide":
+        return bound(nmb * (27 * 4 + 8 + 4 + 128 + 64), 16 * nmb)
+    if kernel == "halfpel":
+        return bound(20 * Hp * Wp, 42 * Hp * Wp)
+    if kernel == "p_residual":
+        return bound(nmb * (2 * 384 * 4 + 128 + 8 + 1024 + 32 + 512 + 1) +
+                     4 * (Hp * Wp + 2 * Hcp * Wcp), 20 * 384 * nmb)
+    return bound(nmb * (1024 + 128 + 64 + 1 + 4 + 62 * 2), 12 * 32 * nmb)
+
+
+def p_phase(torch, card):
+    """The P-picture body kernels against their plain twins on P_CASES,
+    tolerance 0 on every output (``p_check``; each twin timed on its
+    check run); then at P_TIMED each kernel's time per picture with its
+    wrapper (CUDA events), alone (the profiler's device time) and the
+    wrapper's host time per call, beside its bound.  Returns (max_abs_err
+    per kernel, and at 720p: each kernel's and twin's ms per picture and
+    its bound)."""
+    max_err = dict.fromkeys(P_KERNELS, 0)
+    timed = {}
+    for k in range(len(P_CASES)):
+        label, gw, gh, t = p_case_tensors(torch, k)
+        out = p_check(torch, label, gw, gh, t)
+        print(f"P body kernel phase {label} ({gw}x{gh} MBs): " + "; ".join(
+            f"{n} equal={same} max_abs_err={err}"
+            for n, (err, same, _, _) in out.items()), flush=True)
+        if not all(same for _, same, _, _ in out.values()):
+            raise SystemExit(f"P body kernels != plain at {label}")
+        for n, (err, _, _, _) in out.items():
+            max_err[n] = max(max_err[n], err)
+        if label in P_TIMED:
+            timed[label] = ({n: (event_ms(torch, fn, 10),
+                                 kernel_us(torch, fn, 10, P_KERNELS[n]),
+                                 host_us(fn, 10), ms)
+                             for n, (_, _, ms, fn) in out.items()}, gw, gh)
+    for label, (t, gw, gh) in timed.items():
+        for n, (ms, dev_us, h_us, plain) in t.items():
+            b, by = p_bound(n, gw, gh)
+            dev = "not measured" if dev_us is None else f"{dev_us:.1f} us"
+            print(f"[{card}] P body kernel {n} {label}: {ms * 1e3:.1f} "
+                  f"us/picture with the wrapper, kernel alone {dev}, the "
+                  f"wrapper's host time {h_us:.1f} us/call, plain torch "
+                  f"{plain * 1e3:.1f} us, bound {b * 1e3:.3f} us ({by})",
+                  flush=True)
+    t, gw, gh = timed["720p"]
+    return max_err, {n: (t[n][0], t[n][3], *p_bound(n, gw, gh))
+                     for n in P_KERNELS}
+
+
 def decode_fixture(torch, name):
     """Decode a fixture through ``Codec`` on its default device, the card;
     every frame's MD5 must be the recorded one."""
@@ -933,53 +1181,60 @@ def encode_phase(torch):
     """The encode path, launch counts set to 0 just before it: each clip
     byte-equal to its fixture, the intra kernel launched once for the IDR
     picture and once for each P picture that took the intra branch
-    (counted where ``e_device`` decides it), the full search and the
-    refinement (both rounds) once each per P picture, the deblock kernel
-    once per picture;
-    then the port's decoder reads the port's streams back.  Returns
-    (deblock launches, intra kernel launches, full search launches,
-    refinement launches)."""
+    (counted from the intra-in-P mask that the residual kernel's wrapper
+    returns where ``p_device`` calls it), the full search, the partition
+    decision, the half-pel stack, the refinement (both rounds) and the
+    residual once each per P picture, the deblock parameters and the
+    deblock kernel once per picture; then the port's decoder reads the
+    port's streams back.  Returns (deblock launches, intra kernel
+    launches, full search launches, refinement launches, the P body
+    kernels' launches)."""
     from hartallo_tpu_torch.api import Codec, CodecConfig
     from hartallo_tpu_torch.decode import d_gop_fast as F
-    from hartallo_tpu_torch.encode import e_device as E
     from hartallo_tpu_torch.encode import intra_encode_fast as IF
     from hartallo_tpu_torch.encode import me_fast as MF
+    from hartallo_tpu_torch.encode import p_body_fast as PB
+    from hartallo_tpu_torch.encode import p_device as PD
     from hartallo_tpu_torch.ops import deblock_fast as D
-    real_mask, intra_p = E._intra_in_p_mask, [0]
+    real_res, intra_p = PD.p_residual_fast, [0]
 
     def counted(*args, **kw):
-        mask = real_mask(*args, **kw)
-        intra_p[0] += bool(mask.any())
-        return mask
+        out = real_res(*args, **kw)
+        intra_p[0] += bool(out[-1].any())        # the intra-in-P mask
+        return out
     streams, counts = {}, {}
     F.LAUNCHES = D.LAUNCHES = IF.LAUNCHES = 0
     MF.FULL_SEARCH_LAUNCHES = MF.REFINE_LAUNCHES = 0
-    E._intra_in_p_mask = counted
+    PB.LAUNCHES.update(dict.fromkeys(PB.LAUNCHES, 0))
+    PD.p_residual_fast = counted
     try:
         for name in ENCODE_MAIN:
             before = (IF.LAUNCHES, intra_p[0], MF.FULL_SEARCH_LAUNCHES,
-                      MF.REFINE_LAUNCHES)
+                      MF.REFINE_LAUNCHES, D.LAUNCHES, dict(PB.LAUNCHES))
             streams[name] = encode_clip(torch, name)
             counts[name] = (IF.LAUNCHES - before[0], intra_p[0] - before[1],
                             MF.FULL_SEARCH_LAUNCHES - before[2],
-                            MF.REFINE_LAUNCHES - before[3])
+                            MF.REFINE_LAUNCHES - before[3],
+                            D.LAUNCHES - before[4],
+                            {n: PB.LAUNCHES[n] - before[5][n]
+                             for n in PB.LAUNCHES})
     finally:
-        E._intra_in_p_mask = real_mask
+        PD.p_residual_fast = real_res
     launches, intra = D.LAUNCHES, IF.LAUNCHES
     fs, rf = MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES
+    pb = dict(PB.LAUNCHES)
     pictures = sum(m["frames"] for _, _, m in streams.values())
     print(f"encode phase: {pictures} pictures, deblock kernel launches "
           f"{launches}, intra kernel launches {intra}, full search "
-          f"launches {fs}, refinement launches {rf}", flush=True)
-    if launches < pictures:
-        raise SystemExit(f"deblock kernel launched {launches} times for "
-                         f"{pictures} encoded pictures")
+          f"launches {fs}, refinement launches {rf}, P body kernel "
+          f"launches {pb}", flush=True)
     for name, (stream, _, meta) in streams.items():
-        n, n_p, n_fs, n_rf = counts[name]
+        n, n_p, n_fs, n_rf, n_db, n_pb = counts[name]
         n_pic = meta["frames"] - 1
         print(f"encode phase {name}: intra kernel launches {n}, P pictures "
               f"with intra MBs {n_p} of {n_pic}; full search launches "
-              f"{n_fs}, refinement launches {n_rf}", flush=True)
+              f"{n_fs}, refinement launches {n_rf}, deblock kernel "
+              f"launches {n_db}, P body kernel launches {n_pb}", flush=True)
         if n != 1 + n_p:
             raise SystemExit(f"{name}: {n} intra kernel launches for one "
                              f"IDR picture and {n_p} P pictures with intra "
@@ -987,6 +1242,12 @@ def encode_phase(torch):
         if (n_fs, n_rf) != (n_pic, n_pic):
             raise SystemExit(f"{name}: {n_fs} full search and {n_rf} "
                              f"refinement launches for {n_pic} P pictures")
+        want_pb = {"part_decide": n_pic, "halfpel": n_pic,
+                   "p_residual": n_pic, "deblock_params": meta["frames"]}
+        if n_pb != want_pb or n_db != meta["frames"]:
+            raise SystemExit(f"{name}: P body kernel launches {n_pb} and "
+                             f"{n_db} deblock launches; expected {want_pb} "
+                             f"and {meta['frames']}")
         want, _ = load_fixture(name)
         if stream != want:
             raise SystemExit(f"{name}: the port's stream ({len(stream)} "
@@ -999,7 +1260,20 @@ def encode_phase(torch):
                              "misses the recorded MD5s")
         print(f"encode phase {name}: {len(stream)} bytes, byte-equal to "
               f"the fixture; round trip MD5s equal", flush=True)
-    return launches, intra, fs, rf
+    return launches, intra, fs, rf, pb
+
+
+def p_picture_kernels(torch, card):
+    """The device kernels that one P picture of the CIF clip launches, from
+    ``torch.profiler`` (``tools/port_stages.p_picture_kernels``): the hand
+    kernels of ``csrc`` and the rest (PyTorch's own, the eager ops')."""
+    from port_stages import p_picture_kernels as kernels_of
+    got = kernels_of(352, 288)
+    print(f"[{card}] one CIF P picture's device kernels (profiler): "
+          f"{json.dumps(got)}", flush=True)
+    if not got["hand"]:
+        raise SystemExit("the profiler saw no hand kernel in a P picture")
+    return got
 
 
 def svc_clips(meta):
@@ -1065,14 +1339,19 @@ class TwinChecks:
     where the port calls it (``decoder.decode_gop_fast``,
     ``e_device.deblock_frame_fast`` for the encoder and the decoder's
     general route, ``d_gop.deblock_frame_fast`` for the GOP scan and the
-    sharded decode, ``e_device.intra_encode_frame_fast`` for the
-    encoder, and ``p_device.full_search_int_fast`` and
-    ``refine_subpel_rounds_fast`` for the encoder's motion search), is held
-    against the plain twin on the same inputs, tolerance 0: the GOP
-    kernel's output and ring (the ring cloned before the call), the
+    sharded decode, ``e_device.deblock_frame_aux_fast`` for the
+    encoder's in-loop deblock on gathered parameters,
+    ``e_device.intra_encode_frame_fast`` for the encoder,
+    ``p_device.full_search_int_fast`` and ``refine_subpel_rounds_fast`` for
+    the encoder's motion search, ``p_device.partition_decide_fast``,
+    ``halfpel_planes_fast`` and ``p_residual_fast`` and
+    ``e_device.deblock_params_fast`` for the rest of its P-picture body),
+    is held against the plain twin on the same inputs, tolerance 0: the
+    GOP kernel's output and ring (the ring cloned before the call), the
     deblocked planes, the intra encode's eleven outputs, the full
-    search's eight outputs and the refinement's MVs and costs (against
-    the twin's chain of its rounds).  The twins launch nothing,
+    search's eight outputs, the refinement's MVs and costs (against
+    the twin's chain of its rounds), and every output of the four P body
+    kernels.  The twins launch nothing,
     so the launch counts stay the path's.  The deblock twin (some 150,000
     small ops at a 1080p band grid) runs through ``ops/graphs.replayed``:
     eager ops the first time its input shapes are seen, the same ops
@@ -1088,7 +1367,8 @@ class TwinChecks:
         from hartallo_tpu_torch.encode import p_device as PD
         self.torch, self.DM, self.E, self.G, self.PD = torch, DM, E, G, PD
         self.label = label
-        kernels = ("gop", "deblock", "intra", "full_search", "refine")
+        kernels = ("gop", "deblock", "intra", "full_search", "refine",
+                   *P_KERNELS)
         self.calls = dict.fromkeys(kernels, 0)
         self.err = dict.fromkeys(kernels, 0)
         self.shapes = {k: set() for k in kernels}
@@ -1121,6 +1401,33 @@ class TwinChecks:
         same = all(self.torch.equal(g, w) for g, w in zip(got, want))
         self._record("deblock", gw, gh, list(zip(got, want)), same)
         return got
+
+    def _deblock_aux(self, planes, aux, *, gw, gh):
+        from hartallo_tpu_torch.ops import deblock_fast as D
+        from hartallo_tpu_torch.ops.graphs import replayed
+
+        def plain(pY, pU, pV, aux):
+            return D.deblock_frame_aux_plain((pY, pU, pV), aux, gw=gw,
+                                             gh=gh)
+        got = self.real_db_aux(planes, aux, gw=gw, gh=gh)
+        want = replayed(plain, "deblock_frame_aux_plain", *planes, aux)
+        same = all(self.torch.equal(g, w) for g, w in zip(got, want))
+        self._record("deblock", gw, gh, list(zip(got, want)), same)
+        return got
+
+    def _p_body(self, kernel, real, plain):
+        """A checked call of the P body kernel ``kernel``: the wrapper
+        ``real``, the twin ``plain`` on the same arguments."""
+        def call(*args, **kw):
+            got = real(*args, **kw)
+            _, same, pairs = outputs_diff(self.torch, got,
+                                          plain(*args, **kw))
+            gw, gh = kw.get("gw"), kw.get("gh")
+            if gw is None:            # the half-pel stack: its plane's grid
+                gh, gw = ((n - 64) // 16 for n in args[0].shape)
+            self._record(kernel, gw, gh, pairs, same)
+            return got
+        return call
 
     def _intra(self, *args, gw, gh, **kw):
         from hartallo_tpu_torch.encode import intra_encode_fast as IF
@@ -1162,25 +1469,48 @@ class TwinChecks:
         self.err[kernel] = max(self.err[kernel], err)
         self.shapes[kernel].add((gw, gh))
 
+    def _p_body_sites(self):
+        """(module, wrapper name, kernel, plain twin) of the P body
+        kernels' call sites."""
+        from hartallo_tpu_torch.ops.wide import halfpel_planes
+        E, PD = self.E, self.PD
+        return ((PD, "partition_decide_fast", "part_decide",
+                 PD.partition_decide),
+                (PD, "halfpel_planes_fast", "halfpel", halfpel_planes),
+                (PD, "p_residual_fast", "p_residual", PD.p_residual),
+                (E, "deblock_params_fast", "deblock_params",
+                 E.deblock_params))
+
     def __enter__(self):
         self.real_gop, self.real_db, self.real_intra = \
             self.DM.decode_gop_fast, self.E.deblock_frame_fast, \
             self.E.intra_encode_frame_fast
+        self.real_db_aux = self.E.deblock_frame_aux_fast
         self.real_fs, self.real_rf = self.PD.full_search_int_fast, \
             self.PD.refine_subpel_rounds_fast
+        self.real_pb = [getattr(mod, name) for mod, name, _, _ in
+                        self._p_body_sites()]
         self.DM.decode_gop_fast = self._gop
         self.E.deblock_frame_fast = self.G.deblock_frame_fast = self._deblock
+        self.E.deblock_frame_aux_fast = self._deblock_aux
         self.E.intra_encode_frame_fast = self._intra
         self.PD.full_search_int_fast = self._full_search
         self.PD.refine_subpel_rounds_fast = self._refine
+        for (mod, name, kernel, plain), real in zip(self._p_body_sites(),
+                                                    self.real_pb):
+            setattr(mod, name, self._p_body(kernel, real, plain))
         return self
 
     def __exit__(self, *exc):
         self.DM.decode_gop_fast = self.real_gop
         self.E.deblock_frame_fast = self.G.deblock_frame_fast = self.real_db
+        self.E.deblock_frame_aux_fast = self.real_db_aux
         self.E.intra_encode_frame_fast = self.real_intra
         self.PD.full_search_int_fast = self.real_fs
         self.PD.refine_subpel_rounds_fast = self.real_rf
+        for (mod, name, _, _), real in zip(self._p_body_sites(),
+                                           self.real_pb):
+            setattr(mod, name, real)
 
 
 def svc_phase(torch):
@@ -1189,20 +1519,24 @@ def svc_phase(torch):
     matching the routes; in the encode and the full decode, every kernel
     call held against its plain twin (``TwinChecks``).  Returns (GOP
     kernel launches, deblock kernel launches, intra kernel launches, full
-    search and refinement launches, stream, clips, the twin checks)."""
+    search and refinement launches, stream, clips, the twin checks, the
+    P body kernels' launches)."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.encode import intra_encode_fast as IF
     from hartallo_tpu_torch.encode import me_fast as MF
+    from hartallo_tpu_torch.encode import p_body_fast as PB
     from hartallo_tpu_torch.ops import deblock_fast as D
     stream, meta = load_fixture(SVC)
     clips = svc_clips(meta)
     twins = TwinChecks(torch, SVC)
     F.LAUNCHES = D.LAUNCHES = IF.LAUNCHES = 0
     MF.FULL_SEARCH_LAUNCHES = MF.REFINE_LAUNCHES = 0
+    PB.LAUNCHES.update(dict.fromkeys(PB.LAUNCHES, 0))
     with twins:
         mine, _ = svc_encode(torch, meta, clips)
     enc_db, intra = D.LAUNCHES, IF.LAUNCHES
     me = (MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES)
+    pb = dict(PB.LAUNCHES)
     if mine != stream:
         raise SystemExit(f"{SVC}: the port's stream ({len(mine)} bytes) "
                          f"differs from the fixture ({len(stream)} bytes)")
@@ -1232,8 +1566,8 @@ def svc_phase(torch):
           f"deblock kernel launches in the decodes {db - enc_db} for "
           f"{general} general-route pictures", flush=True)
     print(f"SVC phase: intra kernel launches in the encode {intra}, full "
-          f"search launches {me[0]}, refinement launches {me[1]}",
-          flush=True)
+          f"search launches {me[0]}, refinement launches {me[1]}, P body "
+          f"kernel launches {pb}", flush=True)
     for kernel in twins.calls:
         print(f"SVC phase: {kernel} kernel == plain twin on "
               f"{twins.calls[kernel]} calls of the encode and the full "
@@ -1258,7 +1592,12 @@ def svc_phase(torch):
             (twins.calls["full_search"], twins.calls["refine"]) != me:
         raise SystemExit(f"SVC: {me[0]} full search and {me[1]} refinement "
                          f"launches, twin checks {twins.calls}")
-    return launches, db, intra, me, stream, clips, twins
+    want_pb = {"part_decide": me[0], "halfpel": me[1], "p_residual": me[0],
+               "deblock_params": enc_db}
+    if pb != want_pb or any(twins.calls[n] != pb[n] for n in pb):
+        raise SystemExit(f"SVC: P body kernel launches {pb}, expected "
+                         f"{want_pb}; twin checks {twins.calls}")
+    return launches, db, intra, me, stream, clips, twins, pb
 
 
 def svc_fps(torch, card, stream, clips):
@@ -1322,9 +1661,10 @@ def shard_phase(torch):
     kernel); every deblock and motion search call of both held against
     its plain twin (``TwinChecks``).  Returns (deblock launches, full
     search and refinement launches, the twin checks, the P-step
-    inputs)."""
+    inputs, the P body kernels' launches)."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.encode import me_fast as MF
+    from hartallo_tpu_torch.encode import p_body_fast as PB
     from hartallo_tpu_torch.ops import deblock_fast as D
     from hartallo_tpu_torch.parallel.shard import Mesh, gather
     from make_port_fixtures import int32_md5
@@ -1335,12 +1675,14 @@ def shard_phase(torch):
     twins = TwinChecks(torch, "shard")
     F.LAUNCHES = D.LAUNCHES = 0
     MF.FULL_SEARCH_LAUNCHES = MF.REFINE_LAUNCHES = 0
+    PB.LAUNCHES.update(dict.fromkeys(PB.LAUNCHES, 0))
     with twins:
         out = shard_step(torch, mesh, planes, pmeta)
         enc_db = D.LAUNCHES
         frames, _ = shard_decode(torch, mesh, stream)
     db, gop = D.LAUNCHES, F.LAUNCHES
     me = (MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES)
+    pb = dict(PB.LAUNCHES)
     for name, bands in zip(pmeta["outputs"], out):
         if any(b.device.type != "cuda" for b in bands):
             raise SystemExit(f"shard: P-step output {name} left the card")
@@ -1365,6 +1707,10 @@ def shard_phase(torch):
           f"{twins.calls['refine']}, MB grids "
           f"{sorted(twins.shapes['full_search'])}, max_abs_err "
           f"{twins.err['full_search']} / {twins.err['refine']}", flush=True)
+    print(f"shard phase: P body kernel launches {pb}; == plain twin on "
+          f"{ {n: twins.calls[n] for n in P_KERNELS} } calls, MB grids "
+          f"{sorted(twins.shapes['p_residual'])}, max_abs_err "
+          f"{ {n: twins.err[n] for n in P_KERNELS} }", flush=True)
     if enc_db != SHARD_BANDS or db - enc_db != n_dec or gop:
         raise SystemExit(f"shard: deblock launches {enc_db} (step) and "
                          f"{db - enc_db} (decode), GOP kernel {gop}; "
@@ -1380,7 +1726,13 @@ def shard_phase(torch):
                          f"refinement launches, twin checks {twins.calls} "
                          f"at {twins.shapes}; expected {SHARD_BANDS} of "
                          f"each at 120x17 MBs")
-    return db, me, twins, planes
+    if pb != dict.fromkeys(P_KERNELS, SHARD_BANDS) or \
+            any(twins.calls[n] != SHARD_BANDS or
+                twins.shapes[n] != {(120, 17)} for n in P_KERNELS):
+        raise SystemExit(f"shard: P body kernel launches {pb}, twin checks "
+                         f"{twins.calls} at {twins.shapes}; expected "
+                         f"{SHARD_BANDS} of each at 120x17 MBs")
+    return db, me, twins, planes, pb
 
 
 def shard_rates(torch, card, planes):
@@ -1507,6 +1859,17 @@ def main() -> int:
               f"(spill) memory per thread, {a[2]} bytes of static and "
               f"{a[3]} of dynamic shared memory, blocks of {a[4]} threads, "
               f"a grid of {a[5]} x {a[6]} blocks at 1080p", flush=True)
+    p_attrs = (ctypes.c_int * 20)()
+    rc = kernels.load().hl_p_encode_attributes(p_attrs)
+    if rc != 0:
+        raise SystemExit(f"P body kernel attributes: CUDA error {rc} "
+                         f"({kernels.error_string(rc)})")
+    for i, name in enumerate(P_KERNELS.values()):
+        a = p_attrs[5 * i:5 * i + 5]
+        print(f"P body kernel {name}: {a[0]} registers, {a[1]} bytes of "
+              f"local (spill) memory per thread, {a[2]} bytes of static and "
+              f"{a[3]} of dynamic shared memory, blocks of {a[4]} threads",
+              flush=True)
     simd = sass_simd(lib, "k_full_search")
     print(f"full search kernel SASS: {simd}", flush=True)
     if simd is not None and not any(simd.values()):
@@ -1518,12 +1881,15 @@ def main() -> int:
     in_err, (in_ms, in_plain_ms, in_bound_ms, in_bound_by) = \
         intra_phase(torch, card)
     me_err, me_times = me_phase(torch, card)
+    p_err, p_times = p_phase(torch, card)
     launches = slice_phase(torch)
     scan_phase(torch)
-    db_launches, in_launches, fs_launches, rf_launches = encode_phase(torch)
+    db_launches, in_launches, fs_launches, rf_launches, pb_launches = \
+        encode_phase(torch)
+    p_picture_kernels(torch, card)
     t_svc = time.perf_counter()
-    svc_launches, svc_db, svc_in, svc_me, svc_stream, clips, twins = \
-        svc_phase(torch)
+    svc_launches, svc_db, svc_in, svc_me, svc_stream, clips, twins, \
+        svc_pb = svc_phase(torch)
     svc_s = time.perf_counter() - t_svc
     for name in ENCODE_MAIN:
         encode_fps(torch, name, card)
@@ -1533,7 +1899,7 @@ def main() -> int:
     svc_fps(torch, card, svc_stream, clips)
     svc_s += time.perf_counter() - t_svc
     t_shard = time.perf_counter()
-    shard_db, shard_me, shard_twins, planes = shard_phase(torch)
+    shard_db, shard_me, shard_twins, planes, shard_pb = shard_phase(torch)
     shard_rates(torch, card, planes)
     shard_s = time.perf_counter() - t_shard
     print(f"chip_smoke: all phases passed in "
@@ -1587,7 +1953,35 @@ def main() -> int:
               ("refine_subpel_rounds_fast", "refine",
                "hartallo_tpu/encode/me.py:124 refine_subpel (XLA, two "
                "rounds in p_device.p_frame_device)", rf_launches,
-               svc_me[1], shard_me[1])))]}))
+               svc_me[1], shard_me[1]))),
+        *({"name": name, "route": "cuda",
+           "source": "hartallo_tpu_torch/csrc/p_encode.cu",
+           "replaces": replaces,
+           "launches": pb_launches[key] + svc_pb[key] + shard_pb[key],
+           "launches_by_path": {"encode": pb_launches[key],
+                                "svc": svc_pb[key],
+                                "shard": shard_pb[key]},
+           "max_abs_err": max(p_err[key], twins.err[key],
+                              shard_twins.err[key]),
+           "ms": p_times[key][0], "plain_ms": p_times[key][1],
+           "bound_ms": p_times[key][2], "bound_by": p_times[key][3],
+           "library_ms": None}
+          for name, key, replaces in (
+              ("partition_decide_fast", "part_decide",
+               "hartallo_tpu/encode/p_device.py:79 the partition decision "
+               "(XLA, in e_device.p_gop_fused)"),
+              ("halfpel_planes_fast", "halfpel",
+               "hartallo_tpu/ops/wide.py:49 halfpel_planes (XLA, in "
+               "p_device.p_frame_device)"),
+              ("p_residual_fast", "p_residual",
+               "hartallo_tpu/encode/p_device.py:114 MC, residual and recon "
+               "(decode/inter_recon.py:31, ops/transform.py) and "
+               "e_device.py:178 the intra-in-P estimate (XLA, in "
+               "e_device.p_gop_fused)"),
+              ("deblock_params_fast", "deblock_params",
+               "hartallo_tpu/ops/deblock.py:44 compute_bs and "
+               "ops/deblock_pallas.py:274 _edge_params (in "
+               "e_device.deblock_recon_device)")))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,9 @@
 //            rows two MBs apart, each MB filtered in shared memory.
 //   half-pel one thread per sample of the padded luma plane computes G and
 //            the b/h/j 6-tap grids straight from the deblocked picture
-//            with clamped coordinates, and writes them to the ring slot.
+//            with clamped coordinates (halfpel_prims.cuh, shared with
+//            the encoder's k_halfpel_enc), and writes them to the ring
+//            slot.
 //   output   one thread per output sample of the cropped I420 row layout.
 // What bounds it on the H100: bytes, about 1.6 MB a CIF picture (the
 // payload, the reference slot read by MC, the slot written and the output)
@@ -43,12 +45,12 @@
 #include <cuda_runtime.h>
 
 #include "deblock_wavefront.cuh"
+#include "halfpel_prims.cuh"
 
 namespace {
 
 using hl::NAUX;
 using hl::PAD;
-__constant__ int TAPS[6] = {1, -5, 20, 20, -5, 1};
 
 // stage bits (the Python wrapper maps the stage letters onto them)
 constexpr int ST_MC = 1, ST_RES = 2, ST_INTRA = 4, ST_DEBLOCK = 8,
@@ -341,17 +343,12 @@ k_intra(const int32_t* __restrict__ sf, const int32_t* __restrict__ ilist,
 // Half-pel stack [G, b, h, j] of the edge-padded luma, and the padded
 // chroma, into ring slot wslot; cropped output row.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ int gsamp(const int32_t* py, const Geo& g, int y,
-                                     int x) {
-  return py[(PAD + hl::clip3(0, g.H - 1, y - PAD)) * g.Wp + PAD +
-            hl::clip3(0, g.W - 1, x - PAD)];
-}
-
-__device__ __forceinline__ int h1(const int32_t* py, const Geo& g, int y,
-                                  int x) {
-  int acc = 0;
-  for (int i = 0; i < 6; ++i) acc += TAPS[i] * gsamp(py, g, y, x - 2 + i);
-  return acc;
+// the work plane with the picture's box: the pad is not filled here, so
+// a tap outside the picture reads the nearest picture sample
+// (halfpel_prims.cuh)
+__device__ __forceinline__ ClampedPlane picture_box(const int32_t* py,
+                                                   const Geo& g) {
+  return {py, g.Wp, PAD, PAD + g.H - 1, PAD, PAD + g.W - 1};
 }
 
 __global__ void k_halfpel(const int32_t* __restrict__ sf,
@@ -360,23 +357,20 @@ __global__ void k_halfpel(const int32_t* __restrict__ sf,
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= g.Hp * g.Wp) return;
   const int y = t / g.Wp, x = t % g.Wp;
-  const int G = gsamp(py, g, y, x);
+  const ClampedPlane box = picture_box(py, g);
+  const int G = hp_at(box, y, x);
   int H1 = G, V1 = G, J1 = G;
   if (sixtap) {
-    H1 = h1(py, g, y, x);
-    V1 = 0;
-    J1 = 0;
-    for (int j = 0; j < 6; ++j) {
-      V1 += TAPS[j] * gsamp(py, g, y - 2 + j, x);
-      J1 += TAPS[j] * h1(py, g, y - 2 + j, x);
-    }
+    H1 = hp_h1(box, y, x);
+    V1 = hp_v1(box, y, x);
+    J1 = hp_j1(box, y, x);
   }
   const size_t plane = (size_t)g.HrY * g.WrY;
   uint8_t* slot = ringY + (size_t)sf[0] * 4 * plane + (size_t)y * g.WrY + x;
   slot[0] = (uint8_t)G;
-  slot[plane] = (uint8_t)hl::clip3(0, 255, (H1 + 16) >> 5);
-  slot[2 * plane] = (uint8_t)hl::clip3(0, 255, (V1 + 16) >> 5);
-  slot[3 * plane] = (uint8_t)hl::clip3(0, 255, (J1 + 512) >> 10);
+  slot[plane] = (uint8_t)hp_round5(H1);
+  slot[2 * plane] = (uint8_t)hp_round5(V1);
+  slot[3 * plane] = (uint8_t)hp_round10(J1);
 }
 
 __global__ void k_pad_chroma(const int32_t* __restrict__ sf,

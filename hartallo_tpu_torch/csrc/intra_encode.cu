@@ -70,6 +70,9 @@
 //   source and neighbours, the Intra16x16 recon and both sets of levels,
 //   and the warps' scratch (10.4 KB).
 //
+// The forward transform, quantiser, dequantiser and inverse transform
+// steps are shared with p_encode.cu (transform_prims.cuh).
+//
 // Rounding.  The costs are the only floating-point values.  nvcc contracts
 // a*b + c into an FMA by default, and the twin rounds every operation, so
 // each cost is spelt with __fadd_rn / __fmul_rn in the twin's order:
@@ -82,6 +85,7 @@
 #include <cuda_runtime.h>
 
 #include "device_prims.cuh"
+#include "transform_prims.cuh"
 
 namespace {
 
@@ -143,8 +147,6 @@ struct Args {
   int gw, gh, cqo;
 };
 
-__device__ __forceinline__ int clip255(int v) { return min(max(v, 0), 255); }
-
 __device__ __forceinline__ int warp_sum(int v) {
   return (int)__reduce_add_sync(FULL, (unsigned)v);
 }
@@ -169,15 +171,6 @@ __device__ __forceinline__ int dc_rule(bool at, bool al, int ts, int ls,
   return 128;
 }
 
-// row u, column i of the forward core transform's matrix
-// (1,1,1,1) (2,1,-1,-2) (1,-1,-1,1) (1,-2,2,-1)
-__device__ __forceinline__ int fwd_coef(int u, int i) {
-  if (u == 0) return 1;
-  if (u == 2) return (i == 0 || i == 3) ? 1 : -1;
-  if (u == 1) return i == 0 ? 2 : i == 1 ? 1 : i == 2 ? -1 : -2;
-  return i == 0 ? 1 : i == 1 ? -2 : i == 2 ? 2 : -1;
-}
-
 // row u, column i of the 4x4 Hadamard matrix
 // (1,1,1,1) (1,1,-1,-1) (1,-1,-1,1) (1,-1,1,-1)
 __device__ __forceinline__ int had_coef(int u, int i) {
@@ -185,20 +178,6 @@ __device__ __forceinline__ int had_coef(int u, int i) {
   if (u == 1) return i < 2 ? 1 : -1;
   if (u == 2) return (i == 0 || i == 3) ? 1 : -1;
   return (i == 0 || i == 2) ? 1 : -1;
-}
-
-// element (u, v) of C X C^T for the 4x4 block at x (row stride `stride`)
-// (ops/transform.forward_dct_4x4: integer, so any order of the sums)
-__device__ __forceinline__ int fdct(const int* x, int stride, int u, int v) {
-  int acc = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    int t = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) t += fwd_coef(u, i) * x[i * stride + j];
-    acc += fwd_coef(v, j) * t;
-  }
-  return acc;
 }
 
 // element (u, v) of H X H for the 4x4 matrix at x (ops/transform
@@ -211,34 +190,6 @@ __device__ __forceinline__ int hadamard4(const int* x, int u, int v) {
     for (int j = 0; j < 4; ++j)
       acc += had_coef(u, i) * had_coef(v, j) * x[i * 4 + j];
   return acc;
-}
-
-// element (r, s) of the 2x2 Hadamard of the matrix at x
-// (ops/transform._hadamard_2x2)
-__device__ __forceinline__ int hadamard2(const int* x, int r, int s) {
-  const int a = x[0] + (r ? -x[2] : x[2]);
-  const int b = x[1] + (r ? -x[3] : x[3]);
-  return s ? a - b : a + b;
-}
-
-// element k of one 1-D stage of the inverse core transform (8.5.12.2)
-__device__ __forceinline__ int ict(int d0, int d1, int d2, int d3, int k) {
-  const int e0 = d0 + d2, e1 = d0 - d2;
-  const int e2 = (d1 >> 1) - d3, e3 = d1 + (d3 >> 1);
-  return k == 0 ? e0 + e3 : k == 1 ? e1 + e2 : k == 2 ? e1 - e2 : e0 - e3;
-}
-
-// sign(w) * ((|w| * mf + f) >> qbits) (ops/transform.forward_quant_4x4)
-__device__ __forceinline__ int quant(int w, int mf, int f, int qbits) {
-  const int z = ((w < 0 ? -w : w) * mf + f) >> qbits;
-  return w < 0 ? -z : (w > 0 ? z : 0);
-}
-
-// 8.5.12.1 flat-list dequant of level c; ls = 16 * QUANT_V entry
-__device__ __forceinline__ int dequant(int c, int ls, int qp) {
-  const int qdiv = qp / 6;
-  return qp >= 24 ? c * ls * (1 << (qdiv - 4))
-                  : (c * ls + (1 << (3 - qdiv))) >> (4 - qdiv);
 }
 
 // A float as an unsigned key of the same order (no NaN reaches it)

@@ -4,11 +4,15 @@ per-MB array packed into one int16 buffer (one device-to-host copy per
 picture).
 
 Port of ``hartallo_tpu/encode/e_device.py``.  The intra wavefront is
-``encode/intra_encode_fast.intra_encode_frame_fast`` and the in-loop
-deblock ``ops/deblock_fast.deblock_frame_fast``: each a CUDA kernel on a
-CUDA device, its plain twin on the CPU.  ``p_gop_fused``'s ``lax.scan``
-is a Python loop over the pictures, and the intra-in-P ``lax.cond`` is a
-Python ``if`` on the device's answer (a host sync per P picture).
+``encode/intra_encode_fast.intra_encode_frame_fast``, the P picture's
+search, residual and intra-in-P mask ``p_device.p_frame_with_mask``, and
+the in-loop deblock ``encode/p_body_fast.deblock_params_fast`` (bS and
+thresholds) then ``ops/deblock_fast.deblock_frame_aux_fast`` (the
+filter): each a CUDA kernel on a CUDA device, its plain twin on the
+CPU.  What stays eager here is the source split, the intra merge, the
+repad, the pack and the MAD.  ``p_gop_fused``'s ``lax.scan`` is a Python
+loop over the pictures, and the intra-in-P ``lax.cond`` is a Python
+``if`` on the device's answer (a host sync per P picture).
 Reference counterpart: the per-slice encode loop
 ``hl_codec_264_slice.c:1700-1930`` and the deblock at completion
 (``:1897-1903``).
@@ -22,10 +26,11 @@ from hartallo_tpu_torch.decode.intra_recon import PAD
 from hartallo_tpu_torch.encode.intra_encode import qpc_of
 from hartallo_tpu_torch.encode.intra_encode_fast import \
     intra_encode_frame_fast
-from hartallo_tpu_torch.encode.p_device import p_frame_device
-from hartallo_tpu_torch.ops.deblock import compute_bs
-from hartallo_tpu_torch.ops.deblock_fast import deblock_frame_fast
-from hartallo_tpu_torch.ops.math import satd4x4
+from hartallo_tpu_torch.encode.p_body_fast import deblock_params_fast
+from hartallo_tpu_torch.encode.p_device import p_frame_with_mask
+from hartallo_tpu_torch.ops.deblock import compute_bs, edge_params
+from hartallo_tpu_torch.ops.deblock_fast import (deblock_frame_aux_fast,
+                                                 deblock_frame_fast)
 from hartallo_tpu_torch.ops.wide import _RASTER_TO_BLK, pad_edge
 
 # packed-buffer layout: name -> per-MB trailing shape
@@ -79,12 +84,33 @@ def _shift_map(a: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([first, a.narrow(dim, 0, a.shape[dim] - 1)], dim=dim)
 
 
+def _edge_flags(fmb_v, fmb_h, gw: int, gh: int, dev):
+    """The MB edge flags as bool tensors on ``dev``; None is every MB edge
+    inside the picture."""
+    if fmb_v is None:
+        fmb_v = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
+        fmb_v[:, 1:] = True
+    if fmb_h is None:
+        fmb_h = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
+        fmb_h[1:, :] = True
+    return torch.as_tensor(fmb_v, device=dev), \
+        torch.as_tensor(fmb_h, device=dev)
+
+
+def _qp_maps(qp, chroma_qp_off: int):
+    """The QP maps of ``deblock_frame_fast`` / ``edge_params``: the MB's,
+    its left and top neighbours' (the edge MB its own), and the same of
+    the chroma QP."""
+    qpc = qpc_of(qp, chroma_qp_off)
+    return (qp, _shift_map(qp, 1), _shift_map(qp, 0), qpc,
+            _shift_map(qpc, 1), _shift_map(qpc, 0))
+
+
 def deblock_grids(planes, mb_is_intra, nnz, mvg, refg, qp, chroma_qp_off,
                   gw: int, gh: int, fmb_v=None, fmb_h=None, fint=None,
                   alpha_off=None, beta_off=None):
     """One frame deblock through ``deblock_frame_fast`` from per-4x4
-    grids, on the device: the encoder's in-loop deblock and the decoder's
-    general route.
+    grids, on the device: the decoder's general route.
 
     nnz (4gh,4gw) luma TotalCoeff; mvg (4gh,4gw,2) quarter-pel MVs; refg
     (4gh,4gw) refIdx; mb_is_intra, fmb_v, fmb_h, fint (gh,gw) bool (the
@@ -95,40 +121,52 @@ def deblock_grids(planes, mb_is_intra, nnz, mvg, refg, qp, chroma_qp_off,
     dev = qp.device
     if fint is None:
         fint = torch.ones((gh, gw), dtype=torch.bool, device=dev)
-    if fmb_v is None:
-        fmb_v = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
-        fmb_v[:, 1:] = True
-    if fmb_h is None:
-        fmb_h = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
-        fmb_h[1:, :] = True
     bs_v, bs_h = compute_bs(mb_is_intra, nnz, mvg, refg,
-                            torch.as_tensor(fmb_v, device=dev),
-                            torch.as_tensor(fmb_h, device=dev), fint)
-    qpc = qpc_of(qp, chroma_qp_off)
+                            *_edge_flags(fmb_v, fmb_h, gw, gh, dev), fint)
     zeros = torch.zeros((gh, gw), dtype=torch.int32, device=dev)
     return deblock_frame_fast(
-        planes, bs_v, bs_h, qp, _shift_map(qp, 1), _shift_map(qp, 0), qpc,
-        _shift_map(qpc, 1), _shift_map(qpc, 0),
+        planes, bs_v, bs_h, *_qp_maps(qp, chroma_qp_off),
         zeros if alpha_off is None else alpha_off,
         zeros if beta_off is None else beta_off, gw=gw, gh=gh)
 
 
-def deblock_recon_device(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
-                         planes, gw: int, gh: int, fmb_v=None, fmb_h=None):
-    """In-loop deblock of the encoder recon, on the device.
-
-    wq (gh,gw,16,4,4) quantized luma AC (blkIdx order); mv44
-    (gh,gw,4,4,2) quarter-pel MVs; ref44 (gh,gw,4,4) per-4x4 refIdx;
-    mb_is_intra (gh,gw) bool; qp (gh,gw) int32; planes PAD-padded int32.
-    Returns the new planes."""
+def deblock_params(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
+                   fmb_v=None, fmb_h=None, *, gw: int, gh: int):
+    """The in-loop deblock's per-MB parameters of a coded picture: the
+    luma TotalCoeff of its 4x4 blocks, ``compute_bs`` and ``edge_params``
+    (slice offsets 0), as (gh, gw, NAUX) int16 rows.  The plain twin of
+    ``p_body_fast.deblock_params_fast``; arguments as
+    ``deblock_recon_device``'s."""
     dev = wq.device
     counts = (wq != 0).sum(dim=(-1, -2)).to(torch.int32)    # (gh,gw,16)
     nnz = counts[:, :, torch.as_tensor(_RASTER_TO_BLK, device=dev)] \
         .reshape(gh, gw, 4, 4).permute(0, 2, 1, 3).reshape(4 * gh, 4 * gw)
     mvg = mv44.permute(0, 2, 1, 3, 4).reshape(4 * gh, 4 * gw, 2)
     refg = ref44.permute(0, 2, 1, 3).reshape(4 * gh, 4 * gw)
-    return deblock_grids(planes, mb_is_intra, nnz, mvg, refg, qp,
-                         chroma_qp_off, gw, gh, fmb_v=fmb_v, fmb_h=fmb_h)
+    bs_v, bs_h = compute_bs(mb_is_intra, nnz, mvg, refg,
+                            *_edge_flags(fmb_v, fmb_h, gw, gh, dev),
+                            torch.ones((gh, gw), dtype=torch.bool,
+                                       device=dev))
+    zeros = torch.zeros((gh, gw), dtype=torch.int32, device=dev)
+    return edge_params(bs_v, bs_h, *_qp_maps(qp, chroma_qp_off), zeros,
+                       zeros).to(torch.int16)
+
+
+def deblock_recon_device(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
+                         planes, gw: int, gh: int, fmb_v=None, fmb_h=None):
+    """In-loop deblock of the encoder recon, on the device: the parameters
+    (``deblock_params_fast``), then the filter (``deblock_frame_aux_fast``),
+    a kernel each on a CUDA device.
+
+    wq (gh,gw,16,4,4) quantized luma AC (blkIdx order); mv44
+    (gh,gw,4,4,2) quarter-pel MVs; ref44 (gh,gw,4,4) per-4x4 refIdx;
+    mb_is_intra (gh,gw) bool; qp (gh,gw) int32; planes PAD-padded int32.
+    Returns the new planes."""
+    aux = deblock_params_fast(
+        wq, mv44, ref44, mb_is_intra.to(torch.bool),
+        qp.to(torch.int32).contiguous(), chroma_qp_off, fmb_v, fmb_h,
+        gw=gw, gh=gh)
+    return deblock_frame_aux_fast(planes, aux, gw=gw, gh=gh)
 
 
 def _split_src(src_u8, gw: int, gh: int):
@@ -184,23 +222,6 @@ def i_frame_fused(src_u8, qp, lam, avail_l, avail_t, avail_tr, avail_tl,
     return packed, _mad(srcY, recY, H, W), recY, recU, recV
 
 
-def _intra_in_p_mask(srcY, inter_cost, lam, gw: int, gh: int):
-    """MBs to code intra in a P picture: a conservative source-activity
-    estimate (SATD against each 4x4 block's DC, which biases against
-    intra) below the inter ME cost."""
-    H, W = gh * 16, gw * 16
-    src_mb = _interior(srcY, H, W).reshape(gh, 16, gw, 16) \
-        .permute(0, 2, 1, 3)
-    blk = src_mb.reshape(gh, gw, 4, 4, 4, 4).permute(0, 1, 2, 4, 3, 5) \
-        .reshape(gh, gw, 16, 4, 4)
-    # the f32 mean of 16 integers, truncated (exact: the sum is < 2^24)
-    dc = (blk.sum(dim=(-1, -2), keepdim=True).to(torch.float32) / 16.0) \
-        .to(torch.int32)
-    intra_est = satd4x4(blk, dc).sum(-1, dtype=torch.int32) \
-        .to(torch.float32) + lam * 24.0
-    return intra_est < inter_cost
-
-
 def _p_frame_body(src_u8, refY, refU, refV, qp, lam, fmb_v, fmb_h,
                   avail_l=None, avail_t=None, avail_tr=None, avail_tl=None,
                   *, gw: int, gh: int, rng: int, refine: bool,
@@ -211,10 +232,10 @@ def _p_frame_body(src_u8, refY, refU, refV, qp, lam, fmb_v, fmb_h,
     lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
     qp = torch.as_tensor(qp, device=dev).to(torch.int32)
     srcY, srcU, srcV = _split_src(src_u8, gw, gh)
-    (wq, dcq, acq, mv44, choice, recY, recU, recV,
-     inter_cost) = p_frame_device(
-        srcY, srcU, srcV, refY, refU, refV, qp, lam, gw=gw, gh=gh, rng=rng,
-        refine=refine, chroma_qp_off=chroma_qp_off)
+    (wq, dcq, acq, mv44, choice, recY, recU, recV, _), mask = \
+        p_frame_with_mask(srcY, srcU, srcV, refY, refU, refV, qp, lam,
+                          gw=gw, gh=gh, rng=rng, refine=refine,
+                          chroma_qp_off=chroma_qp_off, intra_in_p=intra_in_p)
 
     z = torch.zeros((gh, gw), dtype=torch.int32, device=dev)
     use16, i16m, cmode = z, z, z
@@ -222,8 +243,9 @@ def _p_frame_body(src_u8, refY, refU, refV, qp, lam, fmb_v, fmb_h,
     ldc = torch.zeros((gh, gw, 4, 4), dtype=torch.int32, device=dev)
     imask = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
     if intra_in_p:
-        # ---- intra-in-P: per-MB intra vs inter (hl_codec_264_slice.c:1797)
-        imask = _intra_in_p_mask(srcY, inter_cost, lam, gw, gh)
+        # ---- intra-in-P: per-MB intra vs inter (hl_codec_264_slice.c:1797),
+        # the mask from the residual's kernel (p_device.intra_in_p_mask)
+        imask = mask
         if avail_l is None:
             avail_l = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
             avail_l[:, 1:] = True

@@ -20,7 +20,8 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "kernels"
 LIB = BUILD_DIR / "libhl_kernels.so"
-SOURCES = ("d_gop.cu", "deblock.cu", "intra_encode.cu", "me_search.cu")
+SOURCES = ("d_gop.cu", "deblock.cu", "intra_encode.cu", "me_search.cu",
+           "p_encode.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -100,6 +101,16 @@ def load():
         lib.hl_refine_subpel.argtypes = [P] * 7 + [I] * 10 + [P]
         lib.hl_me_attributes.restype = I
         lib.hl_me_attributes.argtypes = [P]
+        lib.hl_part_decide.restype = I
+        lib.hl_part_decide.argtypes = [P] * 13 + [I, P]
+        lib.hl_halfpel_enc.restype = I
+        lib.hl_halfpel_enc.argtypes = [P, I, I, I, P, P]
+        lib.hl_p_residual.restype = I
+        lib.hl_p_residual.argtypes = [P] * 18 + [I] * 13 + [P]
+        lib.hl_deblock_params.restype = I
+        lib.hl_deblock_params.argtypes = [P] * 9 + [I] * 3 + [P]
+        lib.hl_p_encode_attributes.restype = I
+        lib.hl_p_encode_attributes.argtypes = [P]
         lib.hl_cuda_error_string.restype = ctypes.c_char_p
         lib.hl_cuda_error_string.argtypes = [I]
         _lib = lib

@@ -8,8 +8,10 @@ parameters with ``ops/deblock.edge_params`` (int16 is lossless: alpha <=
 255, beta <= 18, tc0 <= 25, bS <= 4) and launches the row-wavefront
 kernel of ``csrc/deblock.cu`` (one warp per MB row, a cooperative
 launch) on the planes' current CUDA stream.  On CPU
-tensors it runs ``deblock_frame_fast_plain``.  There is no other branch:
-a failed build or launch raises.
+tensors it runs ``deblock_frame_fast_plain``.  ``deblock_frame_aux_fast``
+launches the same kernel on parameters gathered already (the encoder's
+in-loop deblock, whose ``csrc/p_encode.cu`` kernel gathers them).  There
+is no other branch: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -17,8 +19,8 @@ import ctypes
 
 import torch
 
-from hartallo_tpu_torch.ops.deblock import PAD, deblock_frame_s1, \
-    edge_params
+from hartallo_tpu_torch.ops.deblock import PAD, deblock_filter, \
+    deblock_frame_s1, edge_params
 
 LAUNCHES = 0         # frames deblocked by the CUDA kernel in this process
 
@@ -46,6 +48,29 @@ def deblock_frame_fast(planes, bs_v, bs_h, qp_y, qp_left, qp_top,
     aux = edge_params(bs_v, bs_h, qp_y, qp_left, qp_top, qpc_cur, qpc_left,
                       qpc_top, alpha_off, beta_off).to(torch.int16)
     return _launch(aux.contiguous(), planes, gw=gw, gh=gh)
+
+
+def deblock_frame_aux_plain(planes, aux, *, gw: int, gh: int):
+    """The plain twin of ``deblock_frame_aux_fast``: ``deblock_filter`` on
+    copies of the planes."""
+    return deblock_filter(tuple(p.to(torch.int32).clone() for p in planes),
+                          aux, gw=gw, gh=gh)
+
+
+def deblock_frame_aux_fast(planes, aux, *, gw: int, gh: int):
+    """Deblock one frame with its parameters already gathered: ``aux``
+    (gh, gw, NAUX), the rows of ``edge_params`` (int16 on a CUDA device:
+    ``p_body_fast.deblock_params_fast``'s).  CUDA tensors -> the CUDA
+    kernel; CPU tensors -> ``deblock_frame_aux_plain``.  New planes
+    out, the inputs untouched."""
+    kinds = {t.device.type for t in (*planes, aux)}
+    if kinds == {"cpu"}:
+        return deblock_frame_aux_plain(planes, aux, gw=gw, gh=gh)
+    if kinds != {"cuda"}:
+        raise ValueError(f"deblock_frame_aux_fast: tensors on "
+                         f"{sorted(kinds)}; all must be on one CUDA device "
+                         "or all on the CPU")
+    return _launch(aux, planes, gw=gw, gh=gh)
 
 
 def _launch(aux, planes, *, gw: int, gh: int):

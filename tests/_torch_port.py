@@ -217,15 +217,16 @@ def cuda_device():
 
 @pytest.fixture
 def twin_checked_deblock(monkeypatch):
-    """Wrap the deblock kernel's entry point where the encoder and the
-    decoder's general route call it (``e_device.deblock_grids``) and where
-    the GOP scan and the sharded decode call it (``d_gop``): every call is
-    held against its plain twin on the same inputs, tolerance 0.  Yields
-    the (gw, gh) of each call."""
+    """Wrap the deblock kernel's entry points where the decoder's general
+    route calls it (``e_device.deblock_grids``), where the encoder calls
+    it on the gathered parameters (``e_device.deblock_recon_device``) and
+    where the GOP scan and the sharded decode call it (``d_gop``): every
+    call is held against its plain twin on the same inputs, tolerance 0.
+    Yields the (gw, gh) of each call."""
     from hartallo_tpu_torch.decode import d_gop as G
     from hartallo_tpu_torch.encode import e_device as E
     from hartallo_tpu_torch.ops import deblock_fast as D
-    real = E.deblock_frame_fast
+    real, real_aux = E.deblock_frame_fast, E.deblock_frame_aux_fast
     calls = []
 
     def checked(planes, *rest, gw, gh):
@@ -234,7 +235,15 @@ def twin_checked_deblock(monkeypatch):
         assert all(bool((g == w).all()) for g, w in zip(got, want))
         calls.append((gw, gh))
         return got
+
+    def checked_aux(planes, aux, *, gw, gh):
+        got = real_aux(planes, aux, gw=gw, gh=gh)
+        want = D.deblock_frame_aux_plain(planes, aux, gw=gw, gh=gh)
+        assert all(bool((g == w).all()) for g, w in zip(got, want))
+        calls.append((gw, gh))
+        return got
     monkeypatch.setattr(E, "deblock_frame_fast", checked)
+    monkeypatch.setattr(E, "deblock_frame_aux_fast", checked_aux)
     monkeypatch.setattr(G, "deblock_frame_fast", checked)
     return calls
 
@@ -342,3 +351,24 @@ def me_refine_maps(gw: int, gh: int, seed: int, nparts: int = 4,
     r = np.random.default_rng(seed)
     return (r.integers(-mv_max, mv_max + 1, (gh, gw, 16, 2)).astype(np.int32),
             r.integers(0, nparts, (gh, gw, 16)).astype(np.int32))
+
+
+def fs_case(gw, gh, seed, mv_max=30, tie=False):
+    """Seeded full-search outputs (numpy, ``full_search_int``'s order and
+    types): integer costs, with ``tie`` costs that make every partition
+    scheme cost the same at lambda 0 for a third of the MBs."""
+    r = np.random.default_rng(seed)
+
+    def cost(*shape):
+        return r.integers(0, 4000, (gh, gw, *shape)).astype(np.float32)
+
+    def mv(*shape):
+        return r.integers(-mv_max, mv_max + 1, (gh, gw, *shape, 2)) \
+            .astype(np.int32)
+    fs = [cost(), mv(), cost(2), mv(2), cost(2), mv(2), cost(4), mv(4)]
+    if tie:
+        same = r.random((gh, gw)) < 0.34
+        for k in (2, 4, 6):
+            fs[k][same] = np.float32(0)
+            fs[k][same, 0] = fs[0][same]
+    return fs

@@ -200,16 +200,16 @@ def test_cuda_kernel_equals_plain_twin(cuda_device, label):
 def test_cuda_encode_launches_per_intra_picture(cuda_device, monkeypatch,
                                                  name):
     from hartallo_tpu_torch.api import Codec, CodecConfig
-    from hartallo_tpu_torch.encode import e_device as E
     from hartallo_tpu_torch.encode import intra_encode_fast as F
+    from hartallo_tpu_torch.encode import p_device as PD
     want, meta = load_fixture(name)
-    real, intra_p = E._intra_in_p_mask, []
+    real, intra_p = PD.p_residual_fast, []
 
     def counted(*args, **kw):
-        mask = real(*args, **kw)
-        intra_p.append(bool(mask.any()))
-        return mask
-    monkeypatch.setattr(E, "_intra_in_p_mask", counted)
+        out = real(*args, **kw)
+        intra_p.append(bool(out[-1].any()))   # the intra-in-P mask
+        return out
+    monkeypatch.setattr(PD, "p_residual_fast", counted)
     W, H, NF = meta["width"], meta["height"], meta["frames"]
     extra = {k: meta[k] for k in ("slices",) if k in meta}
     codec = Codec(CodecConfig(width=W, height=H, qp=meta["qp"], gop_size=NF,

@@ -75,7 +75,8 @@ def emulated():
     lib = out / "libemu_intra.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-w",
                     "-shared", "-fPIC", "-pthread", f"-I{TESTS}",
-                    f"-I{out}", "-o", str(lib), str(out / "harness.cpp")],
+                    f"-I{out}", f"-I{SOURCE.parent}", "-o", str(lib),
+                    str(out / "harness.cpp")],
                    check=True, capture_output=True, timeout=300)
     dll = ctypes.CDLL(str(lib))
     dll.emu_intra_encode_frame.restype = ctypes.c_int

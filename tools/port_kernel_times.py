@@ -3,7 +3,7 @@ in one run.
 
     python tools/port_kernel_times.py dump PAYLOADS.npz
     python tools/port_kernel_times.py time PAYLOADS.npz [--tree DIR] [--plain]
-        [--intra-only | --me-only]
+        [--intra-only | --me-only | --p-only]
 
 ``dump`` parses the fixtures with this tree's decoder (nothing is
 decoded) and stores the GOP kernel's payloads: the 16 pictures of
@@ -45,9 +45,20 @@ limit:
 - each kernel's bound (``chip_smoke.gop_bound`` / ``deblock_bound`` /
   ``intra_bound`` / ``me_bound``).
 
-``--intra-only`` times the intra encode kernel alone and ``--me-only``
-the motion search kernels alone (for turns of two trees on one card);
-the payloads are then not read.
+- the P-picture body on ``chip_smoke.p_inputs`` at CIF, 720p and 1080p
+  (P_TIMED): one ``p_device.p_frame_device`` call (the search, the
+  partition decision, the refinement and the residual of one P picture)
+  and one ``e_device.deblock_recon_device`` call on its outputs, µs per
+  picture (CUDA events), on any tree; and where the tree has
+  ``encode/p_body_fast``, each of its four kernels on the path's inputs
+  (``chip_smoke.p_check``): µs per picture with the wrapper, alone and
+  the wrapper's host time, the plain twin's with ``--plain``, and its
+  bound (``chip_smoke.p_bound``).
+
+``--intra-only`` times the intra encode kernel alone, ``--me-only`` the
+motion search kernels alone and ``--p-only`` the P-picture body alone
+(for turns of two trees on one card: parent, tree, tree, parent); the
+payloads are then not read.
 """
 from __future__ import annotations
 
@@ -97,8 +108,55 @@ def _payloads(path: str):
     return out
 
 
+def time_p_body(res: dict, plain: bool) -> None:
+    """The P-picture body's entries of ``res`` (see the top)."""
+    import torch
+
+    from chip_smoke import (P_CASES, P_KERNELS, P_TIMED, event_ms, host_us,
+                            kernel_us, p_bound, p_case_tensors, p_check)
+    from hartallo_tpu_torch.encode import e_device as E
+    from hartallo_tpu_torch.encode import p_device as PD
+    fast = importlib.util.find_spec(
+        "hartallo_tpu_torch.encode.p_body_fast") is not None
+    for key in ("p_frame_us", "deblock_recon_us"):
+        res[key] = {}
+    for n in P_KERNELS if fast else ():
+        for k in ("us", "kernel_us", "host_us", "plain_us", "bound_us"):
+            res.setdefault(f"{n}_{k}", {})
+    for k, (label, _, _, _) in enumerate(P_CASES):
+        if label not in P_TIMED:
+            continue
+        _, gw, gh, t = p_case_tensors(torch, k)
+        args = (*t["src"], *t["ref"], t["qp"], t["lam"])
+        kw = dict(gw=gw, gh=gh, rng=t["rng"], refine=True,
+                  chroma_qp_off=t["cqo"])
+        out = PD.p_frame_device(*args, **kw)
+        wq, mv44, planes = out[0], out[3], out[5:8]
+        ref44 = torch.zeros((gh, gw, 4, 4), dtype=torch.int32, device="cuda")
+        res["p_frame_us"][label] = 1e3 * event_ms(
+            torch, lambda: PD.p_frame_device(*args, **kw), 5)
+        res["deblock_recon_us"][label] = 1e3 * event_ms(
+            torch, lambda: E.deblock_recon_device(
+                wq, mv44, ref44, t["intra"], t["qp"], t["cqo"], planes, gw,
+                gh), 5)
+        if not fast:
+            continue
+        for n, (_, same, ms, fn) in p_check(torch, label, gw, gh,
+                                            t).items():
+            if not same:
+                raise SystemExit(f"{n} != its twin at {label}")
+            res[f"{n}_us"][label] = 1e3 * event_ms(torch, fn, 10)
+            res[f"{n}_kernel_us"][label] = kernel_us(torch, fn, 10,
+                                                     P_KERNELS[n])
+            res[f"{n}_host_us"][label] = host_us(fn, 10)
+            res[f"{n}_bound_us"][label] = 1e3 * p_bound(n, gw, gh)[0]
+            if plain:
+                res[f"{n}_plain_us"][label] = 1e3 * ms
+
+
 def time_kernels(path: str, tree: str, plain: bool,
-                 intra_only: bool = False, me_only: bool = False) -> None:
+                 intra_only: bool = False, me_only: bool = False,
+                 p_only: bool = False) -> None:
     sys.path.insert(0, str(REPO))
     import numpy as np
     import torch
@@ -133,7 +191,7 @@ def time_kernels(path: str, tree: str, plain: bool,
            "refine_plain_us": {}, "refine_bound_us": {},
            "refine_seeded_us": {}, "refine_seeded_kernel_us": {},
            "refine_seeded_host_us": {}}
-    alone = intra_only or me_only
+    alone = intra_only or me_only or p_only
     for key, (pay, gw, gh, S) in ({} if alone else
                                   _payloads(path)).items():
         K = pay["sf"].shape[0]
@@ -169,7 +227,7 @@ def time_kernels(path: str, tree: str, plain: bool,
             res["deblock_plain_us"][name] = 1e3 * event_ms(
                 torch, lambda: D.deblock_frame_fast_plain(tp, *ta, gw=gw,
                                                           gh=gh), 1)
-    if not me_only and importlib.util.find_spec(
+    if not (me_only or p_only) and importlib.util.find_spec(
             "hartallo_tpu_torch.encode.intra_encode_fast") is not None:
         from hartallo_tpu_torch.encode import intra_encode_fast as IF
         grids = {}
@@ -195,7 +253,7 @@ def time_kernels(path: str, tree: str, plain: bool,
         for name, (gw, gh) in grids.items():
             res["intra_chain_floor_us"][name] = None if mb_us is None \
                 else (gw + 2 * gh - 2) * mb_us
-    if not intra_only and importlib.util.find_spec(
+    if not (intra_only or p_only) and importlib.util.find_spec(
             "hartallo_tpu_torch.encode.me_fast") is not None:
         from hartallo_tpu_torch.encode import me as M
         from hartallo_tpu_torch.encode import me_fast as MF
@@ -260,6 +318,8 @@ def time_kernels(path: str, tree: str, plain: bool,
             res["refine_seeded_kernel_us"][name] = kernel_us(
                 torch, refine, 10, "k_refine", 1 if rounds else 2)
             res["refine_seeded_host_us"][name] = host_us(refine, 10)
+    if not (intra_only or me_only):
+        time_p_body(res, plain)
     print(json.dumps(res), flush=True)
 
 
@@ -270,7 +330,8 @@ def main(argv) -> None:
         tree = argv[argv.index("--tree") + 1] if "--tree" in argv else \
             str(REPO)
         time_kernels(argv[1], tree, "--plain" in argv,
-                     "--intra-only" in argv, "--me-only" in argv)
+                     "--intra-only" in argv, "--me-only" in argv,
+                     "--p-only" in argv)
     else:
         raise SystemExit(__doc__)
 

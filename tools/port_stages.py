@@ -119,3 +119,59 @@ def busy_share(body, pictures: int, top: int = 8) -> dict:
     heavy = sorted(dev.items(), key=lambda kv: -kv[1])[:top]
     return {"busy_share": sum(dev.values()) / (wall * 1e3),
             "device_ms_per_picture": {k: v / pictures for k, v in heavy}}
+
+
+def hand_kernels() -> set:
+    """The names of the ``__global__`` functions in the ``csrc`` of the
+    ``hartallo_tpu_torch`` that is imported: the port's hand kernels."""
+    import re
+
+    import hartallo_tpu_torch
+    csrc = pathlib.Path(hartallo_tpu_torch.__file__).parent / "csrc"
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                     r"\s*)?(\w+)")
+    return {m.group(1) for f in sorted(csrc.glob("*.cu*"))
+            for m in pat.finditer(f.read_text())}
+
+
+def p_picture_kernels(W: int, H: int, top: int = 12) -> dict:
+    """The device kernels, copies and fills that one P picture of the
+    ``bench.make_clip`` clip at W x H launches (bench.py's settings), from
+    ``torch.profiler``: an encode of two pictures (IDR, then P) less an
+    encode of the IDR picture alone, each after a warm-up.  Split into the
+    hand kernels (``hand_kernels``) and the rest, with the ``top`` most
+    frequent of the rest by name."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench import make_clip
+    from hartallo_tpu_torch.api import Codec, CodecConfig
+    clip = make_clip(W, H, 2)
+
+    def encode(n):
+        Codec(CodecConfig(width=W, height=H, qp=30, gop_size=8, deblock=True,
+                          me_range=12), device="cuda") \
+            .encode_frames(clip[:n], W, H)
+        torch.cuda.synchronize()
+
+    def launches(n):
+        encode(n)                                          # warm-up
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            encode(n)
+        return Counter(e.name for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+    two, one = launches(2), launches(1)
+    names = hand_kernels()
+    hand, other = Counter(), Counter()
+    for k in two:
+        h = next((h for h in names if f"{h}(" in k or f"{h}<" in k), None)
+        if h is None:
+            other[k[:100]] += two[k] - one[k]
+        else:
+            hand[h] += two[k] - one[k]
+    return {"hand": sum(hand.values()), "other": sum(other.values()),
+            "hand_by_name": dict(hand),
+            "other_top": dict(other.most_common(top))}
