@@ -1859,16 +1859,17 @@ def main() -> int:
               f"(spill) memory per thread, {a[2]} bytes of static and "
               f"{a[3]} of dynamic shared memory, blocks of {a[4]} threads, "
               f"a grid of {a[5]} x {a[6]} blocks at 1080p", flush=True)
-    p_attrs = (ctypes.c_int * 20)()
+    p_attrs = (ctypes.c_int * 24)()
     rc = kernels.load().hl_p_encode_attributes(p_attrs)
     if rc != 0:
         raise SystemExit(f"P body kernel attributes: CUDA error {rc} "
                          f"({kernels.error_string(rc)})")
     for i, name in enumerate(P_KERNELS.values()):
-        a = p_attrs[5 * i:5 * i + 5]
+        a = p_attrs[6 * i:6 * i + 6]
         print(f"P body kernel {name}: {a[0]} registers, {a[1]} bytes of "
               f"local (spill) memory per thread, {a[2]} bytes of static and "
-              f"{a[3]} of dynamic shared memory, blocks of {a[4]} threads",
+              f"{a[3]} of dynamic shared memory, blocks of {a[4]} threads, "
+              f"{a[5]} blocks ({a[5] * a[4] // 32} warps) resident an SM",
               flush=True)
     simd = sass_simd(lib, "k_full_search")
     print(f"full search kernel SASS: {simd}", flush=True)

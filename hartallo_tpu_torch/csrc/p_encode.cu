@@ -21,28 +21,54 @@
 // encode/e_device.deblock_params, which these kernels match bit for bit;
 // the wrappers are hartallo_tpu_torch/encode/p_body_fast.py.
 //
-// Design: simple and right first.
+// Design.
 //   k_part_decide     one thread per MB: the four partition costs in the
 //                     twin's f32 order, the first minimum, the MB's 16
 //                     block MVs (times 4) and partition indices.
-//   k_halfpel_enc     one thread per sample of the padded plane: G and
-//                     the b, h, j grids of halfpel_prims.cuh, with the
-//                     coordinates clamped to the plane (the twin's
-//                     _edge_pad(..., 2, 3)).
-//   k_p_residual      one block of PR_THREADS per MB.  The block stages
-//                     the 9x9 reference window of each of its 16 luma
-//                     blocks and the 3x3 window of each of its 32 chroma
-//                     blocks in shared memory (block origins clamped as
-//                     luma_mc_blocks and chroma_mc_blocks clamp them),
-//                     forms the quarter-pel and eighth-pel predictions,
-//                     then the residual's forward transform and
-//                     quantisation (a coefficient a thread), the
-//                     eliminations and the chroma DC Hadamard (a block a
-//                     thread), the dequantisation and both stages of the
-//                     inverse transform, and writes the recon with its
-//                     share of the edge pad: an MB on the picture's edge
-//                     also writes the pad beside it, so that the planes
-//                     leave the launch edge-padded as pad_edge pads them.
+//   k_halfpel_enc     a block of 256 threads per 64 x 16 tile of the
+//                     padded plane, on a 2-D grid.  The block stages the
+//                     tile's G with a halo of 2 rows above, 3 below and 4
+//                     columns a side in shared memory once (coalesced
+//                     loads, the only place where coordinates are clamped
+//                     to the plane, as the twin's _edge_pad(..., 2, 3)
+//                     clamps them), forms the horizontal 6-tap sums H1 of
+//                     every staged row once, then each thread takes 4
+//                     samples of a row: b from H1, h from G's columns, j
+//                     the vertical 6-tap over H1 (14 shared reads a
+//                     sample, against 49 clamped global loads when every
+//                     tap is recomputed), and writes them to each plane as
+//                     one int4 where the row allows, scalars at a ragged
+//                     edge.
+//   k_p_residual      a warp per MB, 4 MBs of a row a block (128 threads),
+//                     and no block-wide barrier: a warp past the row's
+//                     end returns at once.  A warp's shared memory is
+//                     2.9 KB, reused phase by phase.  Each 8x8 quadrant
+//                     whose four blocks share one MV and whose block
+//                     origins do not clamp (every quadrant of a path MV
+//                     that stays out of the pad) stages one 13x13
+//                     reference window, as bytes (recon samples are
+//                     0..255); any other quadrant stages a 9x9 window per
+//                     block with its own clamp (luma_mc_blocks').  The
+//                     window rows' horizontal sums are formed once, and
+//                     b, h and j of every sample come from them and the
+//                     window's columns.  Luma lane 2 bl + h then holds
+//                     rows 2h, 2h + 1 of raster block bl from prediction
+//                     to recon: the row transforms in registers, the
+//                     column transforms through a per-warp buffer, the
+//                     quantiser, JVT-O079's significance (the pair of
+//                     lanes by shuffle, the MB's sum by a warp reduction)
+//                     and the intra-in-P SATDs (likewise).  Chroma lane
+//                     16 comp + 4 b + r holds row r of 4x4 block b: the
+//                     eighth-pel MC (lane 16 comp + bl forms block bl's
+//                     2x2 samples), the transforms, the DC Hadamard by
+//                     shuffles and the elimination by two ballots.  The
+//                     recon goes out with its share of the edge pad (an
+//                     MB on the picture's edge also writes the pad beside
+//                     it, so that the planes leave the launch edge-padded
+//                     as pad_edge pads them) as row-contiguous int4
+//                     stores.  Shifts and masks of the MB's geometry
+//                     index everything; the only / and % are the MB's
+//                     qp % 6 and qp / 6 (and qpc's).
 //   k_deblock_params  one thread per 4x4 block: whether it and its left
 //                     and top neighbours have luma levels, the bS of
 //                     8.7.2.1 on its left and top edge segments, and for
@@ -50,11 +76,17 @@
 //                     of the edge_params row, as int16.
 //
 // What bounds them on the H100: bytes.  k_halfpel_enc reads the int32
-// plane and writes four (20 B a sample: 46 MB, 14 us at 1080p);
-// k_p_residual reads the source, the reference windows and the MVs and
-// writes the padded recon and the levels (about 55 MB, 16 us at 1080p);
-// the other two move about 1-10 MB.  The kernels are written for
-// correctness and take longer than that; PERF.md has their times.
+// plane and writes four (20 B a sample: 46 MB, 14 us at 1080p): its
+// shared-memory tile reads each input sample about 1.3 times (the halo)
+// and forms every tap sum once, so it issues little besides its loads
+// and stores.  k_p_residual reads the source, the reference windows and
+// the MVs and writes the padded recon and the levels (about 55 MB, 16 us
+// at 1080p).  Measured, it is bound by latency instead: an MB is one
+// warp's chain of dependent steps (MVs, windows, sums, prediction,
+// transforms, shuffles, recon), with 64 registers an SM holds 32 such
+// warps, and a 1080p picture's 8,160 MBs take two waves of them (fewer
+// registers spill and run slower).  The other two move about 1-10 MB.
+// PERF.md has their times beside these bounds.
 //
 // Rounding.  The partition and intra-in-P costs are the only floats, spelt
 // with __fadd_rn / __fmul_rn in the twin's order (nvcc would contract a
@@ -73,11 +105,8 @@ namespace {
 
 constexpr int PAD = 32;
 constexpr int NAUX = 62;
-constexpr int PR_THREADS = 128;   // k_p_residual's block
-constexpr int MB_THREADS = 128;   // the per-MB and per-sample kernels' block
-// k_p_residual gives each of its threads one chroma sample, one chroma
-// coefficient and two luma ones
-static_assert(PR_THREADS == 128, "k_p_residual maps 128 threads");
+constexpr int MB_THREADS = 128;   // k_part_decide's and k_deblock_params'
+                                  // block
 
 // the wrapper's table (p_body_fast._tables), int32 words: QUANT_MF
 // (6,4,4), QUANT_V (6,4,4), QUANT_QBITS (52), the inter row of QUANT_F
@@ -96,13 +125,7 @@ __device__ __forceinline__ int clampi(int lo, int hi, int v) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// blkIdx -> the block's pixel offsets in its MB; raster block -> blkIdx
-__device__ __forceinline__ int blk_x(int b) {
-  return 8 * ((b >> 2) & 1) + 4 * (b & 1);
-}
-__device__ __forceinline__ int blk_y(int b) {
-  return 8 * (b >> 3) + 4 * ((b >> 1) & 1);
-}
+// raster block -> blkIdx
 __device__ __forceinline__ int raster_blk(int by, int bx) {
   return ((by >> 1) << 3) | ((bx >> 1) << 2) | ((by & 1) << 1) | (bx & 1);
 }
@@ -163,17 +186,88 @@ __global__ void k_part_decide(PdArgs a) {
 // ---------------------------------------------------------------------------
 // k_halfpel_enc
 // ---------------------------------------------------------------------------
-__global__ void k_halfpel_enc(const int32_t* __restrict__ plane, int stride,
-                              int hp, int wp, int32_t* __restrict__ out) {
-  const ClampedPlane g{plane, stride, 0, hp - 1, 0, wp - 1};
-  const long n = (long)hp * wp;
-  for (long t = (long)blockIdx.x * blockDim.x + threadIdx.x; t < n;
-       t += (long)gridDim.x * blockDim.x) {
-    const int y = (int)(t / wp), x = (int)(t % wp);
-    out[t] = hp_at(g, y, x);
-    out[n + t] = hp_round5(hp_h1(g, y, x));
-    out[2 * n + t] = hp_round5(hp_v1(g, y, x));
-    out[3 * n + t] = hp_round10(hp_j1(g, y, x));
+constexpr int HP_TW = 64;                // a block's output tile: columns
+constexpr int HP_TH = 16;                // and rows
+constexpr int HP_THREADS = 256;          // a thread per 4 samples of a row
+constexpr int HP_GW = HP_TW + 8;         // G's staged row: 4 halo columns a
+                                         // side (2 and 3 are read), so that
+                                         // column x0 is int4-aligned
+constexpr int HP_ROWS = HP_TH + 5;       // staged rows: 2 above, 3 below
+constexpr int HP_SMEM_WORDS = HP_ROWS * (HP_GW + HP_TW);
+constexpr int HP_SMEM_BYTES = HP_SMEM_WORDS * 4;
+static_assert(HP_THREADS * 4 == HP_TW * HP_TH && HP_TW == 64,
+              "k_halfpel_enc maps a thread to 4 samples of a 64-wide row");
+
+__device__ __forceinline__ int4 ld4(const int* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
+__device__ __forceinline__ void st4(int* p, int4 v) {
+  *reinterpret_cast<int4*>(p) = v;
+}
+__device__ __forceinline__ int4 splat4(int v) { return make_int4(v, v, v, v); }
+
+// The 6-tap sum of p[0], p[s], ..., p[5 s] (halfpel_prims.cuh's taps;
+// integer, so any order)
+template <class T>
+__device__ __forceinline__ int tap6(const T* p, int s) {
+  return (int)p[0] - 5 * (int)p[s] + 20 * (int)p[2 * s] +
+         20 * (int)p[3 * s] - 5 * (int)p[4 * s] + (int)p[5 * s];
+}
+
+// A block per 64 x 16 tile of the padded plane: G of the tile and its halo
+// staged once (each coordinate clamped to the plane, the twin's
+// _edge_pad(..., 2, 3)), the horizontal sums H1 of every staged row once,
+// then b from H1, h from G's columns and j as the vertical 6-tap over H1;
+// each thread writes 4 samples of a row to each of the four planes.
+__global__ void __launch_bounds__(HP_THREADS)
+    k_halfpel_enc(const int32_t* __restrict__ plane, int stride, int hp,
+                  int wp, int32_t* __restrict__ out) {
+  extern __shared__ int smem[];
+  int* sg = smem;                          // [HP_ROWS][HP_GW] G
+  int* sh = smem + HP_ROWS * HP_GW;        // [HP_ROWS][HP_TW] H1
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * HP_TW, y0 = blockIdx.y * HP_TH;
+  // staged row r is plane row y0 - 2 + r, staged column c plane column
+  // x0 - 4 + c
+  for (int r = tid >> 5; r < HP_ROWS; r += HP_THREADS / 32) {
+    const int32_t* row =
+        plane + (size_t)clampi(0, hp - 1, y0 - 2 + r) * stride;
+    for (int c = tid & 31; c < HP_GW; c += 32)
+      sg[r * HP_GW + c] = row[clampi(0, wp - 1, x0 - 4 + c)];
+  }
+  __syncthreads();
+  for (int i = tid; i < HP_ROWS * (HP_TW / 4); i += HP_THREADS) {
+    const int r = i >> 4, c = (i & 15) << 2;
+    const int4 g0 = ld4(sg + r * HP_GW + c), g1 = ld4(sg + r * HP_GW + c + 4),
+               g2 = ld4(sg + r * HP_GW + c + 8);
+    // G at columns c - 4 .. c + 7 of the tile: b at c + k sums c + k - 2
+    // .. c + k + 3
+    const int g[12] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y,
+                       g1.z, g1.w, g2.x, g2.y, g2.z, g2.w};
+    st4(sh + r * HP_TW + c, make_int4(tap6(g + 2, 1), tap6(g + 3, 1),
+                                      tap6(g + 4, 1), tap6(g + 5, 1)));
+  }
+  __syncthreads();
+  const int r = tid >> 4, c = (tid & 15) << 2;
+  const int y = y0 + r, x = x0 + c;
+  if (y >= hp || x >= wp) return;
+  int v[4][4];                             // [plane][sample]
+  for (int k = 0; k < 4; ++k) {
+    const int* gc = sg + r * HP_GW + c + 4 + k;   // G rows y - 2 .. y + 3
+    const int* hc = sh + r * HP_TW + c + k;       // H1 rows y - 2 .. y + 3
+    v[0][k] = gc[2 * HP_GW];
+    v[1][k] = hp_round5(hc[2 * HP_TW]);
+    v[2][k] = hp_round5(tap6(gc, HP_GW));
+    v[3][k] = hp_round10(tap6(hc, HP_TW));
+  }
+  const size_t n = (size_t)hp * wp;
+  int32_t* o = out + (size_t)y * wp + x;
+  if ((wp & 3) == 0 && ((uintptr_t)out & 15) == 0 && x + 4 <= wp) {
+    for (int p = 0; p < 4; ++p)
+      st4(o + p * n, make_int4(v[p][0], v[p][1], v[p][2], v[p][3]));
+  } else {
+    for (int p = 0; p < 4; ++p)
+      for (int k = 0; k < 4 && x + k < wp; ++k) o[p * n + k] = v[p][k];
   }
 }
 
@@ -199,292 +293,533 @@ struct PrArgs {
   int gw, gh, cqo;
 };
 
-// shared memory, int32 words
-constexpr int S_WIN = 0;                  // [16 blocks][9][9] luma windows
-constexpr int S_CWIN = S_WIN + 16 * 81;   // [2][16 blocks][3][3] chroma
-constexpr int S_PRED = S_CWIN + 288;      // luma prediction, 16x16 raster
-constexpr int S_CPRED = S_PRED + 256;     // chroma prediction [2][8][8]
-constexpr int S_RES = S_CPRED + 128;      // luma residual, then recon
-constexpr int S_CRES = S_RES + 256;       // chroma residual, then recon
-constexpr int S_LEV = S_CRES + 128;       // [16 blkIdx][4][4] levels, then
-                                          // dequantised coefficients
-constexpr int S_CLEV = S_LEV + 256;       // [2][4][4][4] likewise, chroma
-constexpr int S_CDC = S_CLEV + 128;       // [2][4] chroma DC coefficients
-constexpr int S_DCQ = S_CDC + 8;          // [2][2][2] chroma DC levels
-constexpr int S_STAGE = S_DCQ + 8;        // the inverse transform's rows:
-                                          // 256 luma, 128 chroma
-constexpr int S_CTR = S_STAGE + 384;      // [16] the blocks' significance
-constexpr int S_SATD = S_CTR + 16;        // [16] intra estimate SATDs
-constexpr int S_FLAG = S_SATD + 16;       // drop_y, lone[2]
-constexpr int PR_SMEM_WORDS = S_FLAG + 4;
-constexpr int PR_SMEM_BYTES = PR_SMEM_WORDS * 4;
+constexpr int PR_MBS = 4;                 // MBs a block, a warp each
+constexpr int PR_THREADS = PR_MBS * 32;
+constexpr unsigned FULL = 0xffffffffu;
+// A warp's shared memory, bytes.  Until the prediction is formed:
+constexpr int PR_WIN = 0;                 // [4 quadrants][324] luma windows,
+                                          // one 13x13 or four 9x9, bytes
+constexpr int PR_H1 = PR_WIN + 4 * 324;   // [4][144] int16 H1 sums: 13x8
+                                          // or four 9x4
+// then, over the windows and sums:
+constexpr int PR_XL = 0;                  // [16 blocks][4][4] int32 rows
+constexpr int PR_XC = PR_XL + 1024;       // [2][4 blocks][4][4] int32 rows
+constexpr int PR_REC = PR_XC + 512;       // [16][16] + [2][8][8] recon bytes
+// throughout:
+constexpr int PR_PC = PR_H1 + 4 * 144 * 2;    // [2][8][8] chroma prediction
+constexpr int PR_TAB = PR_PC + 128;       // int32: the MB's QUANT_MF and
+                                          // 16 QUANT_V rows, luma (qp % 6)
+                                          // then chroma (qpc % 6), the
+                                          // zigzag table, and QUANT_F and
+                                          // QUANT_QBITS of qp and qpc
+constexpr int PR_WARP_BYTES = PR_TAB + 96 * 4;
+constexpr int PR_SMEM_BYTES = PR_MBS * PR_WARP_BYTES;
+static_assert(PR_REC + 384 <= PR_PC && PR_WARP_BYTES % 16 == 0 &&
+                  PR_TAB % 16 == 0,
+              "k_p_residual's per-warp layout");
 
-// sample (iy, ix) of a 4x4 block's quarter-pel prediction of case
-// 4 fy + fx from its 9x9 window w (the window's (2, 2) is the block's
-// integer origin): luma_mc_blocks' bank, value by value
-__device__ int luma_sample(const int* w, int fcase, int iy, int ix) {
-  auto W = [&](int r, int c) { return w[r * 9 + c]; };
-  auto hsum = [&](int r, int c0) {
-    int acc = 0;
-    for (int k = 0; k < 6; ++k) acc += hp_tap(k) * W(r, c0 + k);
-    return acc;
-  };
-  auto vsum = [&](int r0, int c) {
-    int acc = 0;
-    for (int k = 0; k < 6; ++k) acc += hp_tap(k) * W(r0 + k, c);
-    return acc;
-  };
-  auto jval = [&]() {
-    int acc = 0;
-    for (int l = 0; l < 6; ++l) acc += hp_tap(l) * vsum(iy, ix + l);
-    return hp_round10(acc);
-  };
-  const int G = W(2 + iy, 2 + ix);
-  const int b = hp_round5(hsum(2 + iy, ix));
-  const int h = hp_round5(vsum(iy, 2 + ix));
-  switch (fcase) {
-    case 0: return G;
-    case 1: return (G + b + 1) >> 1;
-    case 2: return b;
-    case 3: return (b + W(2 + iy, 3 + ix) + 1) >> 1;
-    case 4: return (G + h + 1) >> 1;
-    case 5: return (b + h + 1) >> 1;
-    case 6: return (b + jval() + 1) >> 1;
-    case 7: return (b + hp_round5(vsum(iy, 3 + ix)) + 1) >> 1;
-    case 8: return h;
-    case 9: return (h + jval() + 1) >> 1;
-    case 10: return jval();
-    case 11: return (jval() + hp_round5(vsum(iy, 3 + ix)) + 1) >> 1;
-    case 12: return (h + W(3 + iy, 2 + ix) + 1) >> 1;
-    case 13: return (h + hp_round5(hsum(3 + iy, ix)) + 1) >> 1;
-    case 14: return (jval() + hp_round5(hsum(3 + iy, ix)) + 1) >> 1;
-    default:
-      return (hp_round5(vsum(iy, 3 + ix)) + hp_round5(hsum(3 + iy, ix)) +
-              1) >> 1;
+// quarter-pel case 4 fy + fx -> the two half-pel samples averaged as
+// (A + B + 1) >> 1, (plane, dx, dy) each; planes 0 G, 1 b, 2 h, 3 j
+// (ops/wide._QPT: b is only offset down, h only right)
+__constant__ int PR_QPT[16 * 6] = {
+    0, 0, 0, 0, 0, 0,  0, 0, 0, 1, 0, 0,  1, 0, 0, 1, 0, 0,
+    1, 0, 0, 0, 1, 0,  0, 0, 0, 2, 0, 0,  1, 0, 0, 2, 0, 0,
+    1, 0, 0, 3, 0, 0,  1, 0, 0, 2, 1, 0,  2, 0, 0, 2, 0, 0,
+    2, 0, 0, 3, 0, 0,  3, 0, 0, 3, 0, 0,  3, 0, 0, 2, 1, 0,
+    2, 0, 0, 0, 0, 1,  2, 0, 0, 1, 0, 1,  3, 0, 0, 1, 0, 1,
+    2, 1, 0, 1, 0, 1};
+
+__device__ __forceinline__ unsigned quad_lanes(int q) {
+  // the lanes 2 bl + h of quadrant q's raster blocks bl
+  return 0x0F0Fu << (4 * (q & 1) + 16 * (q >> 1));
+}
+
+// A lane's 8 samples (2 rows, 4 columns) of half-pel plane p at offset
+// (dx, dy).  wl is the unit's window (row stride WS) two rows and two
+// columns above-left of the lane's first sample; hl the window rows'
+// horizontal 6-tap sums at the unit's columns (row stride HS), at the
+// lane's first column and two rows above its first sample: G reads the
+// window, b one sum, h six window rows of a column and j six sums
+// (luma_mc_blocks' bank, value by value).
+template <int WS, int HS>
+__device__ __forceinline__ void plane8(const uint8_t* wl, const int16_t* hl,
+                                       int p, int dx, int dy, int* v) {
+  if (p == 0) {
+    const uint8_t* g = wl + (2 + dy) * WS + 2 + dx;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[i * 4 + c] = g[i * WS + c];
+  } else if (p == 1) {
+    const int16_t* h = hl + (2 + dy) * HS;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[i * 4 + c] = hp_round5(h[i * HS + c]);
+  } else if (p == 2) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint8_t* col = wl + 2 + dx + c;
+      int t[7];
+#pragma unroll
+      for (int k = 0; k < 7; ++k) t[k] = col[k * WS];
+      v[c] = hp_round5(tap6(t, 1));
+      v[4 + c] = hp_round5(tap6(t + 1, 1));
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int t[7];
+#pragma unroll
+      for (int k = 0; k < 7; ++k) t[k] = hl[k * HS + c];
+      v[c] = hp_round10(tap6(t, 1));
+      v[4 + c] = hp_round10(tap6(t + 1, 1));
+    }
   }
 }
 
-// Write an MB's S x S recon `rec` into the padded plane `out` (hp x wp,
-// contiguous) with its share of the edge pad: the rows and columns of the
-// pad beside a picture-edge MB, and the corner beside a corner MB
-__device__ void write_owned(int32_t* out, int hp, int wp, const int* rec,
-                            int S, int mx, int my, int gw, int gh) {
-  const int y0 = my == 0 ? 0 : PAD + S * my;
-  const int y1 = my == gh - 1 ? hp : PAD + S * (my + 1);
-  const int x0 = mx == 0 ? 0 : PAD + S * mx;
-  const int x1 = mx == gw - 1 ? wp : PAD + S * (mx + 1);
-  const int w = x1 - x0, n = (y1 - y0) * w;
-  for (int i = threadIdx.x; i < n; i += PR_THREADS) {
-    const int y = y0 + i / w, x = x0 + i % w;
-    out[(size_t)y * wp + x] =
-        rec[clampi(0, S - 1, y - PAD - S * my) * S +
-            clampi(0, S - 1, x - PAD - S * mx)];
+// The lane's 8 quarter-pel prediction samples of case fcase: the two
+// planes of PR_QPT averaged (one plane where both are the same sample)
+template <int WS, int HS>
+__device__ __forceinline__ void luma_pred(const uint8_t* wl,
+                                          const int16_t* hl, int fcase,
+                                          int* pred) {
+  const int* t = PR_QPT + 6 * fcase;
+  int b[8];
+  plane8<WS, HS>(wl, hl, t[0], t[1], t[2], pred);
+  if (t[0] == t[3] && t[1] == t[4] && t[2] == t[5]) return;
+  plane8<WS, HS>(wl, hl, t[3], t[4], t[5], b);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) pred[k] = (pred[k] + b[k] + 1) >> 1;
+}
+
+// One 1-D stage of the forward core transform, all four elements of C x
+// (transform_prims.cuh's fwd_coef rows as butterflies; integer, so any
+// order)
+__device__ __forceinline__ void fwd4(const int* x, int* y) {
+  const int s03 = x[0] + x[3], d03 = x[0] - x[3];
+  const int s12 = x[1] + x[2], d12 = x[1] - x[2];
+  y[0] = s03 + s12;
+  y[1] = 2 * d03 + d12;
+  y[2] = s03 - s12;
+  y[3] = d03 - 2 * d12;
+}
+
+// The 2x2 Hadamard (transform_prims.cuh's hadamard2) of the values v of
+// the four lanes lane ^ {0, 4, 8, 12}, element (r, s) = ((lane >> 3) & 1,
+// (lane >> 2) & 1) on each: a butterfly along r, then along s
+__device__ __forceinline__ int hadamard2_lanes(int v, int lane) {
+  const int o = __shfl_xor_sync(FULL, v, 8);
+  const int q = (lane & 8) ? o - v : v + o;
+  const int p = __shfl_xor_sync(FULL, q, 4);
+  return (lane & 4) ? p - q : q + p;
+}
+
+__device__ __forceinline__ void load4(const int32_t* p, bool vec, int* v) {
+  if (vec) {
+    const int4 q = *reinterpret_cast<const int4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    for (int k = 0; k < 4; ++k) v[k] = p[k];
   }
 }
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// Write an MB's S x S recon `rec` (bytes, row stride S) into the padded
+// plane `out` (row stride wp, contiguous, 16-byte aligned rows) with its
+// share of the edge pad: the rows and columns of the pad beside a
+// picture-edge MB, and the corner beside a corner MB, each sample the
+// recon's at its position clamped into the MB.  Four samples an int4
+// store, a row's stores on neighbouring lanes.
+template <int S>
+__device__ void put_owned(int32_t* out, int wp, const uint8_t* rec, int mx,
+                          int my, int gw, int gh, int lane) {
+  const int oy = PAD + S * my, ox = PAD + S * mx;
+  const int y0 = my == 0 ? 0 : oy, y1 = oy + S + (my == gh - 1 ? PAD : 0);
+  const int x0 = mx == 0 ? 0 : ox, x1 = ox + S + (mx == gw - 1 ? PAD : 0);
+  const int cn = (x1 - x0) >> 2;          // S / 4, + 8 at each edge
+  const int lg = cn <= 2 ? 1 : cn <= 4 ? 2 : cn <= 16 ? 4 : 5;
+  const int c = lane & ((1 << lg) - 1), x = x0 + 4 * c;
+  if (c >= cn) return;
+  for (int y = y0 + (lane >> lg); y < y1; y += 32 >> lg) {
+    const uint8_t* rr = rec + clampi(0, S - 1, y - oy) * S;
+    const int4 v = x < ox       ? splat4(rr[0])
+                   : x >= ox + S ? splat4(rr[S - 1])
+                                 : make_int4(rr[x - ox], rr[x - ox + 1],
+                                             rr[x - ox + 2], rr[x - ox + 3]);
+    st4(out + (size_t)y * wp + x, v);
+  }
+}
+
+// A warp per MB, PR_MBS MBs of a row a block; nothing waits on more than
+// its warp.  Lanes: luma lane 2 bl + h takes rows 2h, 2h + 1 of raster
+// block bl (its 8 prediction samples, residuals, coefficients and recon
+// samples); chroma lane 16 comp + 4 b + r takes row r of the component's
+// 4x4 block b (and, for the MC, lane 16 comp + bl the 2x2 samples of
+// block bl).  Every global load that does not wait for another is issued
+// before the first shared-memory step.
 __global__ void __launch_bounds__(PR_THREADS) k_p_residual(PrArgs a) {
   extern __shared__ int smem[];
-  const int tid = threadIdx.x;
-  const int mx = blockIdx.x, my = blockIdx.y, mb = my * a.gw + mx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mx = blockIdx.x * PR_MBS + warp, my = blockIdx.y;
+  if (mx >= a.gw) return;        // past the row's end: no barrier waits
+  uint8_t* ws = reinterpret_cast<uint8_t*>(smem) + warp * PR_WARP_BYTES;
+  int* tb = reinterpret_cast<int*>(ws + PR_TAB);
+  const int mb = my * a.gw + mx;
   const int* tab = a.tab;
+  // lane 2 bl + k holds component k of raster block bl's MV
+  const int mvw = a.mv[(size_t)mb * 32 + lane];
   const int qp = a.qp[mb];
-  const int qpc = tab[T_QPC + clampi(0, 51, qp + a.cqo)];
-  const int32_t* mvs = a.mv + (size_t)mb * 32;
-
-  // ---- the reference windows
-  for (int e = tid; e < 16 * 81; e += PR_THREADS) {
-    const int bl = e / 81, r = (e % 81) / 9, c = e % 9;
-    const int xi = clampi(-(PAD - 2), a.ry_w - PAD - 7,
-                          mx * 16 + (bl & 3) * 4 + (mvs[2 * bl] >> 2));
-    const int yi = clampi(-(PAD - 2), a.ry_h - PAD - 7,
-                          my * 16 + (bl >> 2) * 4 + (mvs[2 * bl + 1] >> 2));
-    smem[S_WIN + e] =
-        a.ry[(size_t)(yi + PAD - 2 + r) * a.ry_st + xi + PAD - 2 + c];
-  }
-  for (int e = tid; e < 288; e += PR_THREADS) {
-    const int comp = e / 144, bl = (e % 144) / 9, r = (e % 9) / 3, c = e % 3;
-    const int xi = clampi(-(PAD - 1), a.rc_w - PAD - 4,
-                          mx * 8 + (bl & 3) * 2 + (mvs[2 * bl] >> 3));
-    const int yi = clampi(-(PAD - 1), a.rc_h - PAD - 4,
-                          my * 8 + (bl >> 2) * 2 + (mvs[2 * bl + 1] >> 3));
-    const int32_t* ref = comp ? a.rv : a.ru;
-    const int st = comp ? a.rv_st : a.ru_st;
-    smem[S_CWIN + e] = ref[(size_t)(yi + PAD + r) * st + xi + PAD + c];
-  }
-  __syncthreads();
-
-  // ---- predictions and residuals
-  for (int s = tid; s < 256; s += PR_THREADS) {
-    const int y = s >> 4, x = s & 15, bl = (y >> 2) * 4 + (x >> 2);
-    const int fcase = (mvs[2 * bl + 1] & 3) * 4 + (mvs[2 * bl] & 3);
-    const int p = luma_sample(smem + S_WIN + bl * 81, fcase, y & 3, x & 3);
-    smem[S_PRED + s] = p;
-    smem[S_RES + s] =
-        a.sy[(size_t)(PAD + my * 16 + y) * a.sy_st + PAD + mx * 16 + x] - p;
-  }
+  const int bl = lane >> 1, hh = lane & 1, by = bl >> 2, bx = bl & 3;
+  const int comp = lane >> 4, cb4 = (lane >> 2) & 3, cr = lane & 3;
+  const int cy = (cb4 >> 1) * 4 + cr, cx0 = (cb4 & 1) * 4;
+  int src[8], csrc[4];
   {
-    const int comp = tid >> 6, cy = (tid & 63) >> 3, cx = tid & 7;
-    const int bl = (cy >> 1) * 4 + (cx >> 1), iy = cy & 1, ix = cx & 1;
-    const int dx = mvs[2 * bl] & 7, dy = mvs[2 * bl + 1] & 7;
-    const int* w = smem + S_CWIN + comp * 144 + bl * 9;
-    const int p = ((8 - dx) * (8 - dy) * w[iy * 3 + ix] +
-                   dx * (8 - dy) * w[iy * 3 + ix + 1] +
-                   (8 - dx) * dy * w[(iy + 1) * 3 + ix] +
-                   dx * dy * w[(iy + 1) * 3 + ix + 1] + 32) >> 6;
-    const int32_t* src = comp ? a.sv : a.su;
+    const int32_t* s0 = a.sy + (size_t)(PAD + my * 16 + by * 4 + 2 * hh) *
+                                   a.sy_st + PAD + mx * 16 + bx * 4;
+    const bool vy = aligned16(a.sy) && (a.sy_st & 3) == 0;
+    load4(s0, vy, src);
+    load4(s0 + a.sy_st, vy, src + 4);
     const int st = comp ? a.sv_st : a.su_st;
-    smem[S_CPRED + tid] = p;
-    smem[S_CRES + tid] =
-        src[(size_t)(PAD + my * 8 + cy) * st + PAD + mx * 8 + cx] - p;
+    const int32_t* cs = comp ? a.sv : a.su;
+    load4(cs + (size_t)(PAD + my * 8 + cy) * st + PAD + mx * 8 + cx0,
+          aligned16(cs) && (st & 3) == 0, csrc);
   }
-  __syncthreads();
+  const int qpc = tab[T_QPC + clampi(0, 51, qp + a.cqo)];
+  // the MB's table rows (PR_TAB's order), stored with the windows
+  const int lo = lane & 15;
+  const int t0 = tab[(lane < 16 ? T_MF : T_V) + (qp % 6) * 16 + lo];
+  const int t1 = tab[(lane < 16 ? T_MF : T_V) + (qpc % 6) * 16 + lo];
+  const int t2 = tab[lane < 16 ? T_ZZ + lane : lane == 16 ? T_F + qp
+                     : lane == 17 ? T_QBITS + qp : lane == 18 ? T_F + qpc
+                                                  : T_QBITS + qpc];
 
-  // ---- forward transform and quantisation, a coefficient a thread
-  for (int k = tid; k < 256; k += PR_THREADS) {
-    const int b = k >> 4, u = (k >> 2) & 3, v = k & 3;
-    const int w = fdct(smem + S_RES + blk_y(b) * 16 + blk_x(b), 16, u, v);
-    smem[S_LEV + k] = quant(w, tab[T_MF + (qp % 6) * 16 + u * 4 + v],
-                            tab[T_F + qp], tab[T_QBITS + qp]);
-  }
+  // ---- luma lanes' blocks, their clamped origins and the quadrants
+  const int mvx = __shfl_sync(FULL, mvw, lane & ~1);
+  const int mvy = __shfl_sync(FULL, mvw, lane | 1);
+  const int ux = mx * 16 + bx * 4 + (mvx >> 2);
+  const int uy = my * 16 + by * 4 + (mvy >> 2);
+  const int xi = clampi(-(PAD - 2), a.ry_w - PAD - 7, ux);
+  const int yi = clampi(-(PAD - 2), a.ry_h - PAD - 7, uy);
+  const int q = ((by >> 1) << 1) | (bx >> 1);
+  const int lq = ((by & 2) << 3) | ((bx & 2) << 1);   // its first block's
+  const int qmvx = __shfl_sync(FULL, mvx, lq);         // lane
+  const int qmvy = __shfl_sync(FULL, mvy, lq);
+  // a quadrant is split where a block's MV differs from its first
+  // block's or any block's origin clamps
+  const unsigned split = __ballot_sync(
+      FULL, xi != ux || yi != uy || mvx != qmvx || mvy != qmvy);
+
+  // ---- chroma MC windows: lane 16 comp + cb loads block cb's 3x3
+  const int cb = lane & 15;
+  const int cmx = __shfl_sync(FULL, mvw, 2 * cb);
+  const int cmy = __shfl_sync(FULL, mvw, 2 * cb + 1);
+  int cw[9];
   {
-    const int comp = tid >> 6, b = (tid >> 4) & 3, u = (tid >> 2) & 3,
-              v = tid & 3;
-    const int w = fdct(smem + S_CRES + comp * 64 + (b >> 1) * 32 +
-                           (b & 1) * 4, 8, u, v);
-    if (u == 0 && v == 0) {
-      smem[S_CDC + comp * 4 + b] = w;
-      smem[S_CLEV + tid] = 0;             // skip_dc
-    } else {
-      smem[S_CLEV + tid] =
-          quant(w, tab[T_MF + (qpc % 6) * 16 + u * 4 + v], tab[T_F + qpc],
-                tab[T_QBITS + qpc]);
+    const int cxi = clampi(-(PAD - 1), a.rc_w - PAD - 4,
+                           mx * 8 + (cb & 3) * 2 + (cmx >> 3));
+    const int cyi = clampi(-(PAD - 1), a.rc_h - PAD - 4,
+                           my * 8 + (cb >> 2) * 2 + (cmy >> 3));
+    const int st = comp ? a.rv_st : a.ru_st;
+    const int32_t* c0 =
+        (comp ? a.rv : a.ru) + (size_t)(cyi + PAD) * st + cxi + PAD;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) cw[r * 3 + c] = c0[(size_t)r * st + c];
+  }
+
+  // ---- the luma windows: lanes 8 sq .. 8 sq + 7 stage quadrant sq's
+  const int sq = lane >> 3, sub = lane & 7, sk = sub >> 1;
+  const bool sq_whole = (split & quad_lanes(sq)) == 0;
+  const int sbl = ((sq >> 1) * 2 + (sk >> 1)) * 4 + (sq & 1) * 2 + (sk & 1);
+  const int slane = sq_whole ? ((sq >> 1) << 4) | ((sq & 1) << 2) : 2 * sbl;
+  const int sx = __shfl_sync(FULL, xi, slane);
+  const int sy = __shfl_sync(FULL, yi, slane);
+  const int sfx = __shfl_sync(FULL, mvx, slane) & 3;
+  uint8_t* win = ws + PR_WIN + sq * 324;
+  int16_t* h1 = reinterpret_cast<int16_t*>(ws + PR_H1) + sq * 144;
+  {
+    const int32_t* rw =
+        a.ry + (size_t)(sy + PAD - 2) * a.ry_st + sx + PAD - 2;
+    if (sq_whole) {               // one 13x13 window, columns sub, sub + 8
+#pragma unroll
+      for (int r = 0; r < 13; ++r) {
+        win[r * 13 + sub] = (uint8_t)rw[(size_t)r * a.ry_st + sub];
+        if (sub < 5)
+          win[r * 13 + 8 + sub] = (uint8_t)rw[(size_t)r * a.ry_st + 8 + sub];
+      }
+    } else {                      // block sk's 9x9, rows sub & 1 + 2t
+      uint8_t* wk = win + sk * 81;
+      for (int r = sub & 1; r < 9; r += 2)
+        for (int c = 0; c < 9; ++c)
+          wk[r * 9 + c] = (uint8_t)rw[(size_t)r * a.ry_st + c];
     }
   }
-  __syncthreads();
 
-  // ---- per-block reductions: a block a thread
-  if (tid < 16) {                         // luma significance (JVT-O079)
-    const int* z = smem + S_LEV + tid * 16;
-    int nz = 0, run = 16, mx_abs = 0;
-    for (int i = 0; i < 16; ++i) {
-      const int az = z[i] < 0 ? -z[i] : z[i];
+  // ---- chroma MC: lane 16 comp + cb forms block cb's 2x2 samples
+  uint8_t* pc = ws + PR_PC;
+  {
+    const int dx = cmx & 7, dy = cmy & 7;
+    uint8_t* o = pc + comp * 64 + (cb >> 2) * 16 + (cb & 3) * 2;
+#pragma unroll
+    for (int iy = 0; iy < 2; ++iy)
+#pragma unroll
+      for (int ix = 0; ix < 2; ++ix)
+        o[iy * 8 + ix] = (uint8_t)(((8 - dx) * (8 - dy) * cw[iy * 3 + ix] +
+                                    dx * (8 - dy) * cw[iy * 3 + ix + 1] +
+                                    (8 - dx) * dy * cw[(iy + 1) * 3 + ix] +
+                                    dx * dy * cw[(iy + 1) * 3 + ix + 1] +
+                                    32) >> 6);
+  }
+  tb[lane] = t0;
+  tb[32 + lane] = t1;
+  if (lane < 20) tb[64 + lane] = t2;
+  __syncwarp();
+  if (sfx != 0) {                 // b or j: the rows' sums, once each
+    if (sq_whole) {
+#pragma unroll
+      for (int r = 0; r < 13; ++r)
+        h1[r * 8 + sub] = (int16_t)tap6(win + r * 13 + sub, 1);
+    } else {
+      const uint8_t* wk = win + sk * 81;
+      int16_t* hk = h1 + sk * 36;
+      for (int r = 0; r < 9; ++r)
+        for (int c = 2 * (sub & 1); c < 2 * (sub & 1) + 2; ++c)
+          hk[r * 4 + c] = (int16_t)tap6(wk + r * 9 + c, 1);
+    }
+  }
+  __syncwarp();
+
+  // ---- luma prediction
+  int pred[8];
+  {
+    const int fcase = ((mvy & 3) << 2) | (mvx & 3);
+    const uint8_t* w = ws + PR_WIN + q * 324;
+    const int16_t* hs = reinterpret_cast<const int16_t*>(ws + PR_H1) +
+                        q * 144;
+    if ((split & quad_lanes(q)) == 0) {
+      const int iy0 = ((by & 1) << 2) + 2 * hh, ix0 = (bx & 1) << 2;
+      luma_pred<13, 8>(w + iy0 * 13 + ix0, hs + iy0 * 8 + ix0, fcase, pred);
+    } else {
+      const int k = ((by & 1) << 1) | (bx & 1);     // block in the quadrant
+      luma_pred<9, 4>(w + k * 81 + 2 * hh * 9, hs + k * 36 + 2 * hh * 4,
+                      fcase, pred);
+    }
+  }
+  __syncwarp();                  // the windows and sums are dead from here
+
+  // ---- intra estimate: the SATD of each 4x4 block against its mean
+  int satd = 0;
+  if (a.mask) {
+    int s = 0;
+    for (int k = 0; k < 8; ++k) s += src[k];
+    const int dc = (s + __shfl_xor_sync(FULL, s, 1)) >> 4;   // sum >= 0
+    int pa[4], pb[4];            // the rows' Hadamard, summed and differed
+    for (int c = 0; c < 4; ++c) {
+      int hr[2];
+      for (int i = 0; i < 2; ++i) {
+        const int* d = src + i * 4;
+        const int d0 = d[0] - dc, d1 = d[1] - dc, d2 = d[2] - dc,
+                  d3 = d[3] - dc;
+        hr[i] = c == 0 ? d0 + d1 + d2 + d3
+                : c == 1 ? d0 + d1 - d2 - d3
+                : c == 2 ? d0 - d1 - d2 + d3
+                         : d0 - d1 + d2 - d3;
+      }
+      pa[c] = hr[0] + hr[1];
+      pb[c] = hr[0] - hr[1];
+    }
+    // rows 0, 1 (lane h 0) and 2, 3 (h 1): the column stage's outputs are
+    // pa0 +- pa1 and pb0 -+ pb1; each lane takes two
+    int p = 0;
+    for (int c = 0; c < 4; ++c) {
+      const int got = __shfl_xor_sync(FULL, hh ? pa[c] : pb[c], 1);
+      const int e0 = hh ? got - pb[c] : pa[c] + got;
+      const int e1 = hh ? got + pb[c] : pa[c] - got;
+      p += (e0 < 0 ? -e0 : e0) + (e1 < 0 ? -e1 : e1);
+    }
+    const int blk = (p + __shfl_xor_sync(FULL, p, 1)) >> 1;
+    satd = (int)__reduce_add_sync(FULL, hh ? 0u : (unsigned)blk);
+  }
+
+  // ---- forward transform: rows in the lane, columns through the buffer
+  int* xl = reinterpret_cast<int*>(ws + PR_XL) + bl * 16;
+  int* xc = reinterpret_cast<int*>(ws + PR_XC) + (comp * 4 + cb4) * 16;
+  const uint8_t* pcr = pc + comp * 64 + cy * 8 + cx0;
+  for (int i = 0; i < 2; ++i) {
+    int res[4], y[4];
+    for (int c = 0; c < 4; ++c) res[c] = src[i * 4 + c] - pred[i * 4 + c];
+    fwd4(res, y);
+    st4(xl + (2 * hh + i) * 4, make_int4(y[0], y[1], y[2], y[3]));
+  }
+  {
+    int res[4], y[4];
+    for (int c = 0; c < 4; ++c) res[c] = csrc[c] - pcr[c];
+    fwd4(res, y);
+    st4(xc + cr * 4, make_int4(y[0], y[1], y[2], y[3]));
+  }
+  __syncwarp();
+  int z[8], cz[4], cdc;
+  const int lf = tb[80], lqb = tb[81], cf = tb[82], cqb = tb[83];
+  {
+    int t[4][4], y[4];           // t: [column][row]
+    for (int i = 0; i < 4; ++i) {
+      const int4 v = ld4(xl + i * 4);
+      t[0][i] = v.x, t[1][i] = v.y, t[2][i] = v.z, t[3][i] = v.w;
+    }
+    const int4 m0 = ld4(tb + 8 * hh), m1 = ld4(tb + 8 * hh + 4);
+    const int mf[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+    for (int v = 0; v < 4; ++v) {   // rows 2h, 2h + 1 of column v
+      fwd4(t[v], y);
+      z[v] = quant(hh ? y[2] : y[0], mf[v], lf, lqb);
+      z[4 + v] = quant(hh ? y[3] : y[1], mf[4 + v], lf, lqb);
+    }
+    for (int i = 0; i < 4; ++i) {
+      const int4 v = ld4(xc + i * 4);
+      t[0][i] = v.x, t[1][i] = v.y, t[2][i] = v.z, t[3][i] = v.w;
+    }
+    const int4 cm = ld4(tb + 32 + 4 * cr);
+    const int cmf[4] = {cm.x, cm.y, cm.z, cm.w};
+    for (int v = 0; v < 4; ++v) {   // row cr of column v
+      fwd4(t[v], y);
+      const int w = cr == 0 ? y[0] : cr == 1 ? y[1] : cr == 2 ? y[2] : y[3];
+      if (v == 0) cdc = w;        // the block's DC, on lanes with cr == 0
+      cz[v] = cr == 0 && v == 0 ? 0            // skip_dc
+              : quant(w, cmf[v], cf, cqb);
+    }
+  }
+
+  // ---- luma: JVT-O079 significance of each block, the MB's sum, levels
+  int drop;
+  {
+    const int4 z0 = ld4(tb + 64 + 8 * hh), z1 = ld4(tb + 68 + 8 * hh);
+    const int zz[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
+    int nz = 0, run = 16, amax = 0;
+    for (int k = 0; k < 8; ++k) {
+      const int az = z[k] < 0 ? -z[k] : z[k];
       if (az > 0) {
         ++nz;
-        run = min(run, tab[T_ZZ + i]);
-        mx_abs = max(mx_abs, az);
+        run = min(run, zz[k]);
+        amax = max(amax, az);
       }
     }
-    smem[S_CTR + tid] = nz == 0 ? 0 : (nz == 1 && mx_abs == 1) ? t079(run)
-                                                               : 9;
-  } else if (tid < 24) {                  // chroma DC Hadamard and quant
-    const int i = tid - 16, comp = i >> 2;
-    const int f = hadamard2(smem + S_CDC + comp * 4, (i >> 1) & 1, i & 1);
-    smem[S_DCQ + i] = quant(f, tab[T_MF + (qpc % 6) * 16], 2 * tab[T_F + qpc],
-                            tab[T_QBITS + qpc] + 1);
-  } else if (tid < 26) {                  // the chroma elimination
-    const int comp = tid - 24;
-    int nz = 0, mx_abs = 0;
-    for (int i = 0; i < 64; ++i) {
-      const int z = smem[S_CLEV + comp * 64 + i], az = z < 0 ? -z : z;
-      nz += az > 0;
-      mx_abs = max(mx_abs, az);
-    }
-    smem[S_FLAG + 1 + comp] = nz == 1 && mx_abs == 1;
-  } else if (tid >= 32 && tid < 48 && a.mask) {
-    // intra estimate: the SATD of raster block i against its mean
-    const int i = tid - 32;
-    const int32_t* s = a.sy + (size_t)(PAD + my * 16 + (i >> 2) * 4) *
-                                  a.sy_st + PAD + mx * 16 + (i & 3) * 4;
-    int d[16], sum = 0;
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) sum += d[r * 4 + c] = s[r * a.sy_st + c];
-    const int dc = sum >> 4;              // the sum is >= 0
-    int t[16], acc = 0;
-    for (int c = 0; c < 4; ++c) {         // columns (ops/math._hadamard4)
-      const int a0 = d[c] - dc, a1 = d[4 + c] - dc, a2 = d[8 + c] - dc,
-                a3 = d[12 + c] - dc;
-      t[c] = a0 + a1 + a2 + a3;
-      t[4 + c] = a0 + a1 - a2 - a3;
-      t[8 + c] = a0 - a1 - a2 + a3;
-      t[12 + c] = a0 - a1 + a2 - a3;
-    }
-    for (int r = 0; r < 4; ++r) {         // rows
-      const int* q = t + r * 4;
-      const int h0 = q[0] + q[1] + q[2] + q[3], h1 = q[0] + q[1] - q[2] - q[3],
-                h2 = q[0] - q[1] - q[2] + q[3], h3 = q[0] - q[1] + q[2] - q[3];
-      acc += (h0 < 0 ? -h0 : h0) + (h1 < 0 ? -h1 : h1) +
-             (h2 < 0 ? -h2 : h2) + (h3 < 0 ? -h3 : h3);
-    }
-    smem[S_SATD + i] = acc >> 1;
+    nz += __shfl_xor_sync(FULL, nz, 1);
+    run = min(run, __shfl_xor_sync(FULL, run, 1));
+    amax = max(amax, __shfl_xor_sync(FULL, amax, 1));
+    const int ctr = nz == 0 ? 0 : (nz == 1 && amax == 1) ? t079(run) : 9;
+    drop = (int)__reduce_add_sync(FULL, hh ? 0u : (unsigned)ctr) < 6;
   }
-  __syncthreads();
-  if (tid == 0) {
-    int ctr = 0;
-    for (int b = 0; b < 16; ++b) ctr += smem[S_CTR + b];
-    smem[S_FLAG] = ctr < 6;               // drop the MB's luma residual
-    if (a.mask) {
-      int satd = 0;
-      for (int i = 0; i < 16; ++i) satd += smem[S_SATD + i];
-      const float est = __fadd_rn((float)satd, __fmul_rn(a.lam[0], 24.0f));
-      a.mask[mb] = est < a.best[mb];
-    }
-  }
-  __syncthreads();
-
-  // ---- levels out, dequantisation
-  const int drop = smem[S_FLAG];
-  for (int k = tid; k < 256; k += PR_THREADS) {
-    const int z = drop ? 0 : smem[S_LEV + k];
-    a.wq[(size_t)mb * 256 + k] = z;
-    smem[S_LEV + k] = dequant(z, 16 * tab[T_V + (qp % 6) * 16 + (k & 15)],
-                              qp);
-  }
+  if (drop)
+    for (int k = 0; k < 8; ++k) z[k] = 0;
   {
-    const int comp = tid >> 6, b = (tid >> 4) & 3, uv = tid & 15;
-    const int z = smem[S_FLAG + 1 + comp] ? 0 : smem[S_CLEV + tid];
-    a.acq[(size_t)mb * 128 + tid] = z;
-    int d;
-    if (uv == 0) {                        // chroma_dc_descale
-      const int f = hadamard2(smem + S_DCQ + comp * 4, b >> 1, b & 1);
-      d = (f * (16 * tab[T_V + (qpc % 6) * 16]) * (1 << (qpc / 6))) >> 5;
-    } else {
-      d = dequant(z, 16 * tab[T_V + (qpc % 6) * 16 + uv], qpc);
-    }
-    smem[S_CLEV + tid] = d;
-    if (tid < 8) a.dcq[(size_t)mb * 8 + tid] = smem[S_DCQ + tid];
+    int32_t* o = a.wq + (size_t)mb * 256 + raster_blk(by, bx) * 16 + hh * 8;
+    st4(o, make_int4(z[0], z[1], z[2], z[3]));
+    st4(o + 4, make_int4(z[4], z[5], z[6], z[7]));
   }
-  __syncthreads();
 
-  // ---- inverse transform: rows, then columns and the recon
-  for (int k = tid; k < 384; k += PR_THREADS) {
-    const int* d = smem + (k < 256 ? S_LEV + k : S_CLEV + k - 256) -
-                   (k & 3);
-    smem[S_STAGE + k] = ict(d[0], d[1], d[2], d[3], k & 3);
-  }
-  __syncthreads();
-  for (int k = tid; k < 256; k += PR_THREADS) {
-    const int b = k >> 4, r = (k >> 2) & 3, c = k & 3;
-    const int* f = smem + S_STAGE + b * 16;
-    const int h = ict(f[c], f[4 + c], f[8 + c], f[12 + c], r);
-    const int s = (blk_y(b) + r) * 16 + blk_x(b) + c;
-    smem[S_RES + s] = clip255(smem[S_PRED + s] + ((h + 32) >> 6));
-  }
+  // ---- chroma: DC Hadamard and quantiser, the elimination, levels
+  // lanes 16 comp + 4 b hold block b's DC: element b of the Hadamard
+  const int dq = quant(hadamard2_lanes(cdc, lane), tb[32], 2 * cf, cqb + 1);
+  if (cr == 0) a.dcq[(size_t)mb * 8 + comp * 4 + cb4] = dq;
   {
-    const int comp = tid >> 6, b = (tid >> 4) & 3, r = (tid >> 2) & 3,
-              c = tid & 3;
-    const int* f = smem + S_STAGE + 256 + (tid >> 4) * 16;
-    const int h = ict(f[c], f[4 + c], f[8 + c], f[12 + c], r);
-    const int s = comp * 64 + ((b >> 1) * 4 + r) * 8 + (b & 1) * 4 + c;
-    smem[S_CRES + s] = clip255(smem[S_CPRED + s] + ((h + 32) >> 6));
+    int cn = 0, cmax = 0;
+    for (int v = 0; v < 4; ++v) {
+      const int az = cz[v] < 0 ? -cz[v] : cz[v];
+      cn += az > 0;
+      cmax = max(cmax, az);
+    }
+    // a component whose one nonzero AC level is +-1 drops it
+    const unsigned nzl = __ballot_sync(FULL, cn > 0);
+    const unsigned lone = __ballot_sync(FULL, cn == 1 && cmax == 1);
+    const unsigned cm = nzl & (comp ? 0xFFFF0000u : 0x0000FFFFu);
+    if (__popc(cm) == 1 && (lone & cm) == cm)
+      for (int v = 0; v < 4; ++v) cz[v] = 0;
   }
-  __syncthreads();
+  st4(a.acq + (size_t)mb * 128 + comp * 64 + cb4 * 16 + cr * 4,
+      make_int4(cz[0], cz[1], cz[2], cz[3]));
 
-  // ---- the recon and its pad
-  const int hp = a.gh * 16 + 2 * PAD, wp = a.gw * 16 + 2 * PAD;
-  const int hc = a.gh * 8 + 2 * PAD, wc = a.gw * 8 + 2 * PAD;
-  write_owned(a.oy, hp, wp, smem + S_RES, 16, mx, my, a.gw, a.gh);
-  write_owned(a.ou, hc, wc, smem + S_CRES, 8, mx, my, a.gw, a.gh);
-  write_owned(a.ov, hc, wc, smem + S_CRES + 64, 8, mx, my, a.gw, a.gh);
+  // ---- dequantisation
+  int d[8], cd[4];
+  {
+    const int4 v0 = ld4(tb + 16 + 8 * hh), v1 = ld4(tb + 20 + 8 * hh);
+    const int lv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    for (int k = 0; k < 8; ++k) d[k] = dequant(z[k], 16 * lv[k], qp);
+    const int4 cv = ld4(tb + 48 + 4 * cr);
+    const int lc[4] = {cv.x, cv.y, cv.z, cv.w};
+    // chroma_dc_descale of the DC levels' Hadamard, on lanes with cr == 0
+    const int f = hadamard2_lanes(dq, lane);
+    for (int v = 0; v < 4; ++v)
+      cd[v] = cr == 0 && v == 0
+                  ? (f * (16 * lc[0]) * (1 << (qpc / 6))) >> 5
+                  : dequant(cz[v], 16 * lc[v], qpc);
+  }
+
+  // ---- inverse transform: rows in the lane, columns through the buffer
+  __syncwarp();                  // every lane has read the forward rows
+  for (int i = 0; i < 2; ++i) {
+    const int* r = d + i * 4;
+    st4(xl + (2 * hh + i) * 4,
+        make_int4(ict(r[0], r[1], r[2], r[3], 0), ict(r[0], r[1], r[2], r[3], 1),
+                  ict(r[0], r[1], r[2], r[3], 2),
+                  ict(r[0], r[1], r[2], r[3], 3)));
+  }
+  st4(xc + cr * 4, make_int4(ict(cd[0], cd[1], cd[2], cd[3], 0),
+                             ict(cd[0], cd[1], cd[2], cd[3], 1),
+                             ict(cd[0], cd[1], cd[2], cd[3], 2),
+                             ict(cd[0], cd[1], cd[2], cd[3], 3)));
+  __syncwarp();
+  // the recon: each lane's rows straight to the plane; an MB on the
+  // picture's edge also stages it for its share of the pad
+  const int wy = a.gw * 16 + 2 * PAD, wc = a.gw * 8 + 2 * PAD;
+  const bool edge = mx == 0 || my == 0 || mx == a.gw - 1 || my == a.gh - 1;
+  uint8_t* rec = ws + PR_REC;
+  {
+    int f[4][4];                 // [column][row]
+    for (int i = 0; i < 4; ++i) {
+      const int4 v = ld4(xl + i * 4);
+      f[0][i] = v.x, f[1][i] = v.y, f[2][i] = v.z, f[3][i] = v.w;
+    }
+    for (int i = 0; i < 2; ++i) {
+      const int y = by * 4 + 2 * hh + i;
+      int o[4];
+      for (int c = 0; c < 4; ++c)
+        o[c] = clip255(pred[i * 4 + c] +
+                       ((ict(f[c][0], f[c][1], f[c][2], f[c][3], y & 3) +
+                         32) >> 6));
+      st4(a.oy + (size_t)(PAD + my * 16 + y) * wy + PAD + mx * 16 + bx * 4,
+          make_int4(o[0], o[1], o[2], o[3]));
+      if (edge)
+        for (int c = 0; c < 4; ++c) rec[y * 16 + bx * 4 + c] = (uint8_t)o[c];
+    }
+    for (int i = 0; i < 4; ++i) {
+      const int4 v = ld4(xc + i * 4);
+      f[0][i] = v.x, f[1][i] = v.y, f[2][i] = v.z, f[3][i] = v.w;
+    }
+    int o[4];
+    for (int c = 0; c < 4; ++c)
+      o[c] = clip255(pcr[c] +
+                     ((ict(f[c][0], f[c][1], f[c][2], f[c][3], cr) + 32) >> 6));
+    st4((comp ? a.ov : a.ou) + (size_t)(PAD + my * 8 + cy) * wc + PAD +
+            mx * 8 + cx0,
+        make_int4(o[0], o[1], o[2], o[3]));
+    if (edge)
+      for (int c = 0; c < 4; ++c)
+        rec[256 + comp * 64 + cy * 8 + cx0 + c] = (uint8_t)o[c];
+  }
+  if (edge) {                    // warp-uniform
+    __syncwarp();
+    put_owned<16>(a.oy, wy, rec, mx, my, a.gw, a.gh, lane);
+    put_owned<8>(a.ou, wc, rec + 256, mx, my, a.gw, a.gh, lane);
+    put_owned<8>(a.ov, wc, rec + 320, mx, my, a.gw, a.gh, lane);
+  }
+  if (a.mask && lane == 0) {
+    const float est = __fadd_rn((float)satd, __fmul_rn(a.lam[0], 24.0f));
+    a.mask[mb] = est < a.best[mb];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -608,8 +943,9 @@ extern "C" int hl_part_decide(const float* c16, const int32_t* v16,
 
 extern "C" int hl_halfpel_enc(const int32_t* plane, int stride, int hp,
                               int wp, int32_t* out, cudaStream_t stream) {
-  k_halfpel_enc<<<grid_of((long)hp * wp, MB_THREADS), MB_THREADS, 0,
-                  stream>>>(plane, stride, hp, wp, out);
+  const dim3 grid((wp + HP_TW - 1) / HP_TW, (hp + HP_TH - 1) / HP_TH);
+  k_halfpel_enc<<<grid, HP_THREADS, HP_SMEM_BYTES, stream>>>(plane, stride,
+                                                            hp, wp, out);
   return (int)cudaGetLastError();
 }
 
@@ -626,7 +962,8 @@ extern "C" int hl_p_residual(
                  best,  lam,   tab,   wq,    dcq,   acq,   oy,    ou,
                  ov,    mask,  sy_st, su_st, sv_st, ry_st, ru_st, rv_st,
                  ry_h,  ry_w,  rc_h,  rc_w,  gw,    gh,    cqo};
-  k_p_residual<<<dim3(gw, gh), PR_THREADS, PR_SMEM_BYTES, stream>>>(a);
+  k_p_residual<<<dim3((gw + PR_MBS - 1) / PR_MBS, gh), PR_THREADS,
+                 PR_SMEM_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -642,24 +979,31 @@ extern "C" int hl_deblock_params(const int32_t* wq, const int32_t* mv,
   return (int)cudaGetLastError();
 }
 
-// The four kernels' attributes, five ints each in the order k_part_decide,
+// The four kernels' attributes, six ints each in the order k_part_decide,
 // k_halfpel_enc, k_p_residual, k_deblock_params: registers, local (spill)
-// bytes a thread, static shared bytes, dynamic shared bytes, threads a
-// block.
+// bytes a thread, static shared bytes, dynamic shared bytes and threads a
+// block of the launch, and the blocks of that launch an SM holds at once.
 extern "C" int hl_p_encode_attributes(int* out) {
   const void* fns[4] = {(const void*)k_part_decide,
                         (const void*)k_halfpel_enc,
                         (const void*)k_p_residual,
                         (const void*)k_deblock_params};
+  const int dyn[4] = {0, HP_SMEM_BYTES, PR_SMEM_BYTES, 0};
+  const int threads[4] = {MB_THREADS, HP_THREADS, PR_THREADS, MB_THREADS};
   for (int i = 0; i < 4; ++i) {
     cudaFuncAttributes f;
-    const cudaError_t err = cudaFuncGetAttributes(&f, fns[i]);
+    cudaError_t err = cudaFuncGetAttributes(&f, fns[i]);
     if (err != cudaSuccess) return (int)err;
-    out[5 * i] = f.numRegs;
-    out[5 * i + 1] = (int)f.localSizeBytes;
-    out[5 * i + 2] = (int)f.sharedSizeBytes;
-    out[5 * i + 3] = i == 2 ? PR_SMEM_BYTES : 0;
-    out[5 * i + 4] = i == 2 ? PR_THREADS : MB_THREADS;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[i],
+                                                        threads[i], dyn[i]);
+    if (err != cudaSuccess) return (int)err;
+    out[6 * i] = f.numRegs;
+    out[6 * i + 1] = (int)f.localSizeBytes;
+    out[6 * i + 2] = (int)f.sharedSizeBytes;
+    out[6 * i + 3] = dyn[i];
+    out[6 * i + 4] = threads[i];
+    out[6 * i + 5] = blocks;
   }
   return 0;
 }

@@ -27,6 +27,7 @@ since ``p_device`` and ``e_device`` call these wrappers.
 """
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
 
 import numpy as np
@@ -69,6 +70,32 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _on(device):
+    """A context in which ``device`` is the current CUDA device, where the
+    launch goes: none where it already is (entering torch.cuda.device
+    costs the host more than the check)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+@lru_cache(maxsize=None)
+def _residual_layout(gw: int, gh: int):
+    """The residual kernel's six int32 outputs (wq, dcq, acq, recY, recU,
+    recV) as (shape, stride, offset) in one allocation of the returned
+    length: each contiguous, each starting 16-byte aligned (every size is
+    a multiple of 4 samples)."""
+    luma = (gh * 16 + 2 * PAD, gw * 16 + 2 * PAD)
+    chroma = (gh * 8 + 2 * PAD, gw * 8 + 2 * PAD)
+    views, off = [], 0
+    for shape in ((gh, gw, 16, 4, 4), (gh, gw, 2, 2, 2),
+                  (gh, gw, 2, 4, 4, 4), luma, chroma, chroma):
+        stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+        views.append((shape, stride, off))
+        off += int(np.prod(shape))
+    return off, tuple(views)
+
+
 def partition_decide_fast(fs, lam, *, gw: int, gh: int):
     """``p_device.partition_decide`` of the full search's eight outputs
     ``fs``: CUDA tensors -> ``hl_part_decide``; CPU tensors -> the twin.
@@ -90,7 +117,7 @@ def partition_decide_fast(fs, lam, *, gw: int, gh: int):
     best = torch.empty((gh, gw), dtype=torch.float32, device=device)
     mv = torch.empty((gh, gw, 16, 2), dtype=torch.int32, device=device)
     part = torch.empty((gh, gw, 16), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
+    with _on(device):
         rc = kernels.load().hl_part_decide(
             *(t.data_ptr() for t in fs), lam_t.data_ptr(),
             choice.data_ptr(), best.data_ptr(), mv.data_ptr(),
@@ -111,7 +138,7 @@ def halfpel_planes_fast(pad_plane: torch.Tensor) -> torch.Tensor:
     _plane(pad_plane, 1, 1, "halfpel_planes_fast")
     hp, wp = pad_plane.shape
     out = torch.empty((4, hp, wp), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
+    with _on(device):
         rc = kernels.load().hl_halfpel_enc(
             pad_plane.data_ptr(), pad_plane.stride(0), hp, wp,
             out.data_ptr(), _stream(device))
@@ -140,40 +167,35 @@ def p_residual_fast(srcY, srcU, srcV, refY, refU, refV, mv_blk, qp,
                           best_cost, lam, gw=gw, gh=gh,
                           chroma_qp_off=chroma_qp_off, intra_in_p=intra_in_p)
     from hartallo_tpu_torch import kernels
-    H, W = gh * 16, gw * 16
-    luma, chroma = (H + 2 * PAD, W + 2 * PAD), (H // 2 + 2 * PAD,
-                                                W // 2 + 2 * PAD)
-    for p, shape, n in ((srcY, luma, "srcY"), (srcU, chroma, "srcU"),
-                        (srcV, chroma, "srcV"), (refY, luma, "refY"),
-                        (refU, chroma, "refU"), (refV, chroma, "refV")):
-        _plane(p, *shape, f"{name}: {n}")
-        if tuple(p.shape) != shape:
-            raise ValueError(f"{name}: {n} {tuple(p.shape)}; it needs "
-                             f"{shape}")
+    total, views = _residual_layout(gw, gh)
+    planes = (srcY, srcU, srcV, refY, refU, refV)
+    for p, (shape, _, _), n in zip(planes, views[3:] * 2,
+                                   ("srcY", "srcU", "srcV", "refY", "refU",
+                                    "refV")):
+        if p.dtype != torch.int32 or p.stride(1) != 1 or p.shape != shape:
+            raise ValueError(f"{name}: {n} {p.dtype} {tuple(p.shape)} "
+                             f"with strides {p.stride()}; it needs int32, "
+                             f"unit column stride and {shape}")
     _tensor(mv_blk, torch.int32, (gh, gw, 16, 2), f"{name}: mv_blk")
     _tensor(qp, torch.int32, (gh, gw), f"{name}: qp")
     _tensor(best_cost, torch.float32, (gh, gw), f"{name}: best_cost")
     lam_t = _lam(lam, device)
-    wq = torch.empty((gh, gw, 16, 4, 4), dtype=torch.int32, device=device)
-    dcq = torch.empty((gh, gw, 2, 2, 2), dtype=torch.int32, device=device)
-    acq = torch.empty((gh, gw, 2, 4, 4, 4), dtype=torch.int32,
-                      device=device)
-    rec = [torch.empty(s, dtype=torch.int32, device=device)
-           for s in (luma, chroma, chroma)]
+    # one allocation for the six int32 outputs, each a view of its own
+    flat = torch.empty(total, dtype=torch.int32, device=device)
+    out = [flat.as_strided(*v) for v in views]
     mask = torch.empty((gh, gw), dtype=torch.bool, device=device) \
         if intra_in_p else None
-    with torch.cuda.device(device):
+    with _on(device):
         rc = kernels.load().hl_p_residual(
-            *(t.data_ptr() for t in (srcY, srcU, srcV, refY, refU, refV,
-                                     mv_blk, qp, best_cost, lam_t,
-                                     _tables(device), wq, dcq, acq, *rec)),
+            *[t.data_ptr() for t in (*planes, mv_blk, qp, best_cost, lam_t,
+                                     _tables(device))],
+            *[t.data_ptr() for t in out],
             None if mask is None else mask.data_ptr(),
-            *(p.stride(0) for p in (srcY, srcU, srcV, refY, refU, refV)),
-            *refY.shape, *refU.shape, gw, gh, int(chroma_qp_off),
-            _stream(device))
+            *[p.stride(0) for p in planes], *refY.shape, *refU.shape, gw,
+            gh, int(chroma_qp_off), _stream(device))
     _check(rc, "hl_p_residual")
     LAUNCHES["p_residual"] += 1
-    return (wq, dcq, acq, *rec, mask)
+    return (*out, mask)
 
 
 def deblock_params_fast(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
@@ -206,7 +228,7 @@ def deblock_params_fast(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
             _tensor(f, torch.bool, (gh, gw), f"{name}: {n}")
         flags.append(f)
     aux = torch.empty((gh, gw, NAUX), dtype=torch.int16, device=device)
-    with torch.cuda.device(device):
+    with _on(device):
         rc = kernels.load().hl_deblock_params(
             wq.data_ptr(), mv44.data_ptr(), ref44.data_ptr(),
             mb_is_intra.data_ptr(), qp.data_ptr(),

@@ -5,8 +5,8 @@
 // per-warp slot array for the warp shuffles, votes and reductions, float
 // operations that round once each, as __fadd_rn, __fmul_rn, __fdiv_rn and
 // __fmaf_rn do, and the byte-SIMD intrinsics (__vabsdiffu4, __vsadu4,
-// __dp4a, __byte_perm, __funnelshift_r) as integer code, and atomicAdd on
-// std::atomic_ref.  Every lane of
+// __dp4a, __byte_perm, __funnelshift_r) as integer code, atomicAdd on
+// std::atomic_ref, and the int4 vector type.  Every lane of
 // a warp must reach each __syncwarp and warp collective, as the kernels'
 // code does.
 //
@@ -48,6 +48,13 @@ using std::min;
 struct EmuDim3 {
   unsigned x = 0, y = 0, z = 0;
 };
+
+// CUDA's int4, 16-byte aligned as vector_types.h declares it
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 
 // A barrier whose waiters sleep at once (std::barrier spins first, which
 // takes the cores of the threads it waits for when there are many more

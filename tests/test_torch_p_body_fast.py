@@ -20,10 +20,15 @@ package, their routing, and the CUDA kernels against the twins on a GPU.
 - Routing: ``encode_frames`` and ``p_encode_step_sharded`` reach each
   wrapper once per P picture (the deblock parameters once per picture or
   band).
+- The residual wrapper's one allocation: its six int32 outputs are
+  contiguous views of their shapes that tile the allocation, each
+  16-byte aligned for the kernel's int4 stores.
 - On a GPU (``cuda``): each kernel equals its twin on ``chip_smoke``'s
   cases at CIF, qp 51 with an offset, and the 1080p band with its halo;
-  the wrappers refuse what the kernels do not take; an encode of the
-  QCIF fixture launches each kernel once per P picture.
+  the half-pel kernel on planes that its 64 x 16 tiles do not fill,
+  contiguous and through a wider row stride; the wrappers refuse what
+  the kernels do not take; an encode of the QCIF fixture launches each
+  kernel once per P picture.
 
 Tolerance: exact equality of every output.
 """
@@ -237,6 +242,25 @@ def test_cpu_halfpel_of_a_halo_reference_equals_jax():
     _eq([got], [J(jnp.asarray(c["ref"][0]))], ("stack",))
 
 
+@pytest.mark.parametrize("gw,gh", [(1, 1), (5, 3), (22, 18), (120, 17)])
+def test_residual_outputs_tile_one_allocation(gw, gh):
+    from hartallo_tpu_torch.encode.p_body_fast import _residual_layout
+    total, views = _residual_layout(gw, gh)
+    flat = torch.zeros(total, dtype=torch.int32)
+    shapes = [(gh, gw, 16, 4, 4), (gh, gw, 2, 2, 2), (gh, gw, 2, 4, 4, 4),
+              (gh * 16 + 64, gw * 16 + 64), (gh * 8 + 64, gw * 8 + 64),
+              (gh * 8 + 64, gw * 8 + 64)]
+    out = [flat.as_strided(*v) for v in views]
+    assert [tuple(t.shape) for t in out] == shapes
+    assert all(t.is_contiguous() and t.storage_offset() % 4 == 0
+               for t in out)
+    for k, t in enumerate(out):
+        t.fill_(k + 1)
+    assert torch.equal(flat, torch.cat([torch.full((t.numel(),), k + 1,
+                                                   dtype=torch.int32)
+                                        for k, t in enumerate(out)]))
+
+
 def test_devices_must_agree():
     from hartallo_tpu_torch.encode import p_body_fast as PB
     gw, gh, c = CS.p_inputs(32, 32, 12)
@@ -322,6 +346,21 @@ def test_cuda_kernels_equal_plain_twins(cuda_device, label):
         {n: err for n, (err, *_) in out.items()}
     assert {n: PB.LAUNCHES[n] - before[n] for n in before} == \
         dict.fromkeys(before, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hp,wp", [(208, 240), (37, 53), (5, 3), (16, 70)])
+def test_cuda_halfpel_of_planes_the_tiles_do_not_fill(cuda_device, hp, wp):
+    from hartallo_tpu_torch.encode import p_body_fast as PB
+    from hartallo_tpu_torch.ops.wide import halfpel_planes
+    plane = np.random.default_rng(hp * 1000 + wp).integers(
+        0, 256, (hp, wp)).astype(np.int32)
+    want = halfpel_planes(torch.tensor(plane))
+    wide = torch.zeros((hp, wp + 7), dtype=torch.int32, device=cuda_device)
+    wide[:, 3:3 + wp] = torch.tensor(plane, device=cuda_device)
+    for got in (PB.halfpel_planes_fast(wide[:, 3:3 + wp].contiguous()),
+                PB.halfpel_planes_fast(wide[:, 3:3 + wp])):
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

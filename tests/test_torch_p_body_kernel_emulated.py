@@ -3,10 +3,12 @@ emulation of the CUDA features they use, against their plain twins.
 
 ``csrc/p_encode.cu`` up to its C entry points is compiled with g++ after
 ``tests/cuda_emulation.h`` (one ``std::thread`` per CUDA thread, barriers
-for ``__syncthreads``, the blocks of a grid one after another), with the
-headers it shares with ``intra_encode.cu`` and ``d_gop.cu``.  This holds
-the four kernels' indexing, clamps, lane mapping, reductions, rounding and
-tie-breaks against ``p_device.partition_decide``,
+for ``__syncthreads`` and ``__syncwarp``, the warp shuffles, ballots and
+reductions, the blocks of a grid one after another, the launches' grids,
+blocks and dynamic shared memory as the C entry points give them), with
+the headers it shares with ``intra_encode.cu`` and ``d_gop.cu``.  This
+holds the four kernels' indexing, clamps, lane mapping, reductions,
+rounding and tie-breaks against ``p_device.partition_decide``,
 ``ops/wide.halfpel_planes``, ``p_device.p_residual`` and
 ``e_device.deblock_params`` on every run where there is no card; nvcc's
 build and the card stay the authority (the ``cuda`` tests of
@@ -14,11 +16,18 @@ build and the card stay the authority (the ``cuda`` tests of
 ``chip_smoke.p_inputs`` at 1x1 to 5x4 MBs (the ``bench.make_clip``
 frame pair, a halo-padded band reference, a flat and an intra-heavy
 source, qp 0, 51 and 0..51 with chroma offsets, seeded MVs far into the
-pad at every edge, seeded MB edge flags), and seeded full-search outputs
-whose partition costs tie.  ``test_emulated_mutants_fail`` builds three
-broken copies of the source (a wrong MC clamp, the luma elimination
-dropped, a wrong bS rule) and shows that each disagrees with its twin.
-Tolerance: exact equality of every output.
+pad at every edge, seeded MB edge flags; MB rows that leave the last
+block of 4 MBs part empty), seeded full-search outputs whose partition
+costs tie, planes of other sizes than the half-pel kernel's 64 x 16
+tile, read contiguous and through a wider row stride, and seeded
+quarter-pel MVs shared by each 8x8 quadrant (the residual kernel's
+one-window path) with some quadrants' MVs far into the pad beside
+quadrants that stay inside (its per-block path).
+``test_emulated_mutants_fail`` builds five broken copies of the source
+(a wrong MC clamp, the luma elimination dropped, a wrong bS rule, the
+half-pel tile's halo one row short, the one-window path taken for a
+quadrant whose blocks' MVs differ) and shows that each disagrees with
+its twin.  Tolerance: exact equality of every output.
 """
 import ctypes
 import os
@@ -55,8 +64,10 @@ extern "C" void emu_part_decide(const float* c16, const int32_t* v16,
 
 extern "C" void emu_halfpel(const int32_t* plane, int stride, int hp,
                             int wp, int32_t* out) {
+  if (HP_SMEM_WORDS > (int)(sizeof(smem) / sizeof(int))) std::abort();
   auto k = [=](int) { k_halfpel_enc(plane, stride, hp, wp, out); };
-  emu_launch_grid(k, 0, 2, 1, 64);
+  emu_launch_grid(k, 0, (wp + HP_TW - 1) / HP_TW, (hp + HP_TH - 1) / HP_TH,
+                  HP_THREADS);
 }
 
 extern "C" void emu_p_residual(
@@ -71,8 +82,9 @@ extern "C" void emu_p_residual(
                  best,  lam,   tab,   wq,    dcq,   acq,   oy,    ou,
                  ov,    mask,  sy_st, su_st, sv_st, ry_st, ru_st, rv_st,
                  ry_h,  ry_w,  rc_h,  rc_w,  gw,    gh,    cqo};
-  if (PR_SMEM_WORDS > (int)(sizeof(smem) / sizeof(int))) std::abort();
-  emu_launch_grid(k_p_residual, a, gw, gh, PR_THREADS);
+  if (PR_SMEM_BYTES > (int)sizeof(smem)) std::abort();
+  emu_launch_grid(k_p_residual, a, (gw + PR_MBS - 1) / PR_MBS, gh,
+                  PR_THREADS);
 }
 
 extern "C" void emu_deblock_params(const int32_t* wq, const int32_t* mv,
@@ -226,6 +238,7 @@ P_CASES = [
     ("3x2 band of 2 rows, halo reference", 48, 128,
      {"band": True, "mv_max": 200}),
     ("one MB", 16, 16, {"mv_max": 100}),
+    ("5x3, one MB in a row's last block", 80, 48, {"mv_max": 60}),
 ]
 
 
@@ -253,6 +266,32 @@ def test_emulated_halfpel_equals_twin(emulated, label, W, H, opts):
     wide[:, 5:5 + ref.shape[1]] = ref
     _eq([run_halfpel(emulated, wide[:, 5:5 + ref.shape[1]])],
         [halfpel_planes(torch.tensor(ref))], ("stack of a view",))
+
+
+# planes of other sizes than the half-pel kernel's 64 x 16 tiles: (label,
+# Hp, Wp); QCIF's padded luma plane is 208 x 240
+HALFPEL_PLANES = [
+    ("QCIF 208x240", 208, 240),
+    ("37x53, rows not a multiple of 4 samples", 37, 53),
+    ("5x3, smaller than the halo", 5, 3),
+    ("16x70", 16, 70),
+]
+
+
+@pytest.mark.parametrize("label,hp,wp", HALFPEL_PLANES,
+                         ids=[c[0] for c in HALFPEL_PLANES])
+def test_emulated_halfpel_ragged_planes(emulated, label, hp, wp):
+    """Tiles that the plane does not fill, on a contiguous plane and on
+    one read through a row stride wider than wp."""
+    from hartallo_tpu_torch.ops.wide import halfpel_planes
+    plane = np.random.default_rng(hp * 1000 + wp).integers(
+        0, 256, (hp, wp)).astype(np.int32)
+    want = [halfpel_planes(torch.tensor(plane))]
+    _eq([run_halfpel(emulated, plane)], want, ("stack",))
+    wide = np.zeros((hp, wp + 7), np.int32)
+    wide[:, 3:3 + wp] = plane
+    _eq([run_halfpel(emulated, wide[:, 3:3 + wp])], want,
+        ("stack of a view",))
 
 
 P_NAMES = ("wq", "dcq", "acq", "recY", "recU", "recV", "mask")
@@ -287,6 +326,53 @@ def test_emulated_p_residual_without_mask(emulated):
     _eq(got[:-1], want[:-1], P_NAMES)
 
 
+def quadrant_mvs(gw, gh, seed, mv_max=40, far=0.3):
+    """Seeded quarter-pel MVs (gh, gw, 16, 2), one per 8x8 quadrant as the
+    path's partitions give them, in +-``mv_max`` with every fractional
+    case; a share ``far`` of the quadrants point 100 pels into the pad, so
+    that their block origins clamp.  MB (0, 0)'s first quadrant always
+    does, and its second never."""
+    r = np.random.default_rng(seed)
+    q = r.integers(-mv_max, mv_max + 1, (gh, gw, 2, 2, 2))
+    away = r.random((gh, gw, 2, 2)) < far
+    q[away, r.integers(0, 2)] += np.where(r.random(away.sum()) < 0.5,
+                                          -400, 400)
+    q[0, 0, 0, 0] = (-401, 3)
+    q[0, 0, 0, 1] = (5, -2)
+    return np.repeat(np.repeat(q, 2, 2), 2, 3).reshape(gh, gw, 16, 2) \
+        .astype(np.int32)
+
+
+# (label, W, H, options of chip_smoke.p_inputs, largest |MV| in quarter
+# pels, share of quadrants far into the pad, intra_in_p)
+QUADRANT_CASES = [
+    ("4x3 fractional, none far", 64, 48, {}, 40, 0.0, True),
+    ("5x3 some far", 80, 48, {}, 40, 0.3, True),
+    ("5x3 qp 0..51, offset +3, no mask", 80, 48, {"qp": None, "cqo": 3},
+     40, 0.3, False),
+    ("one MB", 16, 16, {}, 12, 0.5, True),
+    ("3x2 band, halo reference", 48, 128, {"band": True}, 40, 0.3, True),
+]
+
+
+@pytest.mark.parametrize("label,W,H,opts,mv_max,far,intra_in_p",
+                         QUADRANT_CASES, ids=[c[0] for c in QUADRANT_CASES])
+def test_emulated_p_residual_quadrant_mvs(emulated, label, W, H, opts,
+                                          mv_max, far, intra_in_p):
+    """MVs shared by each quadrant, with fractional parts: the one-window
+    path, beside quadrants whose origins clamp (the per-block path), a
+    clamped and an unclamped quadrant side by side in MB (0, 0)."""
+    gw, gh, c = CS.p_inputs(W, H, 18, **opts)
+    mv = quadrant_mvs(gw, gh, 19 + gw, mv_max, far)
+    _, best = _path_mvs(c, gw, gh)
+    got = run_p_residual(emulated, c, mv, best, gw, gh, intra_in_p)
+    want = _twin_residual(c, mv, best, gw, gh, intra_in_p)
+    _eq(got[:-1], want[:-1], P_NAMES)
+    assert (got[-1] is None) == (want[-1] is None)
+    if intra_in_p:
+        _eq(got[-1:], want[-1:], P_NAMES[-1:])
+
+
 def _twin_params(wq, mv44, ref44, intra, c, gw, gh):
     from hartallo_tpu_torch.encode.e_device import deblock_params
     flags = [None if f is None else torch.tensor(f)
@@ -317,22 +403,30 @@ def test_emulated_deblock_params_equal_twin(emulated, label, W, H, opts):
     _eq([got], [_twin_params(wq, mv44, ref44, intra, c, gw, gh)], ("aux",))
 
 
-# three broken copies of the source: (label, text replaced, replacement,
+# five broken copies of the source: (label, text replaced, replacement,
 # the kernel that must then disagree with its twin, chip_smoke.p_inputs'
 # W, H and options).  The clamp shows where the pad is not constant
 # along the clamped axis: the rows of a band's halo reference; the
-# elimination where an MB's few small levels sum below 6 (qp 0..51).
+# elimination where an MB's few small levels sum below 6 (qp 0..51); the
+# short halo on any plane that is not flat; the one-window path where
+# seeded MVs differ inside a quadrant and no origin clamps.
 MUTANTS = [
     ("the luma MC origin clamped one row short",
      "clampi(-(PAD - 2), a.ry_h - PAD - 7,",
      "clampi(-(PAD - 2), a.ry_h - PAD - 8,", "p_residual",
      (48, 128, {"band": True, "mv_max": 400})),
     ("the luma elimination dropped",
-     "smem[S_FLAG] = ctr < 6;", "smem[S_FLAG] = 0;", "p_residual",
+     "(unsigned)ctr) < 6;", "(unsigned)ctr) < 0;", "p_residual",
      (64, 48, {"qp": None})),
     ("an intra edge inside the MB at bS 4",
      "return internal && bs == 4 ? 3 : bs;", "return bs;",
      "deblock_params", (64, 48, {})),
+    ("the half-pel tile's halo one row short",
+     "r < HP_ROWS; r += HP_THREADS / 32)",
+     "r < HP_ROWS - 1; r += HP_THREADS / 32)", "halfpel", (64, 48, {})),
+    ("one window for a quadrant whose MVs differ",
+     "xi != ux || yi != uy || mvx != qmvx || mvy != qmvy",
+     "xi != ux || yi != uy", "p_residual", (64, 48, {"mv_max": 60})),
 ]
 
 
@@ -340,8 +434,9 @@ MUTANTS = [
                          ids=[m[0] for m in MUTANTS])
 def test_emulated_mutants_fail(label, old, new, kernel, case):
     """Each broken copy builds and disagrees with its twin on the inputs
-    above: the comparison sees a wrong clamp, a dropped elimination and
-    a wrong bS rule."""
+    above: the comparison sees a wrong clamp, a dropped elimination, a
+    wrong bS rule, a short halo and a window shared where it may not
+    be."""
     text = SOURCE.read_text()
     assert text.count(old) == 1
     # a path of its own: the loader would hand back a library already
@@ -355,6 +450,11 @@ def test_emulated_mutants_fail(label, old, new, kernel, case):
         if kernel == "p_residual":
             got = run_p_residual(dll, c, mv, best, gw, gh)
             want = _twin_residual(c, mv, best, gw, gh)
+        elif kernel == "halfpel":
+            from hartallo_tpu_torch.ops.wide import halfpel_planes
+            ref = _c(c["ref"][0])
+            got = [run_halfpel(dll, ref)]
+            want = [halfpel_planes(torch.tensor(ref))]
         else:
             wq, mv44, ref44, intra = _params_inputs(c, gw, gh, 17)
             got = [run_deblock_params(dll, wq, mv44, ref44, intra,
