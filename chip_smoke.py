@@ -124,8 +124,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    refinement launch per picture at CIF, 720p and 1080p, with the
    wrapper (CUDA events), alone (the profiler's device time) and the
    wrapper's host time per call (no sync), beside their twins; the four
-   P body kernels per picture at CIF, 720p and 1080p the same way; each
-   beside its bound
+   P body kernels per picture at CIF, 720p and 1080p the same way, after
+   the launch floor (the profiler's device time of a one-element fill);
+   each beside its bound
    (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``,
    ``p_bound``);
    encode fps at CIF, 720p and
@@ -406,6 +407,13 @@ def kernel_us(torch, fn, reps: int, name: str, launches: int = 1):
             return launches * sum(t for t, _ in events) / \
                 sum(n for _, n in events)
     return None
+
+
+def launch_floor_us(torch):
+    """The profiler's device time in µs of a one-element fill on the card:
+    the least a launch takes, which the short kernels are read against."""
+    one = torch.zeros(1, device="cuda")
+    return kernel_us(torch, lambda: one.fill_(1.0), 20, "FillFunctor")
 
 
 def host_us(fn, reps: int) -> float:
@@ -1072,6 +1080,10 @@ def p_phase(torch, card):
                                  kernel_us(torch, fn, 10, P_KERNELS[n]),
                                  host_us(fn, 10), ms)
                              for n, (_, _, ms, fn) in out.items()}, gw, gh)
+    floor = launch_floor_us(torch)
+    print(f"[{card}] launch floor: a one-element fill takes "
+          + ("not measured" if floor is None else f"{floor:.2f} us")
+          + " on the card (profiler device time)", flush=True)
     for label, (t, gw, gh) in timed.items():
         for n, (ms, dev_us, h_us, plain) in t.items():
             b, by = p_bound(n, gw, gh)

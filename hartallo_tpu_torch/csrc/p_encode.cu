@@ -22,9 +22,14 @@
 // the wrappers are hartallo_tpu_torch/encode/p_body_fast.py.
 //
 // Design.
-//   k_part_decide     one thread per MB: the four partition costs in the
-//                     twin's f32 order, the first minimum, the MB's 16
-//                     block MVs (times 4) and partition indices.
+//   k_part_decide     16 lanes an MB, two MBs a warp, 256 threads a
+//                     block: each lane loads the MB's nine costs (one
+//                     address across the MB's lanes), forms the four
+//                     costs in the twin's f32 order and the first minimum
+//                     (the same in every lane: no reduction, no shuffle),
+//                     then loads its block's MV of the chosen scheme and
+//                     writes it (times 4, one 8-byte store) and its
+//                     partition index; lane 0 the choice and the cost.
 //   k_halfpel_enc     a block of 256 threads per 64 x 16 tile of the
 //                     padded plane, on a 2-D grid.  The block stages the
 //                     tile's G with a halo of 2 rows above, 3 below and 4
@@ -69,11 +74,18 @@
 //                     stores.  Shifts and masks of the MB's geometry
 //                     index everything; the only / and % are the MB's
 //                     qp % 6 and qp / 6 (and qpc's).
-//   k_deblock_params  one thread per 4x4 block: whether it and its left
-//                     and top neighbours have luma levels, the bS of
-//                     8.7.2.1 on its left and top edge segments, and for
-//                     six of an MB's blocks one alpha / beta / tc0 set
-//                     of the edge_params row, as int16.
+//   k_deblock_params  16 lanes an MB, a block of 128 threads per strip
+//                     of 8 MBs of a row (blockIdx.y the row, so no / or
+//                     %): lane (by, bx) loads its block's levels as four
+//                     int4 words OR-ed together, its MV and reference,
+//                     and across a filtered MB edge the neighbour MB's
+//                     block beside it, all before the first use; the
+//                     neighbours inside the MB come by width-16 shuffles
+//                     from lanes l - 1 and l - 4.  Each lane forms the bS
+//                     of 8.7.2.1 on its left and top edge segments, lanes
+//                     0-5 one alpha / beta / tc0 set of the edge_params
+//                     row each, and the MB's 62 int16 words are staged
+//                     in a per-MB shared row and leave as 32-bit stores.
 //
 // What bounds them on the H100: bytes.  k_halfpel_enc reads the int32
 // plane and writes four (20 B a sample: 46 MB, 14 us at 1080p): its
@@ -85,7 +97,11 @@
 // warp's chain of dependent steps (MVs, windows, sums, prediction,
 // transforms, shuffles, recon), with 64 registers an SM holds 32 such
 // warps, and a 1080p picture's 8,160 MBs take two waves of them (fewer
-// registers spill and run slower).  The other two move about 1-10 MB.
+// registers spill and run slower).  The other two move about 1-10 MB
+// (k_deblock_params' levels are 8.4 MB at 1080p) in one wave of the card,
+// so what sets their pace is each lane's chain of dependent loads: at most
+// two deep (the costs, then the chosen MV; the edge flags, then the
+// neighbour MB's block), no load behind a store.
 // PERF.md has their times beside these bounds.
 //
 // Rounding.  The partition and intra-in-P costs are the only floats, spelt
@@ -105,8 +121,6 @@ namespace {
 
 constexpr int PAD = 32;
 constexpr int NAUX = 62;
-constexpr int MB_THREADS = 128;   // k_part_decide's and k_deblock_params'
-                                  // block
 
 // the wrapper's table (p_body_fast._tables), int32 words: QUANT_MF
 // (6,4,4), QUANT_V (6,4,4), QUANT_QBITS (52), the inter row of QUANT_F
@@ -134,14 +148,19 @@ __device__ __forceinline__ int raster_blk(int by, int bx) {
 // k_part_decide
 // ---------------------------------------------------------------------------
 struct PdArgs {
-  const float *c16, *c168, *c816, *c88;        // the full search's costs
-  const int32_t *v16, *v168, *v816, *v88;      // and integer MVs
-  const float* lam;                            // one value
-  long long* choice;                           // (gh, gw)
-  float* best;                                 // (gh, gw)
-  int32_t *mv, *part;                          // (gh, gw, 16, 2), (.., 16)
-  int n;                                       // MBs
+  const float *__restrict__ c16, *__restrict__ c168;   // the full search's
+  const float *__restrict__ c816, *__restrict__ c88;   // costs
+  const int32_t *__restrict__ v16, *__restrict__ v168; // and integer MVs
+  const int32_t *__restrict__ v816, *__restrict__ v88;
+  const float* __restrict__ lam;                       // one value
+  long long* __restrict__ choice;                      // (gh, gw)
+  float* __restrict__ best;                            // (gh, gw)
+  int32_t *__restrict__ mv, *__restrict__ part;        // (gh, gw, 16, 2),
+                                                       // (gh, gw, 16)
+  int n;                                               // MBs
 };
+
+constexpr int PD_THREADS = 256;   // 16 MBs a block, 16 lanes an MB
 
 // me._PART_OF_BLK of partition scheme `choice` at raster block b
 __device__ __forceinline__ int part_of(int choice, int b) {
@@ -152,34 +171,53 @@ __device__ __forceinline__ int part_of(int choice, int b) {
                        : ((by >> 1) << 1) | (bx >> 1);
 }
 
-__global__ void k_part_decide(PdArgs a) {
+__device__ __forceinline__ int2 ld2(const int32_t* p) {
+  return *reinterpret_cast<const int2*>(p);
+}
+
+// 16 lanes an MB, two MBs a warp; lane b takes raster block b.  Every lane
+// loads the MB's nine costs (one address across the MB's lanes), forms the
+// four costs in the twin's order and the first minimum, loads its block's
+// MV of the chosen scheme and writes it times 4 (an MB's lanes write 128
+// contiguous bytes) and its partition; lane 0 writes the choice and the
+// cost.  No lane waits on another: a grid whose MB count is odd leaves the
+// last warp's second half idle.
+__global__ void __launch_bounds__(PD_THREADS) k_part_decide(PdArgs a) {
+  const int t = blockIdx.x * PD_THREADS + threadIdx.x;
+  const int m = t >> 4, b = t & 15;
+  if (m >= a.n) return;
+  const int ry = b >> 2, rx = b & 3;        // the block's row and column
   const float lam = a.lam[0];
-  for (int m = blockIdx.x * blockDim.x + threadIdx.x; m < a.n;
-       m += gridDim.x * blockDim.x) {
-    float c[4];
-    c[0] = __fadd_rn(a.c16[m], __fmul_rn(lam, 1.0f));
-    c[1] = __fadd_rn(__fadd_rn(a.c168[2 * m], a.c168[2 * m + 1]),
-                     __fmul_rn(lam, 3.0f));
-    c[2] = __fadd_rn(__fadd_rn(a.c816[2 * m], a.c816[2 * m + 1]),
-                     __fmul_rn(lam, 3.0f));
-    const float* q = a.c88 + 4 * m;
-    c[3] = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(q[0], q[1]), q[2]), q[3]),
-                     __fmul_rn(lam, 9.0f));
-    int ch = 0;
-    for (int k = 1; k < 4; ++k)
-      if (c[k] < c[ch]) ch = k;       // the first minimum, as argmin
+  const float b16 = a.c16[m];
+  const float h0 = a.c168[2 * m], h1 = a.c168[2 * m + 1];
+  const float w0 = a.c816[2 * m], w1 = a.c816[2 * m + 1];
+  const float q0 = a.c88[4 * m], q1 = a.c88[4 * m + 1],
+              q2 = a.c88[4 * m + 2], q3 = a.c88[4 * m + 3];
+  const float c16 = __fadd_rn(b16, __fmul_rn(lam, 1.0f));
+  const float c168 = __fadd_rn(__fadd_rn(h0, h1), __fmul_rn(lam, 3.0f));
+  const float c816 = __fadd_rn(__fadd_rn(w0, w1), __fmul_rn(lam, 3.0f));
+  const float c88 = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fadd_rn(q0, q1), q2), q3), __fmul_rn(lam, 9.0f));
+  // the first minimum, as argmin
+  int ch = 0;
+  float cost = c16;
+  if (c168 < cost) ch = 1, cost = c168;
+  if (c816 < cost) ch = 2, cost = c816;
+  if (c88 < cost) ch = 3, cost = c88;
+  // the chosen partition's integer MV: one 8-byte load after the choice
+  // (cheaper on the card than every scheme's MV loaded up front, as the
+  // inputs sit in L2 after the full search)
+  const int2 v = ld2(ch == 0   ? a.v16 + 2 * m
+                     : ch == 1 ? a.v168 + 4 * m + 2 * (ry >> 1)
+                     : ch == 2 ? a.v816 + 4 * m + 2 * (rx >> 1)
+                               : a.v88 + 8 * m + 2 * (((ry >> 1) << 1) |
+                                                      (rx >> 1)));
+  const size_t o = (size_t)m * 16 + b;
+  *reinterpret_cast<int2*>(a.mv + 2 * o) = make_int2(v.x * 4, v.y * 4);
+  a.part[o] = part_of(ch, b);
+  if (b == 0) {
     a.choice[m] = ch;
-    a.best[m] = c[ch];
-    for (int b = 0; b < 16; ++b) {
-      const int p = part_of(ch, b);
-      const int32_t* v = ch == 0   ? a.v16 + 2 * m
-                         : ch == 1 ? a.v168 + 4 * m + 2 * p
-                         : ch == 2 ? a.v816 + 4 * m + 2 * p
-                                   : a.v88 + 8 * m + 2 * p;
-      a.mv[(m * 16 + b) * 2] = v[0] * 4;
-      a.mv[(m * 16 + b) * 2 + 1] = v[1] * 4;
-      a.part[m * 16 + b] = p;
-    }
+    a.best[m] = cost;
   }
 }
 
@@ -826,100 +864,161 @@ __global__ void __launch_bounds__(PR_THREADS) k_p_residual(PrArgs a) {
 // k_deblock_params
 // ---------------------------------------------------------------------------
 struct DpArgs {
-  const int32_t* wq;        // (gh, gw, 16, 4, 4) luma levels, blkIdx order
-  const int32_t* mv;        // (gh, gw, 4, 4, 2)
-  const int32_t* ref;       // (gh, gw, 4, 4)
-  const uint8_t* intra;     // (gh, gw) bool
-  const int32_t* qp;        // (gh, gw)
-  const uint8_t *fv, *fh;   // (gh, gw) MB edge flags, or null (inside the
-                            // picture)
-  const int32_t* tab;
-  int16_t* aux;             // (gh, gw, NAUX)
+  const int32_t* __restrict__ wq;   // (gh, gw, 16, 4, 4) luma levels, blkIdx
+                                    // order, 16-byte aligned
+  const int32_t* __restrict__ mv;   // (gh, gw, 4, 4, 2), 8-byte aligned
+  const int32_t* __restrict__ ref;  // (gh, gw, 4, 4)
+  const uint8_t* __restrict__ intra;  // (gh, gw) bool
+  const int32_t* __restrict__ qp;     // (gh, gw)
+  const uint8_t *__restrict__ fv, *__restrict__ fh;  // (gh, gw) MB edge
+                                    // flags, or null (inside the picture)
+  const int32_t* __restrict__ tab;
+  int16_t* __restrict__ aux;        // (gh, gw, NAUX), 4-byte aligned
   int gw, gh, cqo;
 };
 
-// block (R, C) of the picture's 4x4 grid
-__device__ __forceinline__ int grid_mb(const DpArgs& a, int R, int C) {
-  return (R >> 2) * a.gw + (C >> 2);
-}
-__device__ __forceinline__ int grid_blk(const DpArgs& a, int R, int C) {
-  return grid_mb(a, R, C) * 16 + (R & 3) * 4 + (C & 3);
-}
-__device__ bool grid_nz(const DpArgs& a, int R, int C) {
-  const int32_t* w = a.wq + ((size_t)grid_mb(a, R, C) * 16 +
-                             raster_blk(R & 3, C & 3)) * 16;
-  for (int i = 0; i < 16; ++i)
-    if (w[i] != 0) return true;
-  return false;
+constexpr int DP_MBS = 8;                  // MBs of a row a block
+constexpr int DP_THREADS = DP_MBS * 16;    // 16 lanes an MB, one a 4x4 block
+constexpr int DP_ROW = 64;                 // int16 words of an MB's staged row
+constexpr int DP_SMEM_BYTES = DP_MBS * DP_ROW * 2;
+static_assert(NAUX <= DP_ROW && NAUX % 2 == 0 && NAUX / 2 <= 32,
+              "k_deblock_params stages an MB's row as 32-bit words, two a "
+              "lane");
+
+// Whether a 4x4 block's 16 levels (four 16-byte words) hold a nonzero one
+__device__ __forceinline__ bool any_level(const int4* w) {
+  const int4 x = w[0], y = w[1], z = w[2], u = w[3];
+  return ((x.x | x.y | x.z | x.w) | (y.x | y.y | y.z | y.w) |
+          (z.x | z.y | z.z | z.w) | (u.x | u.y | u.z | u.w)) != 0;
 }
 
-// bS of the edge between block q (nonzero levels: nzq) and its neighbour
-// p (8.7.2.1, as ops/wide.compute_bs_grids: 3 for an intra edge inside
-// the MB)
-__device__ int edge_bs(const DpArgs& a, int Rq, int Cq, int Rp, int Cp,
-                       bool internal, bool nzq) {
+__device__ __forceinline__ const int4* levels(const DpArgs& a, int m,
+                                              int by, int bx) {
+  return reinterpret_cast<const int4*>(
+      a.wq + ((size_t)m * 16 + raster_blk(by, bx)) * 16);
+}
+
+// bS of the edge between block q and its neighbour p (8.7.2.1, as
+// ops/wide.compute_bs_grids: 3 for an intra edge inside the MB): intra
+// either side, levels either side, their MVs and references
+__device__ __forceinline__ int edge_bs(bool intra, bool nz, int2 vq, int2 vp,
+                                       int rq, int rp, bool internal) {
   int bs;
-  if (a.intra[grid_mb(a, Rq, Cq)] || a.intra[grid_mb(a, Rp, Cp)]) {
+  if (intra) {
     bs = 4;
-  } else if (nzq || grid_nz(a, Rp, Cp)) {
+  } else if (nz) {
     bs = 2;
   } else {
-    const int q = grid_blk(a, Rq, Cq), p = grid_blk(a, Rp, Cp);
-    const int dx = a.mv[2 * q] - a.mv[2 * p];
-    const int dy = a.mv[2 * q + 1] - a.mv[2 * p + 1];
-    bs = (dx >= 4 || dx <= -4 || dy >= 4 || dy <= -4 ||
-          a.ref[q] != a.ref[p]) ? 1 : 0;
+    const int dx = vq.x - vp.x, dy = vq.y - vp.y;
+    bs = (dx >= 4 || dx <= -4 || dy >= 4 || dy <= -4 || rq != rp) ? 1 : 0;
   }
   return internal && bs == 4 ? 3 : bs;
 }
 
-// One thread per 4x4 block: the bS of the block's left edge segment and
-// of its top one, and for blocks 0-5 of an MB one of the MB's six
-// (alpha, beta, tc0) sets: the luma left, top and internal edges, then
-// the chroma ones.
-__global__ void k_deblock_params(DpArgs a) {
-  const int n = a.gw * a.gh * 16;
-  const int GW = 4 * a.gw, GH = 4 * a.gh;
-  const int* tab = a.tab;
-  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
-       t += gridDim.x * blockDim.x) {
-    const int m = t >> 4, by = (t >> 2) & 3, bx = t & 3;
-    const int my = m / a.gw, mx = m % a.gw;
-    int16_t* o = a.aux + (size_t)m * NAUX;
-    // the neighbour across the picture's edge is the far column or row,
-    // as torch.roll wraps; the edge flags gate it off there
-    const bool fv = bx ? true : (a.fv ? a.fv[m] != 0 : mx > 0);
-    const bool fh = by ? true : (a.fh ? a.fh[m] != 0 : my > 0);
-    const int R = 4 * my + by, C = 4 * mx + bx;
-    const bool nzq = grid_nz(a, R, C);
-    o[30 + bx * 4 + by] =
-        fv ? edge_bs(a, R, C, R, (C + GW - 1) % GW, bx != 0, nzq) : 0;
-    o[46 + by * 4 + bx] =
-        fh ? edge_bs(a, R, C, (R + GH - 1) % GH, C, by != 0, nzq) : 0;
-    const int i = t & 15;
-    if (i < 6) {
-      const int qp = a.qp[m];
-      const int qn = i % 3 == 0 ? (mx > 0 ? a.qp[m - 1] : qp)
-                     : i % 3 == 1 ? (my > 0 ? a.qp[m - a.gw] : qp) : qp;
-      int qe = i % 3 == 2 ? qp : (qn + qp + 1) >> 1;
-      if (i >= 3) {                     // chroma: the QPs' chroma QPs
-        const int qpc = tab[T_QPC + clampi(0, 51, qp + a.cqo)];
-        const int qnc = tab[T_QPC + clampi(0, 51, qn + a.cqo)];
-        qe = i == 5 ? qpc : (qnc + qpc + 1) >> 1;
-      }
-      const int ia = clampi(0, 51, qe);
-      o[2 * i] = (int16_t)tab[T_ALPHA + ia];
-      o[2 * i + 1] = (int16_t)tab[T_BETA + ia];
-      for (int k = 0; k < 3; ++k)
-        o[12 + 3 * i + k] = (int16_t)tab[T_TC0 + 3 * ia + k];
+// 16 lanes an MB, a block per strip of DP_MBS MBs of a row (blockIdx.y the
+// row).  Lane (by, bx) makes every load before it uses one: its block's
+// levels (OR-ed, no early exit), MV and reference, the MB's intra flag and
+// qp, and where its left (top) edge is an MB edge that is filtered the
+// same of the left (top) MB's block beside it.  The neighbours inside the
+// MB come from lanes l - 1 and l - 4 by shuffles, so each block's levels
+// are read once, the MB edge blocks twice.  Each lane forms the bS of its
+// block's left and top edge segments, lanes 0-5 one of the six (alpha,
+// beta, tc0) sets each (the luma left, top and internal edges, then the
+// chroma ones), and the MB's NAUX int16 words leave through a per-MB row
+// of shared memory as 32-bit stores.  A strip past the row's end works on
+// the row's last MB and stores nothing, so the shuffles see full warps.
+__global__ void __launch_bounds__(DP_THREADS) k_deblock_params(DpArgs a) {
+  extern __shared__ int smem[];
+  const int l = threadIdx.x & 15, by = l >> 2, bx = l & 3;
+  const int gw = a.gw, my = blockIdx.y;
+  const int mxs = blockIdx.x * DP_MBS + (threadIdx.x >> 4);
+  const bool live = mxs < gw;
+  const int mx = live ? mxs : gw - 1;
+  const int m = my * gw + mx;
+  // the neighbour across the picture's edge is the far column or row, as
+  // torch.roll wraps; the edge flags gate it off there
+  const int ml = m - mx + (mx ? mx - 1 : gw - 1);
+  const int mt = (my ? my - 1 : a.gh - 1) * gw + mx;
+  const bool fv = a.fv ? a.fv[m] != 0 : mx > 0;
+  const bool fh = a.fh ? a.fh[m] != 0 : my > 0;
+  const bool nzq = any_level(levels(a, m, by, bx));
+  const int2 vq = ld2(a.mv + ((size_t)m * 16 + l) * 2);
+  const int rq = a.ref[m * 16 + l];
+  const bool iq = a.intra[m] != 0;
+  const int qp = a.qp[m];
+  // lanes 0-5: the left, top and own qp of sets 0 / 3, 1 / 4, 2 / 5
+  const int qn = (l == 0 || l == 3) && mx > 0 ? a.qp[m - 1]
+                 : (l == 1 || l == 4) && my > 0 ? a.qp[m - gw] : qp;
+  // the MB edge blocks: block (by, 3) of the left MB, (3, bx) of the top
+  bool nz_lmb = false, nz_tmb = false, i_lmb = false, i_tmb = false;
+  int2 v_lmb = make_int2(0, 0), v_tmb = make_int2(0, 0);
+  int r_lmb = 0, r_tmb = 0;
+  if (bx == 0 && fv) {
+    nz_lmb = any_level(levels(a, ml, by, 3));
+    v_lmb = ld2(a.mv + ((size_t)ml * 16 + by * 4 + 3) * 2);
+    r_lmb = a.ref[ml * 16 + by * 4 + 3];
+    i_lmb = a.intra[ml] != 0;
+  }
+  if (by == 0 && fh) {
+    nz_tmb = any_level(levels(a, mt, 3, bx));
+    v_tmb = ld2(a.mv + ((size_t)mt * 16 + 12 + bx) * 2);
+    r_tmb = a.ref[mt * 16 + 12 + bx];
+    i_tmb = a.intra[mt] != 0;
+  }
+  // the neighbours inside the MB: lane l - 1 on the left, l - 4 on top
+  const int nz_l = __shfl_up_sync(FULL, (int)nzq, 1, 16);
+  const int vx_l = __shfl_up_sync(FULL, vq.x, 1, 16);
+  const int vy_l = __shfl_up_sync(FULL, vq.y, 1, 16);
+  const int r_l = __shfl_up_sync(FULL, rq, 1, 16);
+  const int nz_t = __shfl_up_sync(FULL, (int)nzq, 4, 16);
+  const int vx_t = __shfl_up_sync(FULL, vq.x, 4, 16);
+  const int vy_t = __shfl_up_sync(FULL, vq.y, 4, 16);
+  const int r_t = __shfl_up_sync(FULL, rq, 4, 16);
+  const bool nzl = bx ? nz_l != 0 : nz_lmb;
+  const bool nzt = by ? nz_t != 0 : nz_tmb;
+  const int bs_v =
+      bx || fv ? edge_bs(iq || i_lmb, nzq || nzl, vq,
+                         bx ? make_int2(vx_l, vy_l) : v_lmb, rq,
+                         bx ? r_l : r_lmb, bx != 0)
+               : 0;
+  const int bs_h =
+      by || fh ? edge_bs(iq || i_tmb, nzq || nzt, vq,
+                         by ? make_int2(vx_t, vy_t) : v_tmb, rq,
+                         by ? r_t : r_tmb, by != 0)
+               : 0;
+  int16_t* row =
+      reinterpret_cast<int16_t*>(smem) + (threadIdx.x >> 4) * DP_ROW;
+  row[30 + bx * 4 + by] = (int16_t)bs_v;
+  row[46 + l] = (int16_t)bs_h;
+  if (l < 6) {
+    const int* tab = a.tab;
+    const int k = l < 3 ? l : l - 3;     // 0 left, 1 top, 2 internal
+    int qe = k == 2 ? qp : (qn + qp + 1) >> 1;
+    if (l >= 3) {                        // chroma: the QPs' chroma QPs
+      const int qpc = tab[T_QPC + clampi(0, 51, qp + a.cqo)];
+      const int qnc = tab[T_QPC + clampi(0, 51, qn + a.cqo)];
+      qe = l == 5 ? qpc : (qnc + qpc + 1) >> 1;
     }
+    const int ia = clampi(0, 51, qe);
+    row[2 * l] = (int16_t)tab[T_ALPHA + ia];
+    row[2 * l + 1] = (int16_t)tab[T_BETA + ia];
+    for (int j = 0; j < 3; ++j)
+      row[12 + 3 * l + j] = (int16_t)tab[T_TC0 + 3 * ia + j];
+  }
+  __syncwarp();
+  if (live) {
+    const int* w = reinterpret_cast<const int*>(row);
+    int* o = reinterpret_cast<int*>(a.aux + (size_t)m * NAUX);
+    o[l] = w[l];
+    if (l + 16 < NAUX / 2) o[l + 16] = w[l + 16];
   }
 }
 
-int grid_of(long n, int threads) {
-  const long b = (n + threads - 1) / threads;
-  return (int)(b < 1 ? 1 : (b > 65535 ? 65535 : b));
+// The launches' grids (shared with the emulated tests' harness)
+int pd_blocks(int n) {
+  return (int)((16L * n + PD_THREADS - 1) / PD_THREADS);
 }
+int dp_strips(int gw) { return (gw + DP_MBS - 1) / DP_MBS; }
 
 }  // namespace
 
@@ -937,7 +1036,7 @@ extern "C" int hl_part_decide(const float* c16, const int32_t* v16,
                               cudaStream_t stream) {
   const PdArgs a{c16,  c168, c816, c88,    v16,  v168, v816,
                  v88,  lam,  choice, best, mv,   part, n};
-  k_part_decide<<<grid_of(n, MB_THREADS), MB_THREADS, 0, stream>>>(a);
+  k_part_decide<<<pd_blocks(n), PD_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -974,7 +1073,7 @@ extern "C" int hl_deblock_params(const int32_t* wq, const int32_t* mv,
                                  int16_t* aux, int gw, int gh, int cqo,
                                  cudaStream_t stream) {
   const DpArgs a{wq, mv, ref, intra, qp, fv, fh, tab, aux, gw, gh, cqo};
-  k_deblock_params<<<grid_of(16L * gw * gh, MB_THREADS), MB_THREADS, 0,
+  k_deblock_params<<<dim3(dp_strips(gw), gh), DP_THREADS, DP_SMEM_BYTES,
                      stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -988,8 +1087,8 @@ extern "C" int hl_p_encode_attributes(int* out) {
                         (const void*)k_halfpel_enc,
                         (const void*)k_p_residual,
                         (const void*)k_deblock_params};
-  const int dyn[4] = {0, HP_SMEM_BYTES, PR_SMEM_BYTES, 0};
-  const int threads[4] = {MB_THREADS, HP_THREADS, PR_THREADS, MB_THREADS};
+  const int dyn[4] = {0, HP_SMEM_BYTES, PR_SMEM_BYTES, DP_SMEM_BYTES};
+  const int threads[4] = {PD_THREADS, HP_THREADS, PR_THREADS, DP_THREADS};
   for (int i = 0; i < 4; ++i) {
     cudaFuncAttributes f;
     cudaError_t err = cudaFuncGetAttributes(&f, fns[i]);

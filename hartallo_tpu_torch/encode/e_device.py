@@ -19,6 +19,8 @@ Reference counterpart: the per-slice encode loop
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -84,17 +86,25 @@ def _shift_map(a: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([first, a.narrow(dim, 0, a.shape[dim] - 1)], dim=dim)
 
 
+@lru_cache(maxsize=None)
+def _inside_flags(gw: int, gh: int, dev: torch.device):
+    """(fmb_v, fmb_h) bool on ``dev`` with every MB edge inside the
+    picture, made once per (gw, gh, dev).  Shared: never written."""
+    fmb_v = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
+    fmb_v[:, 1:] = True
+    fmb_h = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
+    fmb_h[1:, :] = True
+    return fmb_v, fmb_h
+
+
 def _edge_flags(fmb_v, fmb_h, gw: int, gh: int, dev):
     """The MB edge flags as bool tensors on ``dev``; None is every MB edge
     inside the picture."""
-    if fmb_v is None:
-        fmb_v = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
-        fmb_v[:, 1:] = True
-    if fmb_h is None:
-        fmb_h = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
-        fmb_h[1:, :] = True
-    return torch.as_tensor(fmb_v, device=dev), \
-        torch.as_tensor(fmb_h, device=dev)
+    inside = _inside_flags(gw, gh, torch.device(dev))
+    return (inside[0] if fmb_v is None else
+            torch.as_tensor(fmb_v, device=dev),
+            inside[1] if fmb_h is None else
+            torch.as_tensor(fmb_h, device=dev))
 
 
 def _qp_maps(qp, chroma_qp_off: int):

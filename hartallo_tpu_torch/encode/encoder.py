@@ -83,6 +83,7 @@ class Encoder:
         self._headers = b""
         self._rc = None              # JVT-G012 controller when rc enabled
         self._poc_cnt = 0            # frames since IDR (POC/2 for types 0/1)
+        self._flags = (None, None)   # (slice layout, its device edge flags)
 
     # ------------------------------------------------------------------
     def _setup(self, width: int, height: int) -> None:
@@ -200,6 +201,15 @@ class Encoder:
             fmb_h[1:, :] &= slice_id[1:, :] == slice_id[:-1, :]
         return fmb_v, fmb_h
 
+    def _deblock_flags(self, slice_id: np.ndarray):
+        """``_deblock_masks`` as bool tensors on the encoder's device,
+        made once per slice layout: no picture uploads them again."""
+        key = (slice_id.shape, slice_id.tobytes(), self._deblock_idc())
+        if self._flags[0] != key:
+            self._flags = (key, tuple(self._tensor(f) for f in
+                                      self._deblock_masks(slice_id)))
+        return self._flags[1]
+
     def _fmo_change_cycle(self) -> int:
         """Per-picture slice_group_change_cycle for FMO map types 3..5
         (7.4.3): mid-range, so both groups stay non-empty.  0 for other
@@ -257,7 +267,7 @@ class Encoder:
         lam = _lambda(qp_val)
         (ranges, slice_id, avail_l, avail_t, avail_tr,
          avail_tl) = self._slice_layout(gw, gh)
-        fmb_v, fmb_h = self._deblock_masks(slice_id)
+        fmb_v, fmb_h = self._deblock_flags(slice_id)
         two_t = self.cfg.temporal_layers >= 2
         tids = [(int((self._poc_cnt + k) % 2) if two_t else 0)
                 for k in range(K)]
@@ -361,7 +371,7 @@ class Encoder:
         lam = _lambda(qp_val)
         ranges, slice_id, avail_l, avail_t, avail_tr, avail_tl = \
             self._slice_layout(gw, gh)
-        fmb_v, fmb_h = self._deblock_masks(slice_id)
+        fmb_v, fmb_h = self._deblock_flags(slice_id)
         avail = [self._tensor(a) for a in (avail_l, avail_t, avail_tr,
                                            avail_tl)]
         if is_idr:

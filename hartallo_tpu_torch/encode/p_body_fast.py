@@ -59,11 +59,15 @@ def _tables(device) -> torch.Tensor:
         device=device)
 
 
-def _tensor(a: torch.Tensor, dtype, shape: tuple, name: str) -> None:
-    """Raise unless ``a`` is a contiguous ``dtype`` tensor of ``shape``."""
-    if a.dtype != dtype or not a.is_contiguous() or tuple(a.shape) != shape:
+def _tensor(a: torch.Tensor, dtype, shape: tuple, name: str,
+            align: int = 1) -> None:
+    """Raise unless ``a`` is a contiguous ``dtype`` tensor of ``shape``
+    whose data starts ``align``-byte aligned (the kernel's vector loads)."""
+    if a.dtype != dtype or not a.is_contiguous() or \
+            tuple(a.shape) != shape or a.data_ptr() % align:
         raise ValueError(f"{name}: {a.dtype} {tuple(a.shape)}; it needs "
-                         f"{dtype}, contiguous, {shape}")
+                         f"{dtype}, contiguous, {shape}" +
+                         (f", {align}-byte aligned" if align > 1 else ""))
 
 
 def _stream(device) -> int:
@@ -96,11 +100,28 @@ def _residual_layout(gw: int, gh: int):
     return off, tuple(views)
 
 
+@lru_cache(maxsize=None)
+def _decide_layout(gw: int, gh: int):
+    """The partition kernel's four outputs (mv_blk int32, part_of_blk
+    int32, choice int64, best_cost f32) as (shape, stride, offset in
+    elements of its dtype) in one allocation of the returned number of
+    int32 words: each contiguous, the int32 maps 16-byte aligned and
+    choice 8-byte aligned."""
+    n = gw * gh
+    return 51 * n + (n & 1), (
+        ((gh, gw, 16, 2), (gw * 32, 32, 2, 1), 0),
+        ((gh, gw, 16), (gw * 16, 16, 1), 32 * n),
+        ((gh, gw), (gw, 1), 24 * n),          # int64 words
+        ((gh, gw), (gw, 1), 50 * n))
+
+
 def partition_decide_fast(fs, lam, *, gw: int, gh: int):
     """``p_device.partition_decide`` of the full search's eight outputs
     ``fs``: CUDA tensors -> ``hl_part_decide``; CPU tensors -> the twin.
     Returns (choice int64 (gh, gw), best_cost f32 (gh, gw), mv_blk int32
-    (gh, gw, 16, 2) quarter-pel, part_of_blk int32 (gh, gw, 16))."""
+    (gh, gw, 16, 2) quarter-pel, part_of_blk int32 (gh, gw, 16)); on the
+    card the four are views of one allocation (``_decide_layout``).  The
+    integer MV maps of ``fs`` must be 8-byte aligned."""
     name = "partition_decide_fast"
     device = _device(name, fs)
     if device is None:
@@ -111,12 +132,14 @@ def partition_decide_fast(fs, lam, *, gw: int, gh: int):
               (gh, gw, 2), (gh, gw, 2, 2), (gh, gw, 4), (gh, gw, 4, 2))
     for i, (t, shape) in enumerate(zip(fs, shapes)):
         _tensor(t, torch.int32 if i % 2 else torch.float32, shape,
-                f"{name}: output {i} of the full search")
+                f"{name}: output {i} of the full search", 8 if i % 2 else 1)
     lam_t = _lam(lam, device)
-    choice = torch.empty((gh, gw), dtype=torch.int64, device=device)
-    best = torch.empty((gh, gw), dtype=torch.float32, device=device)
-    mv = torch.empty((gh, gw, 16, 2), dtype=torch.int32, device=device)
-    part = torch.empty((gh, gw, 16), dtype=torch.int32, device=device)
+    # one allocation for the four outputs, each a view of its own
+    words, (v_mv, v_part, v_choice, v_best) = _decide_layout(gw, gh)
+    flat = torch.empty(words, dtype=torch.int32, device=device)
+    mv, part = flat.as_strided(*v_mv), flat.as_strided(*v_part)
+    choice = flat.view(torch.int64).as_strided(*v_choice)
+    best = flat.view(torch.float32).as_strided(*v_best)
     with _on(device):
         rc = kernels.load().hl_part_decide(
             *(t.data_ptr() for t in fs), lam_t.data_ptr(),
@@ -204,9 +227,11 @@ def deblock_params_fast(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
     int16 parameter rows of a coded picture.  CUDA tensors -> one
     ``hl_deblock_params`` launch; CPU tensors -> the twin.  wq int32 (gh,
     gw, 16, 4, 4), mv44 int32 (gh, gw, 4, 4, 2), ref44 int32 (gh, gw, 4,
-    4), mb_is_intra bool (gh, gw), qp int32 (gh, gw), all contiguous; the
-    MB edge flags fmb_v / fmb_h (gh, gw) bool, numpy or tensors (None:
-    every MB edge inside the picture)."""
+    4), mb_is_intra bool (gh, gw), qp int32 (gh, gw), all contiguous, wq
+    16-byte and mv44 8-byte aligned; the MB edge flags fmb_v / fmb_h (gh,
+    gw) bool, tensors on the device (the encoder's, made once per slice
+    layout) or numpy, uploaded here (None: every MB edge inside the
+    picture)."""
     name = "deblock_params_fast"
     device = _device(name, (wq, mv44, ref44, mb_is_intra, qp) + tuple(
         f for f in (fmb_v, fmb_h) if isinstance(f, torch.Tensor)))
@@ -215,8 +240,8 @@ def deblock_params_fast(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
         return deblock_params(wq, mv44, ref44, mb_is_intra, qp,
                               chroma_qp_off, fmb_v, fmb_h, gw=gw, gh=gh)
     from hartallo_tpu_torch import kernels
-    _tensor(wq, torch.int32, (gh, gw, 16, 4, 4), f"{name}: wq")
-    _tensor(mv44, torch.int32, (gh, gw, 4, 4, 2), f"{name}: mv44")
+    _tensor(wq, torch.int32, (gh, gw, 16, 4, 4), f"{name}: wq", 16)
+    _tensor(mv44, torch.int32, (gh, gw, 4, 4, 2), f"{name}: mv44", 8)
     _tensor(ref44, torch.int32, (gh, gw, 4, 4), f"{name}: ref44")
     _tensor(mb_is_intra, torch.bool, (gh, gw), f"{name}: mb_is_intra")
     _tensor(qp, torch.int32, (gh, gw), f"{name}: qp")

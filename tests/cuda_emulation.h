@@ -1,14 +1,14 @@
-// The few CUDA features of hartallo_tpu_torch/csrc/intra_encode.cu and
-// me_search.cu on the CPU, for tests/test_torch_intra_kernel_emulated.py
-// and tests/test_torch_me_kernel_emulated.py: one std::thread per CUDA
-// thread of a block, sleeping barriers for __syncthreads and __syncwarp, a
-// per-warp slot array for the warp shuffles, votes and reductions, float
-// operations that round once each, as __fadd_rn, __fmul_rn, __fdiv_rn and
-// __fmaf_rn do, and the byte-SIMD intrinsics (__vabsdiffu4, __vsadu4,
-// __dp4a, __byte_perm, __funnelshift_r) as integer code, atomicAdd on
-// std::atomic_ref, and the int4 vector type.  Every lane of
-// a warp must reach each __syncwarp and warp collective, as the kernels'
-// code does.
+// The few CUDA features of hartallo_tpu_torch/csrc/intra_encode.cu,
+// me_search.cu and p_encode.cu on the CPU, for the tests
+// tests/test_torch_{intra,me,p_body}_kernel_emulated.py: one std::thread
+// per CUDA thread of a block, sleeping barriers for __syncthreads and
+// __syncwarp, a per-warp slot array for the warp shuffles (with their
+// width), votes and reductions, float operations that round once each,
+// as __fadd_rn, __fmul_rn, __fdiv_rn and __fmaf_rn do, and the byte-SIMD
+// intrinsics (__vabsdiffu4, __vsadu4, __dp4a, __byte_perm,
+// __funnelshift_r) as integer code, atomicAdd on std::atomic_ref, and the
+// int4 and int2 vector types.  Every lane of a warp must reach each
+// __syncwarp and warp collective, as the kernels' code does.
 //
 // Two launches: emu_launch_grid runs the blocks of a grid one after
 // another (me_search.cu, whose blocks share nothing); emu_launch_cooperative
@@ -49,12 +49,19 @@ struct EmuDim3 {
   unsigned x = 0, y = 0, z = 0;
 };
 
-// CUDA's int4, 16-byte aligned as vector_types.h declares it
+// CUDA's int4 and int2, 16- and 8-byte aligned as vector_types.h declares
+// them
 struct alignas(16) int4 {
   int x, y, z, w;
 };
 
+struct alignas(8) int2 {
+  int x, y;
+};
+
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+
+inline int2 make_int2(int x, int y) { return {x, y}; }
 
 // A barrier whose waiters sleep at once (std::barrier spins first, which
 // takes the cores of the threads it waits for when there are many more
@@ -125,8 +132,19 @@ inline int __shfl_xor_sync(unsigned, int v, int lane_mask) {
   return (int)emu_exchange((uint32_t)v)[(threadIdx.x & 31) ^ lane_mask];
 }
 
-inline int __shfl_sync(unsigned, int v, int src_lane) {
-  return (int)emu_exchange((uint32_t)v)[src_lane & 31];
+// width: the lanes form segments of `width` (a power of two up to 32), and
+// a lane reads within its own segment, as CUDA's shuffles do
+inline int __shfl_sync(unsigned, int v, int src_lane, int width = 32) {
+  const int lane = threadIdx.x & 31;
+  return (int)emu_exchange((uint32_t)v)[(lane & ~(width - 1)) |
+                                        (src_lane & (width - 1))];
+}
+
+// the value of lane - delta of the lane's segment, its own below delta
+inline int __shfl_up_sync(unsigned, int v, unsigned delta, int width = 32) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t* s = emu_exchange((uint32_t)v);
+  return (lane & (width - 1)) < (int)delta ? v : (int)s[lane - delta];
 }
 
 inline unsigned __ballot_sync(unsigned, int pred) {

@@ -22,7 +22,11 @@ package, their routing, and the CUDA kernels against the twins on a GPU.
   band).
 - The residual wrapper's one allocation: its six int32 outputs are
   contiguous views of their shapes that tile the allocation, each
-  16-byte aligned for the kernel's int4 stores.
+  16-byte aligned for the kernel's int4 stores; the partition wrapper's
+  four outputs likewise, of three dtypes.
+- The deblock parameters' edge flags: the encoder makes its device flags
+  once per slice layout, ``e_device._edge_flags`` its default ones once
+  per grid and device, and the wrapper takes flags as tensors or numpy.
 - On a GPU (``cuda``): each kernel equals its twin on ``chip_smoke``'s
   cases at CIF, qp 51 with an offset, and the 1080p band with its halo;
   the half-pel kernel on planes that its 64 x 16 tiles do not fill,
@@ -261,6 +265,87 @@ def test_residual_outputs_tile_one_allocation(gw, gh):
                                         for k, t in enumerate(out)]))
 
 
+@pytest.mark.parametrize("gw,gh", [(1, 1), (5, 3), (22, 18), (120, 17)])
+def test_partition_outputs_tile_one_allocation(gw, gh):
+    """The partition wrapper's four outputs: contiguous views of their
+    shapes and dtypes that tile one int32 allocation, the int32 maps
+    16-byte and choice 8-byte aligned."""
+    from hartallo_tpu_torch.encode.p_body_fast import _decide_layout
+    words, (v_mv, v_part, v_choice, v_best) = _decide_layout(gw, gh)
+    flat = torch.zeros(words, dtype=torch.int32)
+    out = [flat.as_strided(*v_mv), flat.as_strided(*v_part),
+           flat.view(torch.int64).as_strided(*v_choice),
+           flat.view(torch.float32).as_strided(*v_best)]
+    assert [(tuple(t.shape), t.dtype) for t in out] == [
+        ((gh, gw, 16, 2), torch.int32), ((gh, gw, 16), torch.int32),
+        ((gh, gw), torch.int64), ((gh, gw), torch.float32)]
+    assert all(t.is_contiguous() for t in out)
+    byte_offsets = [t.storage_offset() * t.element_size() for t in out]
+    assert byte_offsets[0] % 16 == 0 and byte_offsets[1] % 16 == 0 and \
+        byte_offsets[2] % 8 == 0
+    for k, t in enumerate(out):
+        t.fill_(k + 1)
+    n = gw * gh
+    assert torch.equal(flat[:32 * n], torch.full((32 * n,), 1,
+                                                  dtype=torch.int32))
+    assert torch.equal(flat[32 * n:48 * n], torch.full((16 * n,), 2,
+                                                        dtype=torch.int32))
+    assert torch.equal(flat[48 * n:50 * n].view(torch.int64),
+                       torch.full((n,), 3, dtype=torch.int64))
+    assert torch.equal(flat[50 * n:51 * n].view(torch.float32),
+                       torch.full((n,), 4.0))
+
+
+def test_encoder_makes_edge_flags_once_per_slice_layout():
+    """The encoder's device edge flags equal its numpy masks, and one
+    slice layout gives the same tensors on every picture; another layout
+    (slice-edge gating, idc 2) gives new ones."""
+    from hartallo_tpu_torch.api import CodecConfig
+    from hartallo_tpu_torch.encode.encoder import Encoder
+    enc = Encoder(CodecConfig(width=64, height=48, deblock=True,
+                              deblock_slice_edges=False), device="cpu")
+    one = np.zeros((3, 4), np.int32)
+    two = np.repeat(np.arange(3, dtype=np.int32)[:, None], 4, 1)
+    first = enc._deblock_flags(one)
+    assert enc._deblock_flags(one.copy()) is first
+    for sid in (one, two):
+        got = enc._deblock_flags(sid)
+        for g, w in zip(got, enc._deblock_masks(sid)):
+            assert g.dtype == torch.bool and np.array_equal(g.numpy(), w)
+    assert enc._deblock_flags(two)[1] is not first[1]
+    assert not enc._deblock_flags(two)[1][1:].any()
+
+
+def test_default_edge_flags_are_made_once():
+    from hartallo_tpu_torch.encode.e_device import _edge_flags
+    fv, fh = _edge_flags(None, None, 4, 3, "cpu")
+    assert _edge_flags(None, None, 4, 3, torch.device("cpu"))[0] is fv
+    want_v = np.ones((3, 4), bool)
+    want_v[:, 0] = False
+    want_h = np.ones((3, 4), bool)
+    want_h[0] = False
+    assert np.array_equal(fv.numpy(), want_v)
+    assert np.array_equal(fh.numpy(), want_h)
+    mine = np.zeros((3, 4), bool)
+    assert not _edge_flags(mine, None, 4, 3, "cpu")[0].any()
+
+
+def test_deblock_params_take_flags_as_tensors_or_numpy():
+    from hartallo_tpu_torch.encode import p_body_fast as PB
+    gw, gh, c = CS.p_inputs(64, 48, 21, qp=None, flags=True)
+    r = np.random.default_rng(22)
+    wq = (r.integers(-1, 2, (gh, gw, 16, 4, 4)) *
+          (r.random((gh, gw, 16, 1, 1)) < 0.3)).astype(np.int32)
+    args = [torch.tensor(a) for a in (
+        wq, r.integers(-9, 10, (gh, gw, 4, 4, 2)).astype(np.int32),
+        np.zeros((gh, gw, 4, 4), np.int32), c["intra"], c["qp"])]
+    flags = (c["fmb_v"], c["fmb_h"])
+    got = PB.deblock_params_fast(*args, 2, *map(torch.tensor, flags),
+                                 gw=gw, gh=gh)
+    want = PB.deblock_params_fast(*args, 2, *flags, gw=gw, gh=gh)
+    assert torch.equal(got, want)
+
+
 def test_devices_must_agree():
     from hartallo_tpu_torch.encode import p_body_fast as PB
     gw, gh, c = CS.p_inputs(32, 32, 12)
@@ -400,6 +485,16 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="qp"):
         PB.deblock_params_fast(wq, mv44, ref44, intra, qp.long(), 0, gw=gw,
                                gh=gh)
+    # the levels' int4 and the MVs' int2 loads need aligned starts
+    shifted = torch.zeros(wq.numel() + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="wq.*16-byte aligned"):
+        PB.deblock_params_fast(shifted[1:].view(wq.shape), mv44, ref44,
+                               intra, qp, 0, gw=gw, gh=gh)
+    with pytest.raises(ValueError, match="output 3.*8-byte aligned"):
+        PB.partition_decide_fast(
+            [*fs[:3], torch.zeros(fs[3].numel() + 1, dtype=torch.int32,
+                                  device=dev)[1:].view(fs[3].shape),
+             *fs[4:]], 1.0, gw=gw, gh=gh)
     assert PB.LAUNCHES == before
 
 

@@ -22,12 +22,21 @@ costs tie, planes of other sizes than the half-pel kernel's 64 x 16
 tile, read contiguous and through a wider row stride, and seeded
 quarter-pel MVs shared by each 8x8 quadrant (the residual kernel's
 one-window path) with some quadrants' MVs far into the pad beside
-quadrants that stay inside (its per-block path).
-``test_emulated_mutants_fail`` builds five broken copies of the source
+quadrants that stay inside (its per-block path); for the partition
+decision and the deblock parameters also odd MB counts, one-row and
+one-column pictures, costs that tie across all four schemes (and the
+last three or two) at lambdas that add without rounding, and seeded
+levels, one nonzero coefficient a block at any position or only the
+last, with edge flags that filter column 0 and row 0 (the wrap).
+``test_emulated_mutants_fail`` builds seven broken copies of the source
 (a wrong MC clamp, the luma elimination dropped, a wrong bS rule, the
 half-pel tile's halo one row short, the one-window path taken for a
-quadrant whose blocks' MVs differ) and shows that each disagrees with
-its twin.  Tolerance: exact equality of every output.
+quadrant whose blocks' MVs differ, a lane that takes the MV of block b
+^ 2, the left neighbour's levels taken from the MB's own block at bx 0)
+and shows that each disagrees with its twin.  A lane that takes block
+b ^ 1's MV (or b ^ 4's) is no mutant: b and b ^ 1 share their partition
+in every scheme, so its outputs equal the twin's.  Tolerance: exact
+equality of every output.
 """
 import ctypes
 import os
@@ -59,7 +68,7 @@ extern "C" void emu_part_decide(const float* c16, const int32_t* v16,
                                 int n) {
   const PdArgs a{c16,  c168, c816, c88,    v16,  v168, v816,
                  v88,  lam,  choice, best, mv,   part, n};
-  emu_launch_grid(k_part_decide, a, 2, 1, 32);
+  emu_launch_grid(k_part_decide, a, pd_blocks(n), 1, PD_THREADS);
 }
 
 extern "C" void emu_halfpel(const int32_t* plane, int stride, int hp,
@@ -93,7 +102,8 @@ extern "C" void emu_deblock_params(const int32_t* wq, const int32_t* mv,
                                    const uint8_t* fh, const int32_t* tab,
                                    int16_t* aux, int gw, int gh, int cqo) {
   const DpArgs a{wq, mv, ref, intra, qp, fv, fh, tab, aux, gw, gh, cqo};
-  emu_launch_grid(k_deblock_params, a, 2, 1, 32);
+  if (DP_SMEM_BYTES > (int)sizeof(smem)) std::abort();
+  emu_launch_grid(k_deblock_params, a, dp_strips(gw), gh, DP_THREADS);
 }
 """
 
@@ -204,12 +214,17 @@ def run_deblock_params(dll, wq, mv44, ref44, intra, qp, fv, fh, cqo, gw,
     return aux
 
 
-# (label, gw, gh, seed, lambda qp, largest |MV| in pels, tie)
+# (label, gw, gh, seed, lambda qp, largest |MV| in pels, tie); odd MB
+# counts leave the last warp's second MB idle
 PD_CASES = [
     ("4x3", 4, 3, 1, 30, 30, False),
     ("2x5, costs that tie", 2, 5, 2, 30, 30, True),
     ("5x4 lambda 0, costs that tie", 5, 4, 3, None, 40, True),
     ("one MB, lambda of qp 45", 1, 1, 4, 45, 24, False),
+    ("5x3, an odd MB count", 5, 3, 5, 30, 30, False),
+    ("7x1, one MB row", 7, 1, 6, 12, 30, True),
+    ("1x6, one MB column", 1, 6, 7, 30, 30, False),
+    ("17x2, three blocks of 16 MBs", 17, 2, 8, 45, 30, False),
 ]
 
 
@@ -224,6 +239,42 @@ def test_emulated_part_decide_equals_twin(emulated, label, gw, gh, seed,
     want = partition_decide([torch.tensor(a) for a in fs],
                             torch.tensor(lam), gw=gw, gh=gh)
     _eq(got, want, ("choice", "best_cost", "mv_blk", "part_of_blk"))
+
+
+def fs_ties(gw, gh, seed, lam):
+    """Full-search outputs whose partition costs tie exactly at lambda
+    ``lam`` (a value that adds to integers without rounding): per MB all
+    four schemes, the last three below 16x16, the last two below the
+    first two, or 8x8 alone at the least cost."""
+    r = np.random.default_rng(seed)
+    fs = fs_case(gw, gh, seed)
+    low = r.integers(40, 4000, (gh, gw)).astype(np.float32)
+    kind = r.integers(0, 4, (gh, gw))
+    # each scheme's cost with its lambda bits: the least where the kind
+    # makes it tie, 17 more where it does not
+    want = [np.where(kind <= k, low, low + 17) for k in (0, 1, 2, 3)]
+    fs[0] = (want[0] - lam).astype(np.float32)
+    for k, idx, parts in ((1, 2, 2), (2, 4, 2), (3, 6, 4)):
+        total = want[k] - np.float32(lam * (3 if parts == 2 else 9))
+        split = r.integers(0, 10, (gh, gw, parts)).astype(np.float32)
+        split[..., -1] = total - split[..., :-1].sum(-1)
+        fs[idx] = split
+    return fs
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("gw,gh", [(5, 3), (1, 1), (4, 4)])
+def test_emulated_part_decide_ties_take_the_first_scheme(emulated, gw, gh,
+                                                         lam):
+    """Costs that tie across all four schemes (and across the last
+    three and two): the first of the tied schemes wins, as argmin."""
+    from hartallo_tpu_torch.encode.p_device import partition_decide
+    fs = fs_ties(gw, gh, 30 + gw, lam)
+    got = run_part_decide(emulated, fs, np.float32(lam), gw, gh)
+    want = partition_decide([torch.tensor(a) for a in fs],
+                            torch.tensor(np.float32(lam)), gw=gw, gh=gh)
+    _eq(got, want, ("choice", "best_cost", "mv_blk", "part_of_blk"))
+    assert set(np.unique(got[0])) == {0, 1, 2, 3} or gw * gh < 8
 
 
 # (label, W, H, options of chip_smoke.p_inputs)
@@ -403,13 +454,90 @@ def test_emulated_deblock_params_equal_twin(emulated, label, W, H, opts):
     _eq([got], [_twin_params(wq, mv44, ref44, intra, c, gw, gh)], ("aux",))
 
 
-# five broken copies of the source: (label, text replaced, replacement,
+def dp_case(gw, gh, seed, *, last_only=False, wrap=False):
+    """Seeded deblock-parameter inputs at gw x gh MBs: (wq, mv44, ref44,
+    intra, qp, fmb_v, fmb_h, cqo).  About a third of the 4x4 blocks hold
+    levels, one nonzero coefficient each at any of the 16 positions (so
+    in any of the block's four 16-byte words); with ``last_only`` the
+    last coefficient alone, no intra MB and one MV and reference
+    everywhere, so that the levels alone decide each bS.  With ``wrap``
+    seeded edge flags that filter column 0 and row 0 too (the neighbour
+    across the picture's edge is the far column or row); else None."""
+    r = np.random.default_rng(seed)
+    wq = np.zeros((gh, gw, 16, 16), np.int32)
+    has = r.random((gh, gw, 16)) < 0.35
+    pos = np.full(has.shape, 15) if last_only else \
+        r.integers(0, 16, has.shape)
+    val = r.choice([-3, -1, 1, 2], has.shape)
+    np.put_along_axis(wq, pos[..., None], np.where(has, val, 0)[..., None],
+                      axis=-1)
+    if last_only:
+        mv44 = np.zeros((gh, gw, 4, 4, 2), np.int32)
+        ref44 = np.zeros((gh, gw, 4, 4), np.int32)
+        intra = np.zeros((gh, gw), bool)
+    else:
+        mv44 = r.integers(-6, 7, (gh, gw, 4, 4, 2)).astype(np.int32)
+        ref44 = r.integers(0, 2, (gh, gw, 4, 4)).astype(np.int32)
+        intra = r.random((gh, gw)) < 0.2
+    qp = r.integers(0, 52, (gh, gw)).astype(np.int32)
+    fv = fh = None
+    if wrap:
+        fv, fh = (r.random((gh, gw)) < 0.7 for _ in "vh")
+        fv[:, 0] = True
+        fh[0, :] = True
+    return (wq.reshape(gh, gw, 16, 4, 4), mv44, ref44, intra, qp, fv, fh,
+            int(r.integers(-6, 7)))
+
+
+def _twin_dp(wq, mv44, ref44, intra, qp, fv, fh, cqo, gw, gh):
+    from hartallo_tpu_torch.encode.e_device import deblock_params
+    return deblock_params(
+        *map(torch.tensor, (wq, mv44, ref44, intra, qp)), cqo,
+        *(None if f is None else torch.tensor(f) for f in (fv, fh)), gw=gw,
+        gh=gh)
+
+
+# (label, gw, gh, options of dp_case): odd MB counts, one MB row or
+# column, strips past a row's end, the wrap at column 0 and row 0, and
+# levels that only the last coefficient of a block holds
+DP_CASES = [
+    ("1x1", 1, 1, {}),
+    ("1x1 wrap", 1, 1, {"wrap": True}),
+    ("5x3", 5, 3, {}),
+    ("5x3 wrap", 5, 3, {"wrap": True}),
+    ("7x1", 7, 1, {}),
+    ("7x1 wrap", 7, 1, {"wrap": True}),
+    ("1x6 wrap", 1, 6, {"wrap": True}),
+    ("9x2, a strip of one MB", 9, 2, {}),
+    ("17x3 wrap", 17, 3, {"wrap": True}),
+    ("5x3 last coefficient only", 5, 3, {"last_only": True}),
+    ("6x4 last coefficient only, wrap", 6, 4, {"last_only": True,
+                                               "wrap": True}),
+]
+
+
+@pytest.mark.parametrize("label,gw,gh,opts", DP_CASES,
+                         ids=[c[0] for c in DP_CASES])
+def test_emulated_deblock_params_seeded_levels(emulated, label, gw, gh,
+                                               opts):
+    case = dp_case(gw, gh, 40 + gw * 8 + gh, **opts)
+    got = run_deblock_params(emulated, *case, gw, gh)
+    want = _twin_dp(*case, gw, gh)
+    _eq([got], [want], ("aux",))
+    if opts.get("last_only"):      # the levels alone set bS 2 somewhere
+        assert (got[..., 30:] == 2).any() and (got[..., 30:] == 0).any()
+
+
+# seven broken copies of the source: (label, text replaced, replacement,
 # the kernel that must then disagree with its twin, chip_smoke.p_inputs'
-# W, H and options).  The clamp shows where the pad is not constant
-# along the clamped axis: the rows of a band's halo reference; the
-# elimination where an MB's few small levels sum below 6 (qp 0..51); the
-# short halo on any plane that is not flat; the one-window path where
-# seeded MVs differ inside a quadrant and no origin clamps.
+# W, H and options, or for part_decide fs_case's gw and gh and for
+# deblock_params_seeded dp_case's).  The clamp shows where the pad is not
+# constant along the clamped axis: the rows of a band's halo reference;
+# the elimination where an MB's few small levels sum below 6 (qp 0..51);
+# the short halo on any plane that is not flat; the one-window path where
+# seeded MVs differ inside a quadrant and no origin clamps; block b ^ 2's
+# MV where an MB splits 8x16 or 8x8; the wrong MB's levels where only the
+# levels set the bS.
 MUTANTS = [
     ("the luma MC origin clamped one row short",
      "clampi(-(PAD - 2), a.ry_h - PAD - 7,",
@@ -427,6 +555,11 @@ MUTANTS = [
     ("one window for a quadrant whose MVs differ",
      "xi != ux || yi != uy || mvx != qmvx || mvy != qmvy",
      "xi != ux || yi != uy", "p_residual", (64, 48, {"mv_max": 60})),
+    ("a lane that takes the MV of block b ^ 2",
+     "rx = b & 3;", "rx = (b ^ 2) & 3;", "part_decide", (5, 3, {})),
+    ("the left neighbour's nonzero flag from the MB's own block at bx 0",
+     "bx ? nz_l != 0 : nz_lmb", "nz_l != 0", "deblock_params_seeded",
+     (5, 3, {"last_only": True})),
 ]
 
 
@@ -435,8 +568,9 @@ MUTANTS = [
 def test_emulated_mutants_fail(label, old, new, kernel, case):
     """Each broken copy builds and disagrees with its twin on the inputs
     above: the comparison sees a wrong clamp, a dropped elimination, a
-    wrong bS rule, a short halo and a window shared where it may not
-    be."""
+    wrong bS rule, a short halo, a window shared where it may not be, an
+    MV taken from another partition and a neighbour's levels taken from
+    the wrong MB."""
     text = SOURCE.read_text()
     assert text.count(old) == 1
     # a path of its own: the loader would hand back a library already
@@ -445,6 +579,22 @@ def test_emulated_mutants_fail(label, old, new, kernel, case):
     dll, out = _build(text.replace(old, new), tag)
     try:
         W, H, opts = case
+        if kernel == "part_decide":
+            from hartallo_tpu_torch.encode.p_device import partition_decide
+            fs = fs_case(W, H, 16)
+            lam = intra_lambda(30)
+            got = run_part_decide(dll, fs, lam, W, H)
+            want = partition_decide([torch.tensor(a) for a in fs],
+                                    torch.tensor(lam), gw=W, gh=H)
+            with pytest.raises(AssertionError):
+                _eq(got, want, ("choice", "best_cost", "mv_blk", "part"))
+            return
+        if kernel == "deblock_params_seeded":
+            dp = dp_case(W, H, 16, **opts)
+            with pytest.raises(AssertionError):
+                _eq([run_deblock_params(dll, *dp, W, H)],
+                    [_twin_dp(*dp, W, H)], ("aux",))
+            return
         gw, gh, c = CS.p_inputs(W, H, 16, **opts)
         mv, best = _path_mvs(c, gw, gh)
         if kernel == "p_residual":

@@ -5,8 +5,9 @@
 
 For each fixture of tests/data/port, encodes its ``bench.make_clip`` clip
 with bench.py's settings once as a warm-up, then once with the stages
-wrapped, each ended by ``torch.cuda.synchronize`` and counted without the
-stages nested in it: host ``pack_src`` and uploads, the intra kernel
+wrapped (the clip and the ``Codec`` made before the clock starts, so that
+no stage holds the clip's synthesis), each ended by
+``torch.cuda.synchronize`` and counted without the stages nested in it: host ``pack_src`` and uploads, the intra kernel
 (``intra_encode_frame_fast``: the IDR picture and every P picture with an
 intra MB), integer full search and sub-pel refinement (the motion search
 kernels, ``full_search_int_fast`` and ``refine_subpel_rounds_fast``, where
@@ -44,21 +45,27 @@ def _meta(name: str) -> dict:
                        f"{name}.json").read_text())
 
 
-def _encode(name: str):
-    """Encode a fixture's clip on cuda; returns the frame count."""
-    import torch
-
+def _prepare(name: str):
+    """A fixture's clip and a new ``Codec`` on cuda with bench.py's
+    settings, made before any clock starts (as ``chip_smoke.encode_clip``
+    makes them): (codec, clip, W, H)."""
     from bench import make_clip
     from hartallo_tpu_torch.api import Codec, CodecConfig
     meta = _meta(name)
     W, H, NF = meta["width"], meta["height"], meta["frames"]
-    clip = make_clip(W, H, NF)
     codec = Codec(CodecConfig(width=W, height=H, qp=30, gop_size=NF,
                               deblock=True, me_range=12), device="cuda")
+    return codec, make_clip(W, H, NF), W, H
+
+
+def _encode(prepared):
+    """Encode a prepared clip (``_prepare``); returns the frame count."""
+    import torch
+    codec, clip, W, H = prepared
     out = codec.encode_frames(clip, W, H)
     torch.cuda.synchronize()
-    assert len(out) == NF
-    return NF
+    assert len(out) == len(clip)
+    return len(out)
 
 
 def stages(name: str) -> dict:
@@ -68,7 +75,7 @@ def stages(name: str) -> dict:
     import hartallo_tpu_torch.encode.me_fast as MF
     import hartallo_tpu_torch.encode.p_device as PD
 
-    _encode(name)                                             # warm-up
+    _encode(_prepare(name))                                   # warm-up
     db = "deblock_frame_aux_fast" if hasattr(E, "deblock_frame_aux_fast") \
         else "deblock_frame_fast"
     patches = [(EN, "pack_src", "pack_src"),
@@ -91,7 +98,8 @@ def stages(name: str) -> dict:
     launches = (IF.LAUNCHES, MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES)
     PB = sys.modules.get("hartallo_tpu_torch.encode.p_body_fast")
     pb = dict(PB.LAUNCHES) if PB else {}
-    total = S.run(patches, lambda: nf.append(_encode(name)))
+    prepared = _prepare(name)
+    total = S.run(patches, lambda: nf.append(_encode(prepared)))
     ms = {key: v * 1e3 / nf[0] for (_, key), v in S.T.items()}
     ms["other_host"] = total * 1e3 / nf[0] - sum(ms.values())
     ms["total"] = total * 1e3 / nf[0]
@@ -105,8 +113,9 @@ def stages(name: str) -> dict:
 
 def device_split(name: str) -> dict:
     """An encode of the clip under ``torch.profiler``
-    (``port_stages.busy_share``)."""
-    return {"fixture": name, **busy_share(lambda: _encode(name),
+    (``port_stages.busy_share``), the clip and codec made before it."""
+    prepared = _prepare(name)
+    return {"fixture": name, **busy_share(lambda: _encode(prepared),
                                           _meta(name)["frames"])}
 
 

@@ -53,7 +53,8 @@ limit:
   ``encode/p_body_fast``, each of its four kernels on the path's inputs
   (``chip_smoke.p_check``): µs per picture with the wrapper, alone and
   the wrapper's host time, the plain twin's with ``--plain``, and its
-  bound (``chip_smoke.p_bound``).
+  bound (``chip_smoke.p_bound``); and the launch floor, the profiler's
+  device time of a one-element fill (``chip_smoke.launch_floor_us``).
 
 ``--intra-only`` times the intra encode kernel alone, ``--me-only`` the
 motion search kernels alone and ``--p-only`` the P-picture body alone
@@ -113,11 +114,13 @@ def time_p_body(res: dict, plain: bool) -> None:
     import torch
 
     from chip_smoke import (P_CASES, P_KERNELS, P_TIMED, event_ms, host_us,
-                            kernel_us, p_bound, p_case_tensors, p_check)
+                            kernel_us, launch_floor_us, p_bound,
+                            p_case_tensors, p_check)
     from hartallo_tpu_torch.encode import e_device as E
     from hartallo_tpu_torch.encode import p_device as PD
     fast = importlib.util.find_spec(
         "hartallo_tpu_torch.encode.p_body_fast") is not None
+    res["launch_floor_us"] = launch_floor_us(torch)
     for key in ("p_frame_us", "deblock_recon_us"):
         res[key] = {}
     for n in P_KERNELS if fast else ():
