@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. stop at once when torch sees no CUDA device; print the card's name
    and power limit (``nvidia-smi``);
-2. build the CUDA kernels from the five sources of
+2. build the CUDA kernels from the six sources of
    ``hartallo_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per
    source, all at once) and print
    ptxas' registers and spills, and the intra encode kernel's dynamic
@@ -60,14 +60,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the half-pel stack, the refinement kernel, the residual and the
    deblock parameters), each of the four P body kernels held against its
    plain twin on the same inputs, every output equal;
+6c. decode kernels phase: the decoder's intra wavefront kernel
+   (``intra_decode.cu``) and deblock parameter kernel
+   (``k_deblock_params_dec`` of ``deblock.cu``) against their plain twins
+   on seeded inputs at one MB, QCIF (with inter and I_BL MBs), CIF (also
+   constrained intra over three slices with the above-right flags false
+   on a row), 720p, 1080p and the shard phase's 120x34 band
+   (INTRA_DEC_CASES), the parameters also on 5 QCIF pictures a launch
+   and in the GOP scan's dense buffer; every output equal;
 7. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
-   equal the one the JAX package recorded and every picture must take
-   the GOP kernel;
-8. scan phase (the GOP-scan route): the weighted-prediction fixture
-   ``qcif_6_wp`` decodes to its MD5s with 1 kernel and 5 scan pictures,
-   each scan picture deblocked by one deblock kernel launch;
+   equal the one the JAX package recorded, every picture must take the
+   GOP kernel, and none of the decoder's other kernels may run;
+8. scan phase (the GOP-scan route), launch counts set to 0 just before
+   it: the weighted-prediction fixture ``qcif_6_wp`` decodes to its MD5s
+   with 1 kernel and 5 scan pictures: one deblock parameter launch for
+   the batch, one intra wavefront launch, and a deblock and a half-pel
+   stack launch for each scan picture, every call held against its
+   plain twin;
+8b. general phase (the general route), launch counts set to 0 just
+   before it: ``qcif_6_sl`` (scaling lists) and ``pcm_64x48`` (PCM MBs)
+   decode to their MD5s with every picture on the general route; the
+   intra wavefront kernel must have run once per picture with an
+   Intra4x4 or Intra16x16 MB, the deblock parameter kernel and the
+   deblock kernel once per picture with an MB edge to filter (both
+   counted from the parsed pictures, ``DecodeWork``), at least one
+   intra wavefront launch in all, no half-pel stack and no GOP kernel;
+   every call held against its plain twin;
 9. encode phase (the encode path): ``Codec(CodecConfig(W, H, qp=30,
    gop_size=NF, deblock=True, me_range=12)).encode_frames`` of
    ``bench.make_clip`` at CIF 16, 720p 8 and 1080p 8 on the card, launch
@@ -90,7 +110,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``dqid_max=0`` and ``tid_max=0`` decodes; the GOP kernel must have run
    once per kernel-route picture, the deblock kernel once per encoded
    picture of every layer and once per general-route picture of the
-   decodes, the intra kernel once per base-layer IDR picture, the
+   decodes, the decoder's deblock parameter kernel once per
+   general-route picture with an MB edge to filter and its intra
+   wavefront kernel once per general-route picture with an Intra4x4 or
+   Intra16x16 MB (``DecodeWork``), the intra kernel once per base-layer
+   IDR picture, the
    refinement kernel once per full search, the partition decision and the
    residual kernel once per full search, the half-pel stack once per
    refinement, the deblock parameters once per encoded picture; in the
@@ -104,14 +128,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``shard_p_1080p.json``) with 4 deblock, 4 full search, 4
    refinement and 4 of each P body kernel launches, and
    ``decode_gops_grouped`` of ``shard_1080p_8`` with 2 groups (two
-   bands of 34 MB rows each) every frame's MD5 with 16 deblock kernel
-   launches and none of the GOP kernel; every deblock, motion search and
-   P body kernel call of both is held against its plain twin, tolerance 0
-   (in the SVC
-   and shard
-   phases a twin whose input shapes recur replays as a CUDA graph of its
-   own ops, and so does a band's intra wavefront in the sharded decode:
-   ``ops/graphs.replayed``);
+   bands of 34 MB rows each) every frame's MD5 with 16 deblock and 16
+   deblock parameter kernel launches, an intra wavefront launch for each
+   band picture with an Intra4x4 or Intra16x16 MB (``DecodeWork``, at
+   least one), a half-pel stack launch for each ring
+   slot of each band picture, and none of the GOP kernel; every kernel
+   call of both is held against its plain twin, tolerance 0 (in the
+   scan, SVC and shard phases the deblock and intra wavefront twins
+   replay as CUDA graphs of their own ops where their input shapes
+   recur: ``ops/graphs.replayed``);
 12. timings (not claims), CUDA events for kernels and host clocks around
    synchronised runs: kernel and plain time per CIF picture and the
    kernel's time on the 720p IDR picture; per deblocked frame, the
@@ -126,9 +151,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    wrapper's host time per call (no sync), beside their twins; the four
    P body kernels per picture at CIF, 720p and 1080p the same way, after
    the launch floor (the profiler's device time of a one-element fill);
-   each beside its bound
+   the decoder's intra wavefront and deblock parameter kernels per
+   picture at CIF, 720p, 1080p and the 120x34 band with their wrappers
+   and alone, the wavefront beside its chain estimate (the gw + 2 gh - 2
+   MBs of its critical path times the one-MB picture's kernel time less
+   the launch floor); each beside its bound
    (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``,
-   ``p_bound``);
+   ``p_bound``, ``intra_dec_bound``, ``params_dec_bound``);
    encode fps at CIF, 720p and
    1080p, decode fps at CIF, 720p and 1080p, the SVC
    clip's encode and decode rates, ms per sharded 1080p P step on four
@@ -137,7 +166,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a warm-up (for the encodes and the four-band runs, the encode, SVC
    and shard phases' runs).
 
-Then one JSON object describing the nine kernels, the card's name and
+Then one JSON object describing the eleven kernels, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -532,6 +561,56 @@ def deblock_inputs(gw, gh, seed, flags=False):
     return planes, rest
 
 
+def deblock_rec_inputs(gw: int, gh: int, K: int, seed: int, wide=False,
+                       edge_flags=False):
+    """Seeded per-MB records of K pictures, (K, gh*gw, words) int32 numpy,
+    and the offsets of ``deblock_fast.DEBLOCK_FIELDS`` in them: kinds of
+    every class (I4x4, I16, PCM, P ones, I_BL), qp 0..51, MVs in -9..9
+    quarter pels (so that neighbours differ by 4 or more and less),
+    refIdx 0..2 a quadrant (so they differ across some edges), TotalCoeff
+    0..3 with half of them 0, per-MB alpha/beta offsets in -12..12, the
+    MB edge flags of slices of a few rows (no filtering across every other
+    slice edge, disable_deblocking_filter_idc 2) and none at all in some
+    MBs (idc 1), with ``edge_flags`` also column 0's and row 0's (the
+    twin's wrap).  With ``wide``, the record is the GOP scan's dense
+    buffer (``d_fused.DEC_FIELDS``), its other words seeded."""
+    import numpy as np
+    from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
+    from hartallo_tpu_torch.ops.deblock_fast import (DEBLOCK_FIELDS,
+                                                     record_offsets)
+    rng = np.random.default_rng(seed)
+    recs = []
+    for _ in range(K):
+        kind = rng.choice(np.array([0, 1, 2, 3, 3, 4, 5, 8]), (gh, gw))
+        sid = np.sort(rng.integers(0, 3, gh))[:, None].repeat(gw, 1)
+        idc = rng.choice(np.array([0, 0, 0, 1, 2]), (gh, gw))
+        fint = idc != 1
+        fv = np.zeros((gh, gw), bool)
+        fh = np.zeros((gh, gw), bool)
+        fv[:, 1:] = fint[:, 1:] & ((idc[:, 1:] != 2) |
+                                   (sid[:, 1:] == sid[:, :-1]))
+        fh[1:] = fint[1:] & ((idc[1:] != 2) | (sid[1:] == sid[:-1]))
+        if edge_flags:
+            fv[:, 0] = rng.random(gh) < 0.5
+            fh[0] = rng.random(gw) < 0.5
+        nnz = rng.integers(0, 4, (gh, gw, 4, 4)) * \
+            (rng.random((gh, gw, 4, 4)) < 0.5)
+        vals = {"kind": kind, "qp": rng.integers(0, 52, (gh, gw)),
+                "mv": rng.integers(-9, 10, (gh, gw, 4, 4, 2)),
+                "ref_idx": rng.integers(0, 3, (gh, gw, 4)), "nnz": nnz,
+                "alpha_off": rng.integers(-6, 7, (gh, gw)) * 2,
+                "beta_off": rng.integers(-6, 7, (gh, gw)) * 2,
+                "fmb_v": fv, "fmb_h": fh, "fint": fint}
+        layout = DEC_FIELDS if wide else DEBLOCK_FIELDS
+        recs.append(np.concatenate([
+            np.asarray(vals[name], np.int32).reshape(gh * gw, -1)
+            if name in vals else
+            rng.integers(-99, 100, (gh * gw, int(np.prod(shape, dtype=int))
+                                    if shape else 1)).astype(np.int32)
+            for name, shape in layout], axis=1))
+    return np.stack(recs), record_offsets(layout)[0]
+
+
 def deblock_phase(torch, card):
     """The frame deblock kernel against its plain twin at DEBLOCK_GRIDS
     (the twin timed on its check run); returns (max_abs_err, and at 720p,
@@ -611,6 +690,52 @@ def intra_inputs(W: int, H: int, seed: int, masked=False, slices=1,
     return gw, gh, (*planes, qpm, cqo, al, at, _lambda(lam_qp),
                     availability_tr(sid, False, inter),
                     availability_tl(sid, False, inter)), kw
+
+
+def intra_dec_inputs(gw: int, gh: int, seed: int, kinds=(0, 0, 0, 1),
+                     rows=None, constrained=False, tr_false_row=None,
+                     none_tr=False, diagonal=False, modes=(9, 4, 4)):
+    """numpy inputs of ``intra_reconstruct`` at gw x gh MBs: (the three
+    PAD-padded int32 planes, then res_y, res_c, kind, i16_mode, i4_modes,
+    chroma_mode, avail_left, avail_top, avail_tr).  The planes' interiors
+    are seeded samples (the inter pixels; with ``diagonal`` noise constant
+    along each anti-diagonal x + y, which the diagonal down-left and
+    vertical left Intra4x4 modes predict from the top-right samples), their
+    pads zero; residuals in -60..60, so that sums clip; each MB's kind
+    drawn from ``kinds`` (0 I4x4, 1 I16, others left alone); modes drawn
+    from 0 .. ``modes`` - 1 (Intra4x4, Intra16x16, chroma: larger values
+    are clamped by the twin); the availability of slices of ``rows`` MB
+    rows (one slice when None), constrained intra prediction (inter
+    neighbours unavailable) with ``constrained``, the above-right flags of
+    MB row ``tr_false_row`` all false, or None for avail_tr with
+    ``none_tr``."""
+    import numpy as np
+    from hartallo_tpu_torch.decode.intra_recon import (availability_masks,
+                                                       availability_tr)
+    rng = np.random.default_rng(seed)
+    H, W = gh * 16, gw * 16
+    planes = []
+    for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2)):
+        if diagonal:
+            noise = rng.integers(0, 256, h + w)
+            inner = noise[np.arange(h)[:, None] + np.arange(w)[None, :]]
+        else:
+            inner = rng.integers(0, 256, (h, w))
+        planes.append(np.pad(inner, 32).astype(np.int32))
+    kind = rng.choice(np.asarray(kinds), (gh, gw)).astype(np.int32)
+    inter = (kind >= 3) & (kind != 8)
+    sid = (np.arange(gh) // (rows or gh))[:, None].repeat(gw, 1)
+    al, at = availability_masks(sid, constrained, inter)
+    atr = availability_tr(sid, constrained, inter)
+    if tr_false_row is not None:
+        atr[tr_false_row] = False
+    return (*planes,
+            rng.integers(-60, 61, (gh, gw, 16, 16)).astype(np.int32),
+            rng.integers(-60, 61, (gh, gw, 2, 8, 8)).astype(np.int32), kind,
+            rng.integers(0, modes[1], (gh, gw)).astype(np.int32),
+            rng.integers(0, modes[0], (gh, gw, 16)).astype(np.int32),
+            rng.integers(0, modes[2], (gh, gw)).astype(np.int32), al, at,
+            None if none_tr else atr)
 
 
 def intra_pairs(got, want):
@@ -694,6 +819,154 @@ def intra_phase(torch, card):
               flush=True)
     ms, _, gw, gh = timed["720p"]
     return max_err, (ms, plain_ms["720p"], *intra_bound(gw, gh, False))
+
+
+# (label, gw, gh, intra_dec_inputs options): the decoder's intra wavefront
+# against its twin; all-intra pictures at the timed sizes
+INTRA_DEC_CASES = (
+    ("one MB", 1, 1, {}),
+    ("QCIF mixed with inter MBs", 11, 9, {"kinds": (0, 1, 3, 4, 8)}),
+    ("CIF", 22, 18, {}),
+    ("CIF constrained, 3 slices, tr false on row 7", 22, 18,
+     {"kinds": (0, 1, 3), "rows": 6, "constrained": True,
+      "tr_false_row": 7}),
+    ("720p", 80, 45, {}),
+    ("1080p", 120, 68, {}),
+    ("band 120x34", 120, 34, {}),
+)
+DEC_TIMED = ("CIF", "720p", "1080p", "band 120x34")
+
+
+def intra_dec_bound(gw: int, gh: int):
+    """Bound of one ``intra_reconstruct_fast`` call on an all-intra
+    picture: bytes, the function's new PAD-padded int32 planes written,
+    of its input planes only the pad read (every interior sample is
+    predicted anew), the int32 residuals and modes (406 words an MB)
+    read; operations, 8 a predicted sample (three taps, the rounding, the
+    shift, the residual, the clip)."""
+    planes = 4 * ((gh * 16 + 64) * (gw * 16 + 64) +
+                  2 * (gh * 8 + 64) * (gw * 8 + 64))
+    pad = planes - 4 * 384 * gw * gh
+    return bound(planes + pad + gw * gh * 406 * 4, 8 * 384 * gw * gh)
+
+
+def params_dec_bound(gw: int, gh: int, K: int = 1):
+    """Bound of one ``deblock_params_dec_fast`` call: bytes, the 59 words
+    of an MB's record read and its 62 int16 words written; operations,
+    about 40 a 4x4 block (its two bS and its share of the six sets)."""
+    n = K * gw * gh
+    return bound(n * (59 * 4 + 62 * 2), 40 * 16 * n)
+
+
+def dec_kernels_phase(torch, card):
+    """The decoder's intra wavefront and deblock parameter kernels
+    against their plain twins (tolerance 0): the wavefront on
+    INTRA_DEC_CASES, the parameters on seeded records of 1 and 5 pictures
+    at the same grids and in the GOP scan's dense buffer (the twins timed
+    on their check runs); then both kernels alone per picture at
+    DEC_TIMED (the profiler's device time) and with their wrappers (CUDA
+    events), beside their bounds, and the wavefront's chain estimate: the
+    gw + 2 gh - 2 MBs of its critical path times the one-MB picture's
+    kernel time less the launch floor (``launch_floor_us``); an estimate,
+    not a floor, since an MB inside a running wavefront overlaps its loads
+    with its neighbours' work.  Returns (max_abs_err, and at 720p: the wrapper's and the
+    twin's ms and the bound) for each kernel."""
+    import numpy as np
+    from hartallo_tpu_torch.decode import intra_recon_fast as IDF
+    from hartallo_tpu_torch.decode.intra_recon import intra_reconstruct
+    from hartallo_tpu_torch.ops import deblock_fast as D
+
+    def cuda(a):
+        return None if a is None else torch.tensor(a, device="cuda")
+    errs = {"intra_dec": 0, "deblock_params_dec": 0}
+    plain_ms, timed = {}, {}
+    for k, (label, gw, gh, opts) in enumerate(INTRA_DEC_CASES):
+        args = [cuda(a) for a in intra_dec_inputs(gw, gh, SEED + k, **opts)]
+        got = IDF.intra_reconstruct_fast(tuple(args[:3]), *args[3:], gw=gw,
+                                         gh=gh)
+        plain = []
+        ms = event_ms(torch, lambda: plain.append(intra_reconstruct(
+            tuple(args[:3]), *args[3:], gw=gw, gh=gh)), 1, warm=False)
+        err = max(abs_err(g, w) for g, w in zip(got, plain[0]))
+        same = all(torch.equal(g, w) for g, w in zip(got, plain[0]))
+        rec, offs = deblock_rec_inputs(gw, gh, 1, SEED + k)
+        trec = cuda(rec)
+        aux = D.deblock_params_dec_fast(trec, offs, k % 5 - 2, gw=gw, gh=gh)
+        pplain = []
+        pms = event_ms(torch, lambda: pplain.append(
+            D.deblock_params_dec_plain(trec, offs, k % 5 - 2, gw=gw,
+                                       gh=gh)), 1, warm=False)
+        perr = abs_err(aux, pplain[0])
+        psame = torch.equal(aux, pplain[0])
+        print(f"decode kernels phase {label} ({gw}x{gh} MBs): intra "
+              f"wavefront == plain {same} max_abs_err={err}; deblock "
+              f"parameters == plain {psame} max_abs_err={perr}", flush=True)
+        if not (same and psame):
+            raise SystemExit(f"a decode kernel != plain at {label}")
+        errs["intra_dec"] = max(errs["intra_dec"], err)
+        errs["deblock_params_dec"] = max(errs["deblock_params_dec"], perr)
+        if label in DEC_TIMED:
+            plain_ms[label] = (ms, pms)
+    for label, (gw, gh, K, wide) in (("QCIF, 5 pictures", (11, 9, 5, False)),
+                                     ("CIF, dense buffer", (22, 18, 2,
+                                                             True))):
+        rec, offs = deblock_rec_inputs(gw, gh, K, SEED, wide=wide,
+                                       edge_flags=True)
+        trec = cuda(rec)
+        same = torch.equal(
+            D.deblock_params_dec_fast(trec, offs, 3, gw=gw, gh=gh),
+            D.deblock_params_dec_plain(trec, offs, 3, gw=gw, gh=gh))
+        print(f"decode kernels phase {label}: deblock parameters == plain "
+              f"{same}", flush=True)
+        if not same:
+            raise SystemExit(f"the deblock parameter kernel != plain at "
+                             f"{label}")
+    # timed: all-intra pictures (an Intra16x16 MB in four), one MB first
+    # for the chain floor
+    for label, gw, gh in (("one MB", 1, 1), ("CIF", 22, 18),
+                          ("720p", 80, 45), ("1080p", 120, 68),
+                          ("band 120x34", 120, 34)):
+        args = [cuda(a) for a in intra_dec_inputs(gw, gh, SEED)]
+        trec = cuda(deblock_rec_inputs(gw, gh, 1, SEED)[0])
+        offs = deblock_rec_inputs(1, 1, 1, 0)[1]
+
+        def intra():
+            IDF.intra_reconstruct_fast(tuple(args[:3]), *args[3:], gw=gw,
+                                       gh=gh)
+
+        def params():
+            D.deblock_params_dec_fast(trec, offs, 0, gw=gw, gh=gh)
+        timed[label] = (event_ms(torch, intra, 10),
+                        kernel_us(torch, intra, 10, "k_intra_decode"),
+                        event_ms(torch, params, 20),
+                        kernel_us(torch, params, 20, "k_deblock_params_dec"),
+                        gw, gh)
+    mb_us, floor_us = timed["one MB"][1], launch_floor_us(torch)
+    print(f"[{card}] decode kernels phase: one-MB intra picture "
+          f"{mb_us} us alone, launch floor {floor_us} us", flush=True)
+    for label in DEC_TIMED:
+        ms, dev_us, pms, pdev_us, gw, gh = timed[label]
+        chain = gw + 2 * gh - 2
+        dev = "not measured" if dev_us is None else f"{dev_us:.1f} us"
+        pdev = "not measured" if pdev_us is None else f"{pdev_us:.2f} us"
+        est = "not measured" if mb_us is None or floor_us is None else \
+            f"{chain} MBs x ({mb_us:.1f} - {floor_us:.1f}) us = " \
+            f"{chain * (mb_us - floor_us):.1f} us"
+        b_ms, b_by = intra_dec_bound(gw, gh)
+        pb_ms, pb_by = params_dec_bound(gw, gh)
+        print(f"[{card}] intra decode kernel {label}: {ms * 1e3:.1f} "
+              f"us/picture with the wrapper, kernel alone {dev}, chain "
+              f"estimate {est}, plain torch {plain_ms[label][0] * 1e3:.1f} "
+              f"us, bound {b_ms * 1e3:.3f} us ({b_by})", flush=True)
+        print(f"[{card}] deblock parameter kernel (decoder) {label}: "
+              f"{pms * 1e3:.1f} us/picture with the wrapper, kernel alone "
+              f"{pdev}, plain torch {plain_ms[label][1] * 1e3:.1f} us, "
+              f"bound {pb_ms * 1e3:.4f} us ({pb_by})", flush=True)
+    ms, _, pms, _, gw, gh = timed["720p"]
+    return errs, {
+        "intra_dec": (ms, plain_ms["720p"][0], *intra_dec_bound(gw, gh)),
+        "deblock_params_dec": (pms, plain_ms["720p"][1],
+                               *params_dec_bound(gw, gh))}
 
 
 def me_inputs(W: int, H: int, seed: int, rng=12, lam_qp=30, band=False):
@@ -961,6 +1234,9 @@ def outputs_diff(torch, got, want):
 P_KERNELS = {"part_decide": "k_part_decide", "halfpel": "k_halfpel_enc",
              "p_residual": "k_p_residual",
              "deblock_params": "k_deblock_params"}
+# the decoder's kernels outside the GOP kernel
+DEC_KERNELS = {"intra_dec": "k_intra_decode",
+               "deblock_params_dec": "k_deblock_params_dec"}
 
 
 def p_case_tensors(torch, k: int):
@@ -1123,16 +1399,38 @@ DECODE_MAIN = ("cif_16", "720p_8", "1080p_8")
 SVC = "svc3_4cif_8"
 
 
+def dec_launches():
+    """The launch counts of the decoder's kernels outside the GOP kernel:
+    {intra_dec, deblock_params_dec, halfpel} (the half-pel stack counts
+    the encoder's launches too)."""
+    from hartallo_tpu_torch.decode import intra_recon_fast as IDF
+    from hartallo_tpu_torch.encode import p_body_fast as PB
+    from hartallo_tpu_torch.ops import deblock_fast as D
+    return {"intra_dec": IDF.LAUNCHES,
+            "deblock_params_dec": D.PARAMS_LAUNCHES,
+            "halfpel": PB.LAUNCHES["halfpel"]}
+
+
+def zero_dec_launches():
+    from hartallo_tpu_torch.decode import intra_recon_fast as IDF
+    from hartallo_tpu_torch.encode import p_body_fast as PB
+    from hartallo_tpu_torch.ops import deblock_fast as D
+    IDF.LAUNCHES = D.PARAMS_LAUNCHES = PB.LAUNCHES["halfpel"] = 0
+
+
 def slice_phase(torch):
     """The decode path, launch counts set to 0 just before it: every
-    picture of the CIF, 720p and 1080p fixtures takes the GOP kernel."""
+    picture of the CIF, 720p and 1080p fixtures takes the GOP kernel, and
+    none of the decoder's other kernels runs."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.ops import deblock_fast as D
     F.LAUNCHES = D.LAUNCHES = 0
+    zero_dec_launches()
     stats = {name: decode_fixture(torch, name)[0] for name in DECODE_MAIN}
-    launches, db = F.LAUNCHES, D.LAUNCHES
+    launches, db, dec = F.LAUNCHES, D.LAUNCHES, dec_launches()
     print(f"slice phase: {stats}, GOP kernel launches (pictures) "
-          f"{launches}, deblock kernel launches {db}", flush=True)
+          f"{launches}, deblock kernel launches {db}, other decode kernel "
+          f"launches {dec}", flush=True)
     for name, st in stats.items():
         nf = load_fixture(name)[1]["frames"]
         if st != {"kernel_pictures": nf, "scan_pictures": 0,
@@ -1142,31 +1440,140 @@ def slice_phase(torch):
     if launches != sum(st["kernel_pictures"] for st in stats.values()):
         raise SystemExit(f"GOP kernel launches {launches} do not match the "
                          "pictures routed to it")
-    if db != 0:
-        raise SystemExit(f"{db} deblock kernel launches with no GOP-scan "
-                         "picture")
+    if db != 0 or any(dec.values()):
+        raise SystemExit(f"{db} deblock kernel launches and {dec} with no "
+                         "GOP-scan picture")
     return launches
 
 
 def scan_phase(torch):
     """The GOP-scan route on the card, launch counts set to 0 just before
-    it: qcif_6_wp (explicit weighted prediction on its P pictures, which
-    the kernel refuses) decodes to its MD5s with 1 kernel and 5 scan
-    pictures, each scan picture deblocked by one deblock kernel launch."""
+    it, every kernel call held against its plain twin (``TwinChecks``):
+    qcif_6_wp (explicit weighted prediction on its P pictures, which the
+    kernel refuses) decodes to its MD5s with 1 kernel and 5 scan
+    pictures: one deblock parameter launch for the batch of 5, one intra
+    wavefront launch (the one scan picture with an intra MB), and a
+    deblock launch and a half-pel stack launch for each scan picture.
+    Returns the twin checks and the launches."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.ops import deblock_fast as D
+    twins = TwinChecks(torch, "qcif_6_wp")
     F.LAUNCHES = D.LAUNCHES = 0
-    st, _, _ = decode_fixture(torch, "qcif_6_wp")
-    launches, db = F.LAUNCHES, D.LAUNCHES
+    zero_dec_launches()
+    with twins:
+        st, _, _ = decode_fixture(torch, "qcif_6_wp")
+    launches, db, dec = F.LAUNCHES, D.LAUNCHES, dec_launches()
     print(f"scan phase: qcif_6_wp {st}, GOP kernel launches {launches}, "
-          f"deblock kernel launches {db}", flush=True)
+          f"deblock kernel launches {db}, other decode kernel launches "
+          f"{dec}; == plain twin on {twins.calls}, max_abs_err "
+          f"{twins.err}", flush=True)
     if st != {"kernel_pictures": 1, "scan_pictures": 5,
               "general_pictures": 0}:
         raise SystemExit(f"qcif_6_wp: expected 1 kernel / 5 scan pictures, "
                          f"got {st}")
-    if launches != 1 or db != 5:
-        raise SystemExit(f"qcif_6_wp: {launches} GOP kernel and {db} "
-                         "deblock kernel launches, expected 1 and 5")
+    want = {"intra_dec": 1, "deblock_params_dec": 1, "halfpel": 5}
+    if launches != 1 or db != 5 or dec != want:
+        raise SystemExit(f"qcif_6_wp: {launches} GOP kernel, {db} deblock "
+                         f"kernel and {dec} launches, expected 1, 5 and "
+                         f"{want}")
+    checked = {k: twins.calls[k] for k in ("gop", "deblock", *want)}
+    if checked != {"gop": 1, "deblock": 5, **want}:
+        raise SystemExit(f"qcif_6_wp: twin checks {twins.calls} do not "
+                         "cover the path")
+    return twins, {"deblock": db, **dec}
+
+
+class DecodeWork:
+    """While in effect, what the decoder's kernels outside the GOP kernel
+    must do, read from the parsed pictures and not from the wrappers:
+    ``general`` the general-route pictures, ``intra_dec`` those with an
+    Intra4x4 or Intra16x16 MB, ``deblock_params_dec`` those with an MB
+    edge to filter (disable_deblocking_filter_idc other than 1 on some
+    MB), and ``shard_intra`` the band pictures of the sharded decode with
+    an Intra4x4 or Intra16x16 MB (kinds 0 and 1 of the dense buffer)."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(
+            ("general", "intra_dec", "deblock_params_dec", "shard_intra"),
+            0)
+
+    def __enter__(self):
+        import numpy as np
+        from hartallo_tpu_torch.decode import decoder as DM
+        from hartallo_tpu_torch.decode.d_gop import _OFF
+        from hartallo_tpu_torch.parallel import shard as S
+        self.DM, self.S = DM, S
+        self.real_general = DM.Decoder._reconstruct_general
+        self.real_step = S.decode_frame_step_sharded
+        counts, real_general, real_step = \
+            self.counts, self.real_general, self.real_step
+
+        def general(dec, sps, pps, sh, nh, sd, *rest, **kw):
+            counts["general"] += 1
+            counts["intra_dec"] += bool(
+                np.isin(sd.mb_kind, (DM.MB_I4X4, DM.MB_I16)).any())
+            counts["deblock_params_dec"] += bool((sd.deblock_idc != 1).any())
+            return real_general(dec, sps, pps, sh, nh, sd, *rest, **kw)
+
+        def step(mesh, packed, *rest, **kw):
+            kind = np.asarray(packed)[:, _OFF["kind"][0]] \
+                .reshape(len(mesh.devices), -1)
+            counts["shard_intra"] += sum(bool(np.isin(k, (0, 1)).any())
+                                         for k in kind)
+            return real_step(mesh, packed, *rest, **kw)
+        DM.Decoder._reconstruct_general = general
+        S.decode_frame_step_sharded = step
+        return self
+
+    def __exit__(self, *exc):
+        self.DM.Decoder._reconstruct_general = self.real_general
+        self.S.decode_frame_step_sharded = self.real_step
+
+
+GENERAL = ("qcif_6_sl", "pcm_64x48")
+
+
+def general_phase(torch):
+    """The general route on the card, launch counts set to 0 just before
+    it, every kernel call held against its plain twin (``TwinChecks``):
+    the GENERAL fixtures decode to their MD5s with every picture on the
+    general route; an intra wavefront launch for each picture with an
+    Intra4x4 or Intra16x16 MB (at least one in all), a deblock parameter
+    launch and a deblock launch for each picture with an MB edge to
+    filter (``DecodeWork``), no half-pel stack and no GOP kernel.
+    Returns the twin checks and the launches."""
+    from hartallo_tpu_torch.decode import d_gop_fast as F
+    from hartallo_tpu_torch.ops import deblock_fast as D
+    twins, work = TwinChecks(torch, "general route"), DecodeWork()
+    F.LAUNCHES = D.LAUNCHES = 0
+    zero_dec_launches()
+    with twins, work:
+        stats = {name: decode_fixture(torch, name)[0] for name in GENERAL}
+    gop, db, dec, w = F.LAUNCHES, D.LAUNCHES, dec_launches(), work.counts
+    print(f"general phase: {stats}; GOP kernel launches {gop}, deblock "
+          f"kernel launches {db}, other decode kernel launches {dec}; from "
+          f"the parsed pictures {w}; == plain twin on {twins.calls}, "
+          f"max_abs_err {twins.err}", flush=True)
+    frames = 0
+    for name, st in stats.items():
+        nf = load_fixture(name)[1]["frames"]
+        frames += nf
+        if st != {"kernel_pictures": 0, "scan_pictures": 0,
+                  "general_pictures": nf}:
+            raise SystemExit(f"{name}: expected {nf} general-route "
+                             f"pictures, got {st}")
+    want = {"intra_dec": w["intra_dec"],
+            "deblock_params_dec": w["deblock_params_dec"], "halfpel": 0}
+    if gop or db != w["deblock_params_dec"] or dec != want or \
+            w["general"] != frames or not w["intra_dec"]:
+        raise SystemExit(f"general route: {gop} GOP kernel, {db} deblock "
+                         f"and {dec} launches for {w} (at least one intra "
+                         "wavefront launch)")
+    checked = {k: twins.calls[k] for k in ("deblock", *want)}
+    if checked != {"deblock": db, **want}:
+        raise SystemExit(f"general route: twin checks {twins.calls} do not "
+                         "cover the path")
+    return twins, {"deblock": db, **dec}
 
 
 def encode_clip(torch, name):
@@ -1349,27 +1756,33 @@ def svc_decode(torch, stream, **window):
 class TwinChecks:
     """While in effect, every call the path makes to a kernel's wrapper,
     where the port calls it (``decoder.decode_gop_fast``,
-    ``e_device.deblock_frame_fast`` for the encoder and the decoder's
-    general route, ``d_gop.deblock_frame_fast`` for the GOP scan and the
-    sharded decode, ``e_device.deblock_frame_aux_fast`` for the
-    encoder's in-loop deblock on gathered parameters,
+    ``e_device.deblock_frame_aux_fast`` for the encoder's in-loop deblock,
+    ``decoder.deblock_frame_aux_fast`` for the decoder's general route and
+    ``d_gop.deblock_frame_aux_fast`` for the GOP scan and the sharded
+    decode, each on gathered parameters, ``d_gop.deblock_params_dec_fast``
+    and ``decoder.deblock_params_dec_fast`` for the decoder's deblock
+    parameters, ``d_gop.intra_reconstruct_fast`` and
+    ``decoder.intra_reconstruct_fast`` for the decoder's intra wavefront,
     ``e_device.intra_encode_frame_fast`` for the encoder,
     ``p_device.full_search_int_fast`` and ``refine_subpel_rounds_fast`` for
     the encoder's motion search, ``p_device.partition_decide_fast``,
     ``halfpel_planes_fast`` and ``p_residual_fast`` and
-    ``e_device.deblock_params_fast`` for the rest of its P-picture body),
-    is held against the plain twin on the same inputs, tolerance 0: the
-    GOP kernel's output and ring (the ring cloned before the call), the
-    deblocked planes, the intra encode's eleven outputs, the full
-    search's eight outputs, the refinement's MVs and costs (against
-    the twin's chain of its rounds), and every output of the four P body
-    kernels.  The twins launch nothing,
-    so the launch counts stay the path's.  The deblock twin (some 150,000
-    small ops at a 1080p band grid) runs through ``ops/graphs.replayed``:
-    eager ops the first time its input shapes are seen, the same ops
-    recorded into a CUDA graph the second time and replayed after that.
-    ``calls`` and ``err``
-    (max_abs_err) per kernel, ``shapes`` the (gw, gh) grids seen;
+    ``e_device.deblock_params_fast`` for the rest of its P-picture body,
+    and ``halfpel_planes_fast`` where the decoder builds a reference's
+    stack: ``d_gop``, ``decoder`` and ``parallel/shard``), is held against
+    the plain twin on the same inputs, tolerance 0: the GOP kernel's
+    output and ring (the ring cloned before the call), the deblocked
+    planes, the parameter rows, the intra wavefront's planes, the intra
+    encode's eleven outputs, the full search's eight outputs, the
+    refinement's MVs and costs (against the twin's chain of its rounds),
+    and every output of the four P body kernels.  The twins launch
+    nothing, so the launch counts stay the path's.  The deblock and the
+    intra wavefront twins (some 150,000 and 200,000 small ops at a 1080p
+    band grid) run through ``ops/graphs.replayed``: eager ops the first
+    time their input shapes are seen, the same ops recorded into a CUDA
+    graph the second time and replayed after that.  ``calls`` and
+    ``err`` (max_abs_err) per kernel, ``shapes`` the (gw, gh) grids seen,
+    ``decode_halfpel`` the half-pel stacks the decoder asked for;
     ``label`` names the path in an error."""
 
     def __init__(self, torch, label):
@@ -1377,13 +1790,16 @@ class TwinChecks:
         from hartallo_tpu_torch.decode import decoder as DM
         from hartallo_tpu_torch.encode import e_device as E
         from hartallo_tpu_torch.encode import p_device as PD
-        self.torch, self.DM, self.E, self.G, self.PD = torch, DM, E, G, PD
+        from hartallo_tpu_torch.parallel import shard as S
+        self.torch, self.DM, self.E, self.G, self.PD, self.S = \
+            torch, DM, E, G, PD, S
         self.label = label
         kernels = ("gop", "deblock", "intra", "full_search", "refine",
-                   *P_KERNELS)
+                   *P_KERNELS, *DEC_KERNELS)
         self.calls = dict.fromkeys(kernels, 0)
         self.err = dict.fromkeys(kernels, 0)
         self.shapes = {k: set() for k in kernels}
+        self.decode_halfpel = 0
 
     def _gop(self, *args, gw, gh, **kw):
         from hartallo_tpu_torch.decode import d_gop_fast as F
@@ -1401,19 +1817,6 @@ class TwinChecks:
         self._record("gop", gw, gh, [(out, op)], same)
         return (out, *rk)
 
-    def _deblock(self, planes, *rest, gw, gh):
-        from hartallo_tpu_torch.ops import deblock_fast as D
-        from hartallo_tpu_torch.ops.graphs import replayed
-
-        def plain(pY, pU, pV, *maps):
-            return D.deblock_frame_fast_plain((pY, pU, pV), *maps, gw=gw,
-                                              gh=gh)
-        got = self.real_db(planes, *rest, gw=gw, gh=gh)
-        want = replayed(plain, "deblock_frame_fast_plain", *planes, *rest)
-        same = all(self.torch.equal(g, w) for g, w in zip(got, want))
-        self._record("deblock", gw, gh, list(zip(got, want)), same)
-        return got
-
     def _deblock_aux(self, planes, aux, *, gw, gh):
         from hartallo_tpu_torch.ops import deblock_fast as D
         from hartallo_tpu_torch.ops.graphs import replayed
@@ -1427,9 +1830,40 @@ class TwinChecks:
         self._record("deblock", gw, gh, list(zip(got, want)), same)
         return got
 
-    def _p_body(self, kernel, real, plain):
+    def _intra_dec(self, planes, *rest, gw, gh):
+        from hartallo_tpu_torch.decode.intra_recon import intra_reconstruct
+        from hartallo_tpu_torch.ops.graphs import replayed
+        torch = self.torch
+        # the twin's inputs as one fixed set of tensors: replayed keys its
+        # graph on them (avail_tr None is all true)
+        maps = list(rest)
+        if len(maps) < 9 or maps[8] is None:
+            maps[8:] = [torch.ones_like(maps[6], dtype=torch.bool)]
+        maps = [m.to(torch.bool if i >= 6 else torch.int32).contiguous()
+                for i, m in enumerate(maps)]
+
+        def plain(pY, pU, pV, *m):
+            return intra_reconstruct((pY, pU, pV), *m, gw=gw, gh=gh)
+        got = self.real_intra_dec(planes, *rest, gw=gw, gh=gh)
+        want = replayed(plain, "intra_reconstruct",
+                        *(p.to(torch.int32).contiguous() for p in planes),
+                        *maps)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        self._record("intra_dec", gw, gh, list(zip(got, want)), same)
+        return got
+
+    def _params_dec(self, rec, offsets, cqo, *, gw, gh):
+        from hartallo_tpu_torch.ops import deblock_fast as D
+        got = self.real_params_dec(rec, offsets, cqo, gw=gw, gh=gh)
+        want = D.deblock_params_dec_plain(rec, offsets, cqo, gw=gw, gh=gh)
+        self._record("deblock_params_dec", gw, gh, [(got, want)],
+                     self.torch.equal(got, want))
+        return got
+
+    def _p_body(self, kernel, real, plain, decode=False):
         """A checked call of the P body kernel ``kernel``: the wrapper
-        ``real``, the twin ``plain`` on the same arguments."""
+        ``real``, the twin ``plain`` on the same arguments (``decode``:
+        a call of the decoder's)."""
         def call(*args, **kw):
             got = real(*args, **kw)
             _, same, pairs = outputs_diff(self.torch, got,
@@ -1438,6 +1872,7 @@ class TwinChecks:
             if gw is None:            # the half-pel stack: its plane's grid
                 gh, gw = ((n - 64) // 16 for n in args[0].shape)
             self._record(kernel, gw, gh, pairs, same)
+            self.decode_halfpel += decode
             return got
         return call
 
@@ -1481,47 +1916,53 @@ class TwinChecks:
         self.err[kernel] = max(self.err[kernel], err)
         self.shapes[kernel].add((gw, gh))
 
-    def _p_body_sites(self):
-        """(module, wrapper name, kernel, plain twin) of the P body
-        kernels' call sites."""
+    def _sites(self):
+        """(module, wrapper name, the checked call) of every call site."""
         from hartallo_tpu_torch.ops.wide import halfpel_planes
-        E, PD = self.E, self.PD
-        return ((PD, "partition_decide_fast", "part_decide",
-                 PD.partition_decide),
-                (PD, "halfpel_planes_fast", "halfpel", halfpel_planes),
-                (PD, "p_residual_fast", "p_residual", PD.p_residual),
-                (E, "deblock_params_fast", "deblock_params",
-                 E.deblock_params))
+        E, PD, G, DM, S = self.E, self.PD, self.G, self.DM, self.S
+        p_body = [(PD, "partition_decide_fast", "part_decide",
+                   PD.partition_decide, False),
+                  (PD, "halfpel_planes_fast", "halfpel", halfpel_planes,
+                   False),
+                  (PD, "p_residual_fast", "p_residual", PD.p_residual,
+                   False),
+                  (E, "deblock_params_fast", "deblock_params",
+                   E.deblock_params, False),
+                  *((mod, "halfpel_planes_fast", "halfpel", halfpel_planes,
+                     True) for mod in (G, DM, S))]
+        sites = [(mod, name, self._p_body(kernel, getattr(mod, name), plain,
+                                          decode))
+                 for mod, name, kernel, plain, decode in p_body]
+        sites += [(DM, "decode_gop_fast", self._gop),
+                  (E, "deblock_frame_aux_fast", self._deblock_aux),
+                  (G, "deblock_frame_aux_fast", self._deblock_aux),
+                  (DM, "deblock_frame_aux_fast", self._deblock_aux),
+                  (E, "intra_encode_frame_fast", self._intra),
+                  (PD, "full_search_int_fast", self._full_search),
+                  (PD, "refine_subpel_rounds_fast", self._refine),
+                  (G, "intra_reconstruct_fast", self._intra_dec),
+                  (DM, "intra_reconstruct_fast", self._intra_dec),
+                  (G, "deblock_params_dec_fast", self._params_dec),
+                  (DM, "deblock_params_dec_fast", self._params_dec)]
+        return sites
 
     def __enter__(self):
-        self.real_gop, self.real_db, self.real_intra = \
-            self.DM.decode_gop_fast, self.E.deblock_frame_fast, \
-            self.E.intra_encode_frame_fast
+        self.real_gop = self.DM.decode_gop_fast
         self.real_db_aux = self.E.deblock_frame_aux_fast
+        self.real_intra = self.E.intra_encode_frame_fast
         self.real_fs, self.real_rf = self.PD.full_search_int_fast, \
             self.PD.refine_subpel_rounds_fast
-        self.real_pb = [getattr(mod, name) for mod, name, _, _ in
-                        self._p_body_sites()]
-        self.DM.decode_gop_fast = self._gop
-        self.E.deblock_frame_fast = self.G.deblock_frame_fast = self._deblock
-        self.E.deblock_frame_aux_fast = self._deblock_aux
-        self.E.intra_encode_frame_fast = self._intra
-        self.PD.full_search_int_fast = self._full_search
-        self.PD.refine_subpel_rounds_fast = self._refine
-        for (mod, name, kernel, plain), real in zip(self._p_body_sites(),
-                                                    self.real_pb):
-            setattr(mod, name, self._p_body(kernel, real, plain))
+        self.real_intra_dec = self.G.intra_reconstruct_fast
+        self.real_params_dec = self.G.deblock_params_dec_fast
+        sites = self._sites()
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in sites]
+        for mod, name, checked in sites:
+            setattr(mod, name, checked)
         return self
 
     def __exit__(self, *exc):
-        self.DM.decode_gop_fast = self.real_gop
-        self.E.deblock_frame_fast = self.G.deblock_frame_fast = self.real_db
-        self.E.deblock_frame_aux_fast = self.real_db_aux
-        self.E.intra_encode_frame_fast = self.real_intra
-        self.PD.full_search_int_fast = self.real_fs
-        self.PD.refine_subpel_rounds_fast = self.real_rf
-        for (mod, name, _, _), real in zip(self._p_body_sites(),
-                                           self.real_pb):
+        for mod, name, real in self.saved:
             setattr(mod, name, real)
 
 
@@ -1532,7 +1973,8 @@ def svc_phase(torch):
     call held against its plain twin (``TwinChecks``).  Returns (GOP
     kernel launches, deblock kernel launches, intra kernel launches, full
     search and refinement launches, stream, clips, the twin checks, the
-    P body kernels' launches)."""
+    P body kernels' launches (the half-pel stack's with the decodes'),
+    the decoder's intra wavefront and deblock parameter launches)."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.encode import intra_encode_fast as IF
     from hartallo_tpu_torch.encode import me_fast as MF
@@ -1540,10 +1982,11 @@ def svc_phase(torch):
     from hartallo_tpu_torch.ops import deblock_fast as D
     stream, meta = load_fixture(SVC)
     clips = svc_clips(meta)
-    twins = TwinChecks(torch, SVC)
+    twins, work = TwinChecks(torch, SVC), DecodeWork()
     F.LAUNCHES = D.LAUNCHES = IF.LAUNCHES = 0
     MF.FULL_SEARCH_LAUNCHES = MF.REFINE_LAUNCHES = 0
     PB.LAUNCHES.update(dict.fromkeys(PB.LAUNCHES, 0))
+    zero_dec_launches()
     with twins:
         mine, _ = svc_encode(torch, meta, clips)
     enc_db, intra = D.LAUNCHES, IF.LAUNCHES
@@ -1552,15 +1995,19 @@ def svc_phase(torch):
     if mine != stream:
         raise SystemExit(f"{SVC}: the port's stream ({len(mine)} bytes) "
                          f"differs from the fixture ({len(stream)} bytes)")
-    routes, kernel_pictures = {}, 0
+    routes, kernel_pictures, dec, parsed = {}, 0, {}, {}
     for key, window in (("frame_md5", {}), ("dqid_max0_md5",
                                            {"dqid_max": 0}),
                         ("tid_max0_md5", {"tid_max": 0})):
-        if window:
-            out, st, _ = svc_decode(torch, stream, **window)
-        else:
-            with twins:
-                out, st, _ = svc_decode(torch, stream)
+        before, w0 = dec_launches(), dict(work.counts)
+        with work:
+            if window:
+                out, st, _ = svc_decode(torch, stream, **window)
+            else:
+                with twins:
+                    out, st, _ = svc_decode(torch, stream)
+        dec[key] = {k: v - before[k] for k, v in dec_launches().items()}
+        parsed[key] = {k: v - w0[k] for k, v in work.counts.items()}
         if [frame_md5(r.frame) for r in out] != meta[key]:
             raise SystemExit(f"{SVC} {window or 'full'} decode: MD5 "
                              "mismatch")
@@ -1579,7 +2026,9 @@ def svc_phase(torch):
           f"{general} general-route pictures", flush=True)
     print(f"SVC phase: intra kernel launches in the encode {intra}, full "
           f"search launches {me[0]}, refinement launches {me[1]}, P body "
-          f"kernel launches {pb}", flush=True)
+          f"kernel launches {pb}; the decodes' intra wavefront, deblock "
+          f"parameter and half-pel stack launches {dec}, from their parsed "
+          f"pictures {parsed}", flush=True)
     for kernel in twins.calls:
         print(f"SVC phase: {kernel} kernel == plain twin on "
               f"{twins.calls[kernel]} calls of the encode and the full "
@@ -1606,10 +2055,30 @@ def svc_phase(torch):
                          f"launches, twin checks {twins.calls}")
     want_pb = {"part_decide": me[0], "halfpel": me[1], "p_residual": me[0],
                "deblock_params": enc_db}
-    if pb != want_pb or any(twins.calls[n] != pb[n] for n in pb):
+    full = dec["frame_md5"]
+    if pb != want_pb or any(twins.calls[n] != pb[n] for n in pb
+                            if n != "halfpel") or \
+            twins.calls["halfpel"] != pb["halfpel"] + full["halfpel"] or \
+            twins.decode_halfpel != full["halfpel"]:
         raise SystemExit(f"SVC: P body kernel launches {pb}, expected "
-                         f"{want_pb}; twin checks {twins.calls}")
-    return launches, db, intra, me, stream, clips, twins, pb
+                         f"{want_pb}, and {full['halfpel']} half-pel stacks "
+                         f"in the full decode; twin checks {twins.calls}")
+    # the decodes: a deblock parameter launch for each general-route
+    # picture with an edge to filter, an intra wavefront launch for each
+    # with an Intra4x4 or Intra16x16 MB, each held against its twin in the
+    # full decode
+    if any(d["deblock_params_dec"] != parsed[k]["deblock_params_dec"] or
+           d["intra_dec"] != parsed[k]["intra_dec"] or
+           parsed[k]["general"] != routes[k]["general_pictures"]
+           for k, d in dec.items()) or \
+            (twins.calls["intra_dec"], twins.calls["deblock_params_dec"]) \
+            != (full["intra_dec"], full["deblock_params_dec"]):
+        raise SystemExit(f"SVC: decode launches {dec} for routes {routes} "
+                         f"and parsed pictures {parsed}; twin checks "
+                         f"{twins.calls}")
+    pb["halfpel"] += sum(d["halfpel"] for d in dec.values())
+    return launches, db, intra, me, stream, clips, twins, pb, \
+        {k: sum(d[k] for d in dec.values()) for k in DEC_KERNELS}
 
 
 def svc_fps(torch, card, stream, clips):
@@ -1669,11 +2138,15 @@ def shard_phase(torch):
     JAX package's MD5s (4 deblock launches, 4 full search and 4
     refinement launches, one each per band), and the grouped decode of
     shard_1080p_8 (2 GOPs on 2 groups of 2 bands of 34 MB rows) equals
-    every frame's MD5 (2 bands x 8 pictures = 16 deblock launches, no GOP
-    kernel); every deblock and motion search call of both held against
-    its plain twin (``TwinChecks``).  Returns (deblock launches, full
+    every frame's MD5 (2 bands x 8 pictures = 16 deblock and 16 deblock
+    parameter launches, an intra wavefront launch for each band picture
+    with an intra MB, a half-pel stack for each ring slot of each band
+    picture, no GOP kernel); every kernel call of both held against its
+    plain twin (``TwinChecks``).  Returns (deblock launches, full
     search and refinement launches, the twin checks, the P-step
-    inputs, the P body kernels' launches)."""
+    inputs, the P body kernels' launches (the half-pel stack's with the
+    decode's), the decoder's intra wavefront and deblock parameter
+    launches)."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.encode import me_fast as MF
     from hartallo_tpu_torch.encode import p_body_fast as PB
@@ -1684,17 +2157,20 @@ def shard_phase(torch):
     stream, meta = load_fixture(SHARD)
     planes = shard_p_planes()
     mesh = Mesh(("cuda:0",) * SHARD_BANDS)
-    twins = TwinChecks(torch, "shard")
+    twins, work = TwinChecks(torch, "shard"), DecodeWork()
     F.LAUNCHES = D.LAUNCHES = 0
     MF.FULL_SEARCH_LAUNCHES = MF.REFINE_LAUNCHES = 0
     PB.LAUNCHES.update(dict.fromkeys(PB.LAUNCHES, 0))
+    zero_dec_launches()
     with twins:
         out = shard_step(torch, mesh, planes, pmeta)
-        enc_db = D.LAUNCHES
-        frames, _ = shard_decode(torch, mesh, stream)
+        enc_db, enc_pb = D.LAUNCHES, dict(PB.LAUNCHES)
+        with work:
+            frames, _ = shard_decode(torch, mesh, stream)
     db, gop = D.LAUNCHES, F.LAUNCHES
     me = (MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES)
-    pb = dict(PB.LAUNCHES)
+    pb, dec = dict(PB.LAUNCHES), dec_launches()
+    dec["halfpel"] -= enc_pb["halfpel"]
     for name, bands in zip(pmeta["outputs"], out):
         if any(b.device.type != "cuda" for b in bands):
             raise SystemExit(f"shard: P-step output {name} left the card")
@@ -1719,10 +2195,18 @@ def shard_phase(torch):
           f"{twins.calls['refine']}, MB grids "
           f"{sorted(twins.shapes['full_search'])}, max_abs_err "
           f"{twins.err['full_search']} / {twins.err['refine']}", flush=True)
-    print(f"shard phase: P body kernel launches {pb}; == plain twin on "
+    print(f"shard phase: P body kernel launches {enc_pb}; == plain twin on "
           f"{ {n: twins.calls[n] for n in P_KERNELS} } calls, MB grids "
           f"{sorted(twins.shapes['p_residual'])}, max_abs_err "
           f"{ {n: twins.err[n] for n in P_KERNELS} }", flush=True)
+    print(f"shard phase: the decode's intra wavefront, deblock parameter "
+          f"and half-pel stack launches {dec} ({work.counts['shard_intra']} "
+          f"band pictures with an intra MB); == plain twin on "
+          f"{ {n: twins.calls[n] for n in DEC_KERNELS} } and "
+          f"{twins.decode_halfpel} calls, MB grids "
+          f"{ {n: sorted(twins.shapes[n]) for n in DEC_KERNELS} }, "
+          f"max_abs_err { {n: twins.err[n] for n in DEC_KERNELS} }",
+          flush=True)
     if enc_db != SHARD_BANDS or db - enc_db != n_dec or gop:
         raise SystemExit(f"shard: deblock launches {enc_db} (step) and "
                          f"{db - enc_db} (decode), GOP kernel {gop}; "
@@ -1738,13 +2222,30 @@ def shard_phase(torch):
                          f"refinement launches, twin checks {twins.calls} "
                          f"at {twins.shapes}; expected {SHARD_BANDS} of "
                          f"each at 120x17 MBs")
-    if pb != dict.fromkeys(P_KERNELS, SHARD_BANDS) or \
-            any(twins.calls[n] != SHARD_BANDS or
-                twins.shapes[n] != {(120, 17)} for n in P_KERNELS):
-        raise SystemExit(f"shard: P body kernel launches {pb}, twin checks "
+    if enc_pb != dict.fromkeys(P_KERNELS, SHARD_BANDS) or \
+            any(twins.calls[n] - (twins.decode_halfpel if n == "halfpel"
+                                  else 0) != SHARD_BANDS or
+                not {(120, 17)} <= twins.shapes[n] for n in P_KERNELS):
+        raise SystemExit(f"shard: P body kernel launches {enc_pb}, twin "
+                         f"checks {twins.calls} at {twins.shapes}; "
+                         f"expected {SHARD_BANDS} of each at 120x17 MBs")
+    if dec["deblock_params_dec"] != n_dec or not dec["intra_dec"] or \
+            dec["intra_dec"] != work.counts["shard_intra"] or \
+            dec["halfpel"] % n_dec or not dec["halfpel"] or \
+            pb["halfpel"] != SHARD_BANDS + dec["halfpel"] or \
+            (twins.calls["intra_dec"], twins.calls["deblock_params_dec"],
+             twins.decode_halfpel) != (dec["intra_dec"], n_dec,
+                                       dec["halfpel"]) or \
+            any(twins.shapes[n] != {(120, 34)} for n in DEC_KERNELS):
+        raise SystemExit(f"shard: decode launches {dec}, twin checks "
                          f"{twins.calls} at {twins.shapes}; expected "
-                         f"{SHARD_BANDS} of each at 120x17 MBs")
-    return db, me, twins, planes, pb
+                         f"{n_dec} deblock parameter launches, a half-pel "
+                         "stack per ring slot of each band picture, and "
+                         f"{work.counts['shard_intra']} intra wavefront "
+                         "launches (one per band picture with an intra "
+                         "MB), at 120x34 MBs")
+    return db, me, twins, planes, pb, \
+        {k: dec[k] for k in DEC_KERNELS}
 
 
 def shard_rates(torch, card, planes):
@@ -1895,14 +2396,16 @@ def main() -> int:
         intra_phase(torch, card)
     me_err, me_times = me_phase(torch, card)
     p_err, p_times = p_phase(torch, card)
+    dec_err, dec_times = dec_kernels_phase(torch, card)
     launches = slice_phase(torch)
-    scan_phase(torch)
+    scan_twins, scan_launches = scan_phase(torch)
+    gen_twins, gen_launches = general_phase(torch)
     db_launches, in_launches, fs_launches, rf_launches, pb_launches = \
         encode_phase(torch)
     p_picture_kernels(torch, card)
     t_svc = time.perf_counter()
     svc_launches, svc_db, svc_in, svc_me, svc_stream, clips, twins, \
-        svc_pb = svc_phase(torch)
+        svc_pb, svc_dec = svc_phase(torch)
     svc_s = time.perf_counter() - t_svc
     for name in ENCODE_MAIN:
         encode_fps(torch, name, card)
@@ -1912,7 +2415,8 @@ def main() -> int:
     svc_fps(torch, card, svc_stream, clips)
     svc_s += time.perf_counter() - t_svc
     t_shard = time.perf_counter()
-    shard_db, shard_me, shard_twins, planes, shard_pb = shard_phase(torch)
+    shard_db, shard_me, shard_twins, planes, shard_pb, shard_dec = \
+        shard_phase(torch)
     shard_rates(torch, card, planes)
     shard_s = time.perf_counter() - t_shard
     print(f"chip_smoke: all phases passed in "
@@ -1931,10 +2435,14 @@ def main() -> int:
         {"name": "deblock_frame_fast", "route": "cuda",
          "source": "hartallo_tpu_torch/csrc/deblock.cu",
          "replaces": "hartallo_tpu/ops/deblock_pallas.py:349",
-         "launches": db_launches + svc_db + shard_db,
-         "launches_by_path": {"encode": db_launches, "svc": svc_db,
-                              "shard": shard_db},
-         "max_abs_err": max(db_err, twins.err["deblock"],
+         "launches": db_launches + scan_launches["deblock"] +
+         gen_launches["deblock"] + svc_db + shard_db,
+         "launches_by_path": {"encode": db_launches,
+                              "scan": scan_launches["deblock"],
+                              "general": gen_launches["deblock"],
+                              "svc": svc_db, "shard": shard_db},
+         "max_abs_err": max(db_err, scan_twins.err["deblock"],
+                            gen_twins.err["deblock"], twins.err["deblock"],
                             shard_twins.err["deblock"]),
          "ms": db_ms, "plain_ms": db_plain_ms, "bound_ms": db_bound_ms,
          "bound_by": db_bound_by, "library_ms": None},
@@ -1970,12 +2478,14 @@ def main() -> int:
         *({"name": name, "route": "cuda",
            "source": "hartallo_tpu_torch/csrc/p_encode.cu",
            "replaces": replaces,
-           "launches": pb_launches[key] + svc_pb[key] + shard_pb[key],
+           "launches": pb_launches[key] + scan_launches.get(key, 0) +
+           svc_pb[key] + shard_pb[key],
            "launches_by_path": {"encode": pb_launches[key],
+                                "scan": scan_launches.get(key, 0),
                                 "svc": svc_pb[key],
                                 "shard": shard_pb[key]},
-           "max_abs_err": max(p_err[key], twins.err[key],
-                              shard_twins.err[key]),
+           "max_abs_err": max(p_err[key], scan_twins.err[key],
+                              twins.err[key], shard_twins.err[key]),
            "ms": p_times[key][0], "plain_ms": p_times[key][1],
            "bound_ms": p_times[key][2], "bound_by": p_times[key][3],
            "library_ms": None}
@@ -1994,7 +2504,31 @@ def main() -> int:
               ("deblock_params_fast", "deblock_params",
                "hartallo_tpu/ops/deblock.py:44 compute_bs and "
                "ops/deblock_pallas.py:274 _edge_params (in "
-               "e_device.deblock_recon_device)")))]}))
+               "e_device.deblock_recon_device)"))),
+        *({"name": name, "route": "cuda",
+           "source": f"hartallo_tpu_torch/csrc/{source}",
+           "replaces": replaces,
+           "launches": scan_launches[key] + gen_launches[key] +
+           svc_dec[key] + shard_dec[key],
+           "launches_by_path": {"scan": scan_launches[key],
+                                "general": gen_launches[key],
+                                "svc": svc_dec[key],
+                                "shard": shard_dec[key]},
+           "max_abs_err": max(dec_err[key], scan_twins.err[key],
+                              gen_twins.err[key], twins.err[key],
+                              shard_twins.err[key]),
+           "ms": dec_times[key][0], "plain_ms": dec_times[key][1],
+           "bound_ms": dec_times[key][2], "bound_by": dec_times[key][3],
+           "library_ms": None}
+          for name, key, source, replaces in (
+              ("intra_reconstruct_fast", "intra_dec", "intra_decode.cu",
+               "hartallo_tpu/decode/intra_recon.py:233 intra_reconstruct "
+               "(XLA, in d_gop.py:193, decoder.py:835, shard.py:248)"),
+              ("deblock_params_dec_fast", "deblock_params_dec",
+               "deblock.cu",
+               "hartallo_tpu/ops/deblock_pallas.py:274 _edge_params of "
+               "deblock_frame_pl, with ops/wide.py:310 compute_bs_grids "
+               "(in d_gop.prepare_pictures and the general route)")))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -114,6 +114,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "deblock_params.cuh"
 #include "halfpel_prims.cuh"
 #include "transform_prims.cuh"
 
@@ -125,9 +126,12 @@ constexpr int NAUX = 62;
 // the wrapper's table (p_body_fast._tables), int32 words: QUANT_MF
 // (6,4,4), QUANT_V (6,4,4), QUANT_QBITS (52), the inter row of QUANT_F
 // (52), QP_SCALE_CHROMA (52), DEBLOCK_ALPHA (52), DEBLOCK_BETA (52),
-// DEBLOCK_TC0 (52,3) and ZIGZAG_4x4_INV (16) of core/tables.py
+// DEBLOCK_TC0 (52,3) and ZIGZAG_4x4_INV (16) of core/tables.py; the four
+// deblock tables from T_QPC on as deblock_params.cuh's hl::DPT_*
 constexpr int T_MF = 0, T_V = 96, T_QBITS = 192, T_F = 244, T_QPC = 296,
-              T_ALPHA = 348, T_BETA = 400, T_TC0 = 452, T_ZZ = 608;
+              T_ZZ = 608;
+static_assert(T_QPC + hl::DPT_TC0 + 52 * 3 == T_ZZ,
+              "the deblock tables lie between T_QPC and T_ZZ");
 
 // JVT-O079 2.3: the significance of a lone |level| == 1 by its zigzag run
 // (p_device._T079), 0 from run 6 on
@@ -135,9 +139,7 @@ __device__ __forceinline__ int t079(int run) {
   return run == 0 ? 3 : run <= 2 ? 2 : run <= 5 ? 1 : 0;
 }
 
-__device__ __forceinline__ int clampi(int lo, int hi, int v) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
+using hl::clampi;
 
 // raster block -> blkIdx
 __device__ __forceinline__ int raster_blk(int by, int bx) {
@@ -899,19 +901,10 @@ __device__ __forceinline__ const int4* levels(const DpArgs& a, int m,
 }
 
 // bS of the edge between block q and its neighbour p (8.7.2.1, as
-// ops/wide.compute_bs_grids: 3 for an intra edge inside the MB): intra
-// either side, levels either side, their MVs and references
+// ops/wide.compute_bs_grids: 3 for an intra edge inside the MB)
 __device__ __forceinline__ int edge_bs(bool intra, bool nz, int2 vq, int2 vp,
                                        int rq, int rp, bool internal) {
-  int bs;
-  if (intra) {
-    bs = 4;
-  } else if (nz) {
-    bs = 2;
-  } else {
-    const int dx = vq.x - vp.x, dy = vq.y - vp.y;
-    bs = (dx >= 4 || dx <= -4 || dy >= 4 || dy <= -4 || rq != rp) ? 1 : 0;
-  }
+  const int bs = hl::bs_rule(intra, nz, vq, vp, rq, rp);
   return internal && bs == 4 ? 3 : bs;
 }
 
@@ -990,21 +983,7 @@ __global__ void __launch_bounds__(DP_THREADS) k_deblock_params(DpArgs a) {
       reinterpret_cast<int16_t*>(smem) + (threadIdx.x >> 4) * DP_ROW;
   row[30 + bx * 4 + by] = (int16_t)bs_v;
   row[46 + l] = (int16_t)bs_h;
-  if (l < 6) {
-    const int* tab = a.tab;
-    const int k = l < 3 ? l : l - 3;     // 0 left, 1 top, 2 internal
-    int qe = k == 2 ? qp : (qn + qp + 1) >> 1;
-    if (l >= 3) {                        // chroma: the QPs' chroma QPs
-      const int qpc = tab[T_QPC + clampi(0, 51, qp + a.cqo)];
-      const int qnc = tab[T_QPC + clampi(0, 51, qn + a.cqo)];
-      qe = l == 5 ? qpc : (qnc + qpc + 1) >> 1;
-    }
-    const int ia = clampi(0, 51, qe);
-    row[2 * l] = (int16_t)tab[T_ALPHA + ia];
-    row[2 * l + 1] = (int16_t)tab[T_BETA + ia];
-    for (int j = 0; j < 3; ++j)
-      row[12 + 3 * l + j] = (int16_t)tab[T_TC0 + 3 * ia + j];
-  }
+  if (l < 6) hl::edge_set(a.tab + T_QPC, l, qp, qn, a.cqo, 0, 0, row);
   __syncwarp();
   if (live) {
     const int* w = reinterpret_cast<const int*>(row);

@@ -6,12 +6,17 @@ Python loop walks the pictures in decode order with the DPB held as a
 ring of reference slots, each slot the four half-pel grids [G, b, h, j]
 of one picture plus its padded chroma.  This is the route of the pictures
 the whole-GOP kernel (``d_gop_fast``) refuses, as in the JAX package.
-Each picture's deblock is ``ops/deblock_fast.deblock_frame_fast``: one
-launch of the CUDA wavefront kernel on a CUDA device (the JAX package
-runs the Pallas ``deblock_frame_pl`` here on a TPU), its plain twin on
-the CPU.  The batched work (``prepare_pictures``) and the per-picture
-body (``reconstruct_picture``) are also the band body of the sharded
-decode, ``parallel/shard.decode_frame_step_sharded``.
+On a CUDA device these steps are hand-written kernels, on the CPU their
+plain twins: the deblock parameters of the K pictures
+(``ops/deblock_fast.deblock_params_dec_fast``, one launch), each
+picture's intra wavefront (``decode/intra_recon_fast
+.intra_reconstruct_fast``) and deblock (``deblock_frame_aux_fast``; the
+JAX package runs the Pallas ``deblock_frame_pl`` here on a TPU), and
+the half-pel stack of each reference it writes
+(``encode/p_body_fast.halfpel_planes_fast``).  The batched work
+(``prepare_pictures``) and the per-picture body
+(``reconstruct_picture``) are also the band body of the sharded decode,
+``parallel/shard.decode_frame_step_sharded``.
 
 Reference counterpart: the per-picture decode driver
 ``hl_codec_264_decode_avc.c:55-263``.
@@ -23,11 +28,13 @@ import torch
 
 from hartallo_tpu_torch.core.tables import QP_SCALE_CHROMA
 from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
-from hartallo_tpu_torch.decode.intra_recon import PAD, intra_reconstruct
-from hartallo_tpu_torch.ops.deblock_fast import deblock_frame_fast
-from hartallo_tpu_torch.ops.graphs import replayed
-from hartallo_tpu_torch.ops.wide import (compute_bs_grids, halfpel_planes,
-                                         mc_chroma_plane, mc_grids,
+from hartallo_tpu_torch.decode.intra_recon import PAD
+from hartallo_tpu_torch.decode.intra_recon_fast import intra_reconstruct_fast
+from hartallo_tpu_torch.encode.p_body_fast import halfpel_planes_fast
+from hartallo_tpu_torch.ops.deblock_fast import (deblock_frame_aux_fast,
+                                                 deblock_params_dec_fast,
+                                                 record_offsets)
+from hartallo_tpu_torch.ops.wide import (mc_chroma_plane, mc_grids,
                                          mc_luma_plane, pad_edge,
                                          residual_planes_wide)
 
@@ -38,6 +45,8 @@ for _name, _shape in DEC_FIELDS:
     _OFF[_name] = (_o, _o + _w, _shape)
     _o += _w
 WORDS = _o
+# the deblock parameters' fields in the dense buffer
+DEBLOCK_OFFSETS = record_offsets(DEC_FIELDS)[0]
 
 
 def _field(packed, name, gw, gh):
@@ -91,7 +100,7 @@ def decode_gop(packed, write_slot, has_intra, ringY, ringU, ringV,
 
         ws = write_slot[k]
         ringY[ws].zero_()
-        ringY[ws, :, :Hp, :Wp] = halfpel_planes(pad_edge(y2)) \
+        ringY[ws, :, :Hp, :Wp] = halfpel_planes_fast(pad_edge(y2)) \
             .to(torch.uint8)
         for ring, c in ((ringU, u2), (ringV, v2)):
             ring[ws].zero_()
@@ -101,9 +110,9 @@ def decode_gop(packed, write_slot, has_intra, ringY, ringU, ringV,
 
 def prepare_pictures(packed, *, gw: int, gh: int, chroma_qp_off: int):
     """The work of K pictures that needs no reference: residual planes,
-    boundary strengths, QP maps and the MC and intra inputs, batched over
-    the pictures.  packed (K, gh*gw, WORDS) int32 on the device; returns
-    a dict that ``reconstruct_picture`` reads."""
+    deblock parameters and the MC and intra inputs, batched over the
+    pictures.  packed (K, gh*gw, WORDS) int32 on the device, contiguous;
+    returns a dict that ``reconstruct_picture`` reads."""
     dev = packed.device
     K = packed.shape[0]
     M = K * gh * gw
@@ -124,26 +133,14 @@ def prepare_pictures(packed, *, gw: int, gh: int, chroma_qp_off: int):
         qp.reshape(M), (kind == 1).reshape(M), chroma_qp_off, qpc_table,
         gw, gh)
 
-    mb_is_intra = (kind <= 2) | (kind == 8)
-    nnz = fld("nnz").permute(0, 1, 3, 2, 4).reshape(K, 4 * gh, 4 * gw)
     mv = fld("mv")                                     # (K,gh,gw,4,4,2)
-    mvg = mv.permute(0, 1, 3, 2, 4, 5).reshape(K, 4 * gh, 4 * gw, 2)
     ref44 = fld("ref_idx").reshape(K, gh, gw, 2, 2) \
         .repeat_interleave(2, 3).repeat_interleave(2, 4)
-    refg = ref44.permute(0, 1, 3, 2, 4).reshape(K, 4 * gh, 4 * gw)
-    bs_vg, bs_hg = compute_bs_grids(mb_is_intra, nnz, mvg, refg,
-                                    fld("fmb_v") != 0, fld("fmb_h") != 0,
-                                    fld("fint") != 0)
-    qpc = qpc_table[torch.clamp(qp + chroma_qp_off, 0, 51)]
     inter_mask = (kind >= 3) & (kind != 8)
     return {
-        "res_y": res_y, "res_c": res_c, "qp": qp, "qpc": qpc,
-        "bs_v": bs_vg.reshape(K, gh, 4, gw, 4).permute(0, 1, 3, 4, 2),
-        "bs_h": bs_hg.reshape(K, gh, 4, gw, 4).permute(0, 1, 3, 2, 4),
-        "qp_l": torch.cat([qp[:, :, :1], qp[:, :, :-1]], dim=2),
-        "qp_t": torch.cat([qp[:, :1, :], qp[:, :-1, :]], dim=1),
-        "qpc_l": torch.cat([qpc[:, :, :1], qpc[:, :, :-1]], dim=2),
-        "qpc_t": torch.cat([qpc[:, :1, :], qpc[:, :-1, :]], dim=1),
+        "res_y": res_y, "res_c": res_c,
+        "aux": deblock_params_dec_fast(packed, DEBLOCK_OFFSETS,
+                                       chroma_qp_off, gw=gw, gh=gh),
         "grids": mc_grids(gw, gh, dev),
         "mask_y": inter_mask.repeat_interleave(16, -2)
         .repeat_interleave(16, -1),
@@ -155,10 +152,8 @@ def prepare_pictures(packed, *, gw: int, gh: int, chroma_qp_off: int):
         .repeat_interleave(2, 3).repeat_interleave(2, 4)
         .reshape(K, N, 2, 3),
         "mv": mv.reshape(K, N, 2), "slot": ref44.reshape(K, N),
-        "kind": torch.where(kind == 0, 0, torch.where(kind == 1, 1, 2)),
-        **{name: fld(name) for name in ("i16_mode", "i4_modes",
-                                        "chroma_mode", "alpha_off",
-                                        "beta_off")},
+        **{name: fld(name) for name in ("kind", "i16_mode", "i4_modes",
+                                        "chroma_mode")},
         **{name: fld(name) != 0 for name in ("avail_l", "avail_t",
                                              "avail_tr")},
     }
@@ -167,8 +162,9 @@ def prepare_pictures(packed, *, gw: int, gh: int, chroma_qp_off: int):
 def reconstruct_picture(batch, k, stackY, ringU, ringV, has_intra: bool,
                         *, gw: int, gh: int):
     """Picture k of a ``prepare_pictures`` batch: MC from the reference
-    slots, residual add, the intra wavefront when ``has_intra``, and the
-    frame deblock (``deblock_frame_fast``).  stackY (S, 4, Hr, Wr) holds
+    slots, residual add, the intra wavefront when ``has_intra``
+    (``intra_reconstruct_fast``), and the frame deblock on the batch's
+    parameters (``deblock_frame_aux_fast``).  stackY (S, 4, Hr, Wr) holds
     each slot's [G, b, h, j] planes, ringU/ringV (S, Hcr, Wcr) the padded
     chroma (either may be over-allocated, uint8 or int32).  Returns the
     (H, W), (H/2, W/2), (H/2, W/2) int32 planes."""
@@ -193,22 +189,14 @@ def reconstruct_picture(batch, k, stackY, ringU, ringV, has_intra: bool,
                           (pU, rc[0], b["mask_c"][k]),
                           (pV, rc[1], b["mask_c"][k])))
     if has_intra:
-        args = (*planes, ry.reshape(gh, 16, gw, 16).permute(0, 2, 1, 3),
-                rc.reshape(2, gh, 8, gw, 8).permute(1, 3, 0, 2, 4),
-                *(b[name][k] for name in ("kind", "i16_mode", "i4_modes",
-                                          "chroma_mode", "avail_l",
-                                          "avail_t", "avail_tr")))
-
-        def intra(pY, pU, pV, *rest):
-            return intra_reconstruct((pY, pU, pV), *rest, gw=gw, gh=gh)
-        # on the card, a picture size seen before replays its intra
-        # wavefront as a CUDA graph (``ops/graphs``)
-        planes = replayed(intra, "intra_reconstruct", *args) \
-            if dev.type == "cuda" else intra(*args)
-    y2p, u2p, v2p = deblock_frame_fast(
-        planes, b["bs_v"][k], b["bs_h"][k], b["qp"][k], b["qp_l"][k],
-        b["qp_t"][k], b["qpc"][k], b["qpc_l"][k], b["qpc_t"][k],
-        b["alpha_off"][k], b["beta_off"][k], gw=gw, gh=gh)
+        planes = intra_reconstruct_fast(
+            planes, ry.reshape(gh, 16, gw, 16).permute(0, 2, 1, 3),
+            rc.reshape(2, gh, 8, gw, 8).permute(1, 3, 0, 2, 4),
+            *(b[name][k] for name in ("kind", "i16_mode", "i4_modes",
+                                      "chroma_mode", "avail_l", "avail_t",
+                                      "avail_tr")), gw=gw, gh=gh)
+    y2p, u2p, v2p = deblock_frame_aux_fast(planes, b["aux"][k], gw=gw,
+                                           gh=gh)
     return (y2p[PAD:PAD + H, PAD:PAD + W],
             u2p[PAD:PAD + H // 2, PAD:PAD + W // 2],
             v2p[PAD:PAD + H // 2, PAD:PAD + W // 2])

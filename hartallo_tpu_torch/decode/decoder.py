@@ -22,14 +22,16 @@ routes:
   ``d_device.decode_frame_pre`` decodes the residual and predicts the
   inter and I_BL MBs, the intra wavefront follows when the picture holds
   an Intra4x4 or Intra16x16 MB (without one it would leave the planes as
-  they are), and the frame deblock is ``ops/deblock_fast
-  .deblock_frame_fast`` (through ``encode/e_device.deblock_grids``, as
-  the encoder's): the CUDA kernel on a CUDA device (the JAX package runs
-  the XLA ``ops/deblock.deblock_frame`` here), its plain twin on the CPU.
+  they are; ``decode/intra_recon_fast.intra_reconstruct_fast``), and the
+  frame deblock is the deblock parameters
+  (``ops/deblock_fast.deblock_params_dec_fast``) and the filter
+  (``deblock_frame_aux_fast``), each a CUDA kernel on a CUDA device (the
+  JAX package runs XLA here), its plain twin on the CPU.
 
 The two routes share each layer's ring: a reference picture of the
 general route gets a ring slot and is uploaded into the ring (as its
-half-pel stack) before the next batch that predicts from it.
+half-pel stack, ``encode/p_body_fast.halfpel_planes_fast``) before the
+next batch that predicts from it.
 
 Multi-layer (SVC) aware: per-DQId layer contexts with their own DPBs,
 POC state and rings, output windows ``dqid_min`` / ``dqid_max`` and
@@ -76,9 +78,13 @@ from hartallo_tpu_torch.decode.d_gop import (decode_gop, ring_shapes,
 from hartallo_tpu_torch.decode.d_gop_fast import (decode_gop_fast,
                                                   payload_to, stack_payload)
 from hartallo_tpu_torch.decode.intra_recon import (PAD, availability_masks,
-                                                   availability_tr,
-                                                   intra_reconstruct)
-from hartallo_tpu_torch.ops.wide import halfpel_planes
+                                                   availability_tr)
+from hartallo_tpu_torch.decode.intra_recon_fast import intra_reconstruct_fast
+from hartallo_tpu_torch.encode.p_body_fast import halfpel_planes_fast
+from hartallo_tpu_torch.ops.deblock_fast import (RECORD_OFFSETS,
+                                                 deblock_frame_aux_fast,
+                                                 deblock_params_dec_fast,
+                                                 pack_deblock_record)
 
 BATCH_K = 16     # pictures per batch
 
@@ -586,7 +592,7 @@ class Decoder:
         sync, layer.pending_sync = layer.pending_sync, []
         for f in sync:
             if f.slot >= 0 and f.planes_pad is not None:
-                hp = halfpel_planes(f.planes_pad[0])
+                hp = halfpel_planes_fast(f.planes_pad[0])
                 ringY[f.slot].zero_()
                 ringY[f.slot, :, :hp.shape[1], :hp.shape[2]] = \
                     hp.to(torch.uint8)
@@ -796,7 +802,7 @@ class Decoder:
             atr = availability_tr(
                 sd.slice_id, bool(pps.constrained_intra_pred_flag),
                 inter_mask)
-            padY, padU, padV = intra_reconstruct(
+            padY, padU, padV = intra_reconstruct_fast(
                 (padY, padU, padV), res_y, res_c, t(kind), t(sd.i16_mode),
                 t(sd.i4_modes), t(sd.chroma_mode), t(al, torch.bool),
                 t(at, torch.bool), t(atr, torch.bool), gw=gw, gh=gh)
@@ -829,23 +835,22 @@ class Decoder:
 
     # ------------------------------------------------------------------
     def _deblock(self, pps: PPS, sd: SliceData, planes):
-        """The frame deblock of a general-route picture through
-        ``e_device.deblock_grids`` (the CUDA kernel on a CUDA device), on
-        the parsed TotalCoeff grid.  I4x4, I16, PCM and I_BL MBs count as
-        intra for the boundary strengths; the alpha/beta offsets are the
-        slices' own, per MB."""
-        from hartallo_tpu_torch.encode.e_device import deblock_grids
-
+        """The frame deblock of a general-route picture, two CUDA kernels
+        on a CUDA device: the parameters (``deblock_params_dec_fast``) on
+        one upload of the picture's per-MB record, then the filter
+        (``deblock_frame_aux_fast``).  The record holds its kinds (I4x4,
+        I16, PCM and I_BL count as intra for the boundary strengths), QPs,
+        MVs, refIdx, TotalCoeff, the slices' alpha/beta offsets and the
+        edge flags.  planes PAD-padded int32; returns the new planes."""
         gw, gh = sd.gw, sd.gh
-        t = self._tensor
-        fmb_v, fmb_h, filter_internal = self._filter_flags(sd)
-        mvg = t(sd.mv).permute(0, 2, 1, 3, 4).reshape(4 * gh, 4 * gw, 2)
-        refg = t(sd.ref_idx).reshape(gh, gw, 2, 1, 2, 1) \
-            .expand(gh, gw, 2, 2, 2, 2).reshape(gh, gw, 4, 4) \
-            .permute(0, 2, 1, 3).reshape(4 * gh, 4 * gw)
-        return deblock_grids(
-            planes, t((sd.mb_kind <= 2) | (sd.mb_kind == MB_IBL), torch.bool),
-            t(sd.nnz_luma), mvg, refg, t(sd.qp), pps.chroma_qp_index_offset,
-            gw, gh, fmb_v=t(fmb_v, torch.bool), fmb_h=t(fmb_h, torch.bool),
-            fint=t(filter_internal, torch.bool), alpha_off=t(sd.alpha_off),
-            beta_off=t(sd.beta_off))
+        fmb_v, fmb_h, fint = self._filter_flags(sd)
+        rec = pack_deblock_record({
+            "kind": sd.mb_kind, "qp": sd.qp, "mv": sd.mv,
+            "ref_idx": sd.ref_idx,
+            "nnz": sd.nnz_luma.reshape(gh, 4, gw, 4).transpose(0, 2, 1, 3),
+            "alpha_off": sd.alpha_off, "beta_off": sd.beta_off,
+            "fmb_v": fmb_v, "fmb_h": fmb_h, "fint": fint}, gw, gh)
+        aux = deblock_params_dec_fast(
+            self._tensor(rec)[None], RECORD_OFFSETS,
+            pps.chroma_qp_index_offset, gw=gw, gh=gh)[0]
+        return deblock_frame_aux_fast(planes, aux, gw=gw, gh=gh)

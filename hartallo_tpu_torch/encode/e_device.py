@@ -25,14 +25,13 @@ import numpy as np
 import torch
 
 from hartallo_tpu_torch.decode.intra_recon import PAD
-from hartallo_tpu_torch.encode.intra_encode import qpc_of
 from hartallo_tpu_torch.encode.intra_encode_fast import \
     intra_encode_frame_fast
 from hartallo_tpu_torch.encode.p_body_fast import deblock_params_fast
 from hartallo_tpu_torch.encode.p_device import p_frame_with_mask
-from hartallo_tpu_torch.ops.deblock import compute_bs, edge_params
+from hartallo_tpu_torch.ops.deblock import compute_bs
 from hartallo_tpu_torch.ops.deblock_fast import (deblock_frame_aux_fast,
-                                                 deblock_frame_fast)
+                                                 edge_rows)
 from hartallo_tpu_torch.ops.wide import _RASTER_TO_BLK, pad_edge
 
 # packed-buffer layout: name -> per-MB trailing shape
@@ -79,13 +78,6 @@ def _mad(srcY, recY, H: int, W: int) -> torch.Tensor:
         .sum(dtype=torch.int32)
 
 
-def _shift_map(a: torch.Tensor, dim: int) -> torch.Tensor:
-    """The left (dim 1) or top (dim 0) neighbour's value, the edge MB its
-    own."""
-    first = a.narrow(dim, 0, 1)
-    return torch.cat([first, a.narrow(dim, 0, a.shape[dim] - 1)], dim=dim)
-
-
 @lru_cache(maxsize=None)
 def _inside_flags(gw: int, gh: int, dev: torch.device):
     """(fmb_v, fmb_h) bool on ``dev`` with every MB edge inside the
@@ -107,44 +99,12 @@ def _edge_flags(fmb_v, fmb_h, gw: int, gh: int, dev):
             torch.as_tensor(fmb_h, device=dev))
 
 
-def _qp_maps(qp, chroma_qp_off: int):
-    """The QP maps of ``deblock_frame_fast`` / ``edge_params``: the MB's,
-    its left and top neighbours' (the edge MB its own), and the same of
-    the chroma QP."""
-    qpc = qpc_of(qp, chroma_qp_off)
-    return (qp, _shift_map(qp, 1), _shift_map(qp, 0), qpc,
-            _shift_map(qpc, 1), _shift_map(qpc, 0))
-
-
-def deblock_grids(planes, mb_is_intra, nnz, mvg, refg, qp, chroma_qp_off,
-                  gw: int, gh: int, fmb_v=None, fmb_h=None, fint=None,
-                  alpha_off=None, beta_off=None):
-    """One frame deblock through ``deblock_frame_fast`` from per-4x4
-    grids, on the device: the decoder's general route.
-
-    nnz (4gh,4gw) luma TotalCoeff; mvg (4gh,4gw,2) quarter-pel MVs; refg
-    (4gh,4gw) refIdx; mb_is_intra, fmb_v, fmb_h, fint (gh,gw) bool (the
-    edge flags default to every MB edge inside the picture and every
-    internal edge); qp and the alpha/beta offsets (gh,gw) int32 (the
-    offsets default to 0); planes PAD-padded int32.  Returns the new
-    planes."""
-    dev = qp.device
-    if fint is None:
-        fint = torch.ones((gh, gw), dtype=torch.bool, device=dev)
-    bs_v, bs_h = compute_bs(mb_is_intra, nnz, mvg, refg,
-                            *_edge_flags(fmb_v, fmb_h, gw, gh, dev), fint)
-    zeros = torch.zeros((gh, gw), dtype=torch.int32, device=dev)
-    return deblock_frame_fast(
-        planes, bs_v, bs_h, *_qp_maps(qp, chroma_qp_off),
-        zeros if alpha_off is None else alpha_off,
-        zeros if beta_off is None else beta_off, gw=gw, gh=gh)
-
-
 def deblock_params(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
                    fmb_v=None, fmb_h=None, *, gw: int, gh: int):
     """The in-loop deblock's per-MB parameters of a coded picture: the
     luma TotalCoeff of its 4x4 blocks, ``compute_bs`` and ``edge_params``
-    (slice offsets 0), as (gh, gw, NAUX) int16 rows.  The plain twin of
+    (``deblock_fast.edge_rows``, slice offsets 0), as (gh, gw, NAUX) int16
+    rows.  The plain twin of
     ``p_body_fast.deblock_params_fast``; arguments as
     ``deblock_recon_device``'s."""
     dev = wq.device
@@ -157,9 +117,9 @@ def deblock_params(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,
                             *_edge_flags(fmb_v, fmb_h, gw, gh, dev),
                             torch.ones((gh, gw), dtype=torch.bool,
                                        device=dev))
-    zeros = torch.zeros((gh, gw), dtype=torch.int32, device=dev)
-    return edge_params(bs_v, bs_h, *_qp_maps(qp, chroma_qp_off), zeros,
-                       zeros).to(torch.int16)
+    zeros = torch.zeros((1, gh, gw), dtype=torch.int32, device=dev)
+    return edge_rows(bs_v[None], bs_h[None], qp[None], chroma_qp_off, zeros,
+                     zeros)[0]
 
 
 def deblock_recon_device(wq, mv44, ref44, mb_is_intra, qp, chroma_qp_off,

@@ -20,8 +20,8 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "kernels"
 LIB = BUILD_DIR / "libhl_kernels.so"
-SOURCES = ("d_gop.cu", "deblock.cu", "intra_encode.cu", "me_search.cu",
-           "p_encode.cu")
+SOURCES = ("d_gop.cu", "deblock.cu", "intra_decode.cu", "intra_encode.cu",
+           "me_search.cu", "p_encode.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -91,6 +91,10 @@ def load():
         lib.hl_decode_gop.argtypes = [P] * 16 + [I] * 10 + [P]
         lib.hl_deblock_frame.restype = I
         lib.hl_deblock_frame.argtypes = [P] * 5 + [I] * 2 + [P]
+        lib.hl_deblock_params_dec.restype = I
+        lib.hl_deblock_params_dec.argtypes = [P, I, P, P, P] + [I] * 4 + [P]
+        lib.hl_intra_decode.restype = I
+        lib.hl_intra_decode.argtypes = [P] * 17 + [I] * 3 + [P]
         lib.hl_intra_encode_frame.restype = I
         lib.hl_intra_encode_frame.argtypes = [P] * 26 + [I] * 4 + [P]
         lib.hl_intra_encode_attributes.restype = I

@@ -1,12 +1,13 @@
 """Replay of a recurring run of eager ops as one CUDA graph.
 
-The port's eager wavefronts (the decoder's intra reconstruction of a
-picture or band) are some 1,000 small ops per diagonal, paced by the
-host's dispatch of each op.  ``replayed`` runs such a function eagerly
-the first time its inputs' shapes are seen on a device, records the same
-ops into a CUDA graph the second time, and from then on copies the inputs
-into the graph's own and replays it: the same kernels on the same
-values, launched as one graph instead of one by one from Python.  The
+The plain twins of the port's wavefront kernels (the decoder's intra
+reconstruction and the deblock) are some 1,000 small ops per diagonal,
+paced by the host's dispatch of each op; ``chip_smoke.py`` holds every
+kernel call of a path against them.  ``replayed`` runs such a function
+eagerly the first time its inputs' shapes are seen on a device, records
+the same ops into a CUDA graph the second time, and from then on copies
+the inputs into the graph's own and replays it: the same kernels on the
+same values, launched as one graph instead of one by one from Python.  The
 function must not read device values on the host and must make no
 host-to-device copy (its constant tables cached on the device before).
 """

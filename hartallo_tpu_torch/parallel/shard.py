@@ -12,10 +12,11 @@ exchange is a copy of the neighbour band's boundary rows onto this
 band's device.  A mesh may name one device several times
 (``Mesh(("cuda:0",) * 4)`` runs four real bands with real halos on one
 card) and names the CPU only where the caller says so
-(``Mesh(("cpu",) * 4)`` in the tests).  Each band's in-loop deblock is
-``ops/deblock_fast.deblock_frame_fast``: the CUDA kernel on a CUDA
-device, its plain twin on the CPU (the JAX package runs the XLA
-``deblock_frame`` / ``deblock_frame_s1`` here).
+(``Mesh(("cpu",) * 4)`` in the tests).  Each band's deblock is
+``ops/deblock_fast.deblock_frame_aux_fast`` on gathered parameters, and
+a decoded band's references, intra wavefront and deblock parameters are
+the kernels of ``decode/d_gop``'s body: CUDA kernels on a CUDA device,
+their plain twins on the CPU (the JAX package runs XLA here).
 
 The sharded outputs stay per band on their devices: a tuple of band
 tensors, concatenated by ``gather`` when a caller wants the whole array.
@@ -35,8 +36,9 @@ from hartallo_tpu_torch.decode.d_gop import (_OFF, prepare_pictures,
 from hartallo_tpu_torch.decode.decoder import Decoder, _BatchOut
 from hartallo_tpu_torch.decode.intra_recon import PAD
 from hartallo_tpu_torch.encode.e_device import deblock_recon_device
+from hartallo_tpu_torch.encode.p_body_fast import halfpel_planes_fast
 from hartallo_tpu_torch.encode.p_device import p_frame_device
-from hartallo_tpu_torch.ops.wide import _edge_pad, halfpel_planes, pad_edge
+from hartallo_tpu_torch.ops.wide import _edge_pad, pad_edge
 
 
 @dataclass(frozen=True)
@@ -196,7 +198,7 @@ def decode_frame_step_sharded(mesh: Mesh, packed, ringY, ringU, ringV,
     H, W = gh_l * 16, gw * 16
     recs = []
     for i in range(n):
-        stackY = torch.stack([halfpel_planes(_halo_pad(
+        stackY = torch.stack([halfpel_planes_fast(_halo_pad(
             [r[si] for r in rings[0]], i)) for si in range(S)])
         stackU, stackV = (torch.stack([_halo_pad([r[si] for r in ring], i)
                                        for si in range(S)])

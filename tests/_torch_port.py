@@ -217,24 +217,18 @@ def cuda_device():
 
 @pytest.fixture
 def twin_checked_deblock(monkeypatch):
-    """Wrap the deblock kernel's entry points where the decoder's general
-    route calls it (``e_device.deblock_grids``), where the encoder calls
-    it on the gathered parameters (``e_device.deblock_recon_device``) and
-    where the GOP scan and the sharded decode call it (``d_gop``): every
-    call is held against its plain twin on the same inputs, tolerance 0.
+    """Wrap the deblock kernel's entry point where the decoder's general
+    route and the encoder call it (``decoder.Decoder._deblock`` and
+    ``e_device.deblock_recon_device``) and where the GOP scan and the sharded
+    decode call it (``d_gop``), each on gathered parameters: every call
+    is held against its plain twin on the same inputs, tolerance 0.
     Yields the (gw, gh) of each call."""
     from hartallo_tpu_torch.decode import d_gop as G
+    from hartallo_tpu_torch.decode import decoder as DM
     from hartallo_tpu_torch.encode import e_device as E
     from hartallo_tpu_torch.ops import deblock_fast as D
-    real, real_aux = E.deblock_frame_fast, E.deblock_frame_aux_fast
+    real_aux = E.deblock_frame_aux_fast
     calls = []
-
-    def checked(planes, *rest, gw, gh):
-        got = real(planes, *rest, gw=gw, gh=gh)
-        want = D.deblock_frame_fast_plain(planes, *rest, gw=gw, gh=gh)
-        assert all(bool((g == w).all()) for g, w in zip(got, want))
-        calls.append((gw, gh))
-        return got
 
     def checked_aux(planes, aux, *, gw, gh):
         got = real_aux(planes, aux, gw=gw, gh=gh)
@@ -242,9 +236,9 @@ def twin_checked_deblock(monkeypatch):
         assert all(bool((g == w).all()) for g, w in zip(got, want))
         calls.append((gw, gh))
         return got
-    monkeypatch.setattr(E, "deblock_frame_fast", checked)
     monkeypatch.setattr(E, "deblock_frame_aux_fast", checked_aux)
-    monkeypatch.setattr(G, "deblock_frame_fast", checked)
+    monkeypatch.setattr(G, "deblock_frame_aux_fast", checked_aux)
+    monkeypatch.setattr(DM, "deblock_frame_aux_fast", checked_aux)
     return calls
 
 

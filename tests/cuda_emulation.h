@@ -1,7 +1,8 @@
 // The few CUDA features of hartallo_tpu_torch/csrc/intra_encode.cu,
-// me_search.cu and p_encode.cu on the CPU, for the tests
-// tests/test_torch_{intra,me,p_body}_kernel_emulated.py: one std::thread
-// per CUDA thread of a block, sleeping barriers for __syncthreads and
+// intra_decode.cu, me_search.cu, p_encode.cu and deblock.cu's parameter
+// kernel on the CPU, for the tests tests/test_torch_*_emulated.py: one
+// std::thread per CUDA thread of a block, sleeping barriers for
+// __syncthreads and
 // __syncwarp, a per-warp slot array for the warp shuffles (with their
 // width), votes and reductions, float operations that round once each,
 // as __fadd_rn, __fmul_rn, __fdiv_rn and __fmaf_rn do, and the byte-SIMD
@@ -326,7 +327,8 @@ void emu_run(Kernel kernel, const Args& args, int blocks, int threads,
     EmuBlock* blk = ctx.back().get();
     EmuDim3 bi;
     bi.x = b % gridDim.x;
-    bi.y = b / gridDim.x;
+    bi.y = b / gridDim.x % gridDim.y;
+    bi.z = b / gridDim.x / gridDim.y;
     for (int t = 0; t < threads; ++t)
       pool.emplace_back([t, bi, blk, &kernel, &args] {
         threadIdx.x = t;
@@ -346,15 +348,15 @@ void emu_run(Kernel kernel, const Args& args, int blocks, int threads,
   for (auto& th : pool) th.join();
 }
 
-// Run `kernel(args)` on a grid of gx x gy blocks of `threads` threads
-// each, one block after another in raster order.
+// Run `kernel(args)` on a grid of gx x gy x gz blocks of `threads`
+// threads each, one block after another in raster order.
 template <class Kernel, class Args>
 void emu_launch_grid(Kernel kernel, const Args& args, int gx, int gy,
-                     int threads) {
+                     int threads, int gz = 1) {
   gridDim.x = gx;
   gridDim.y = gy;
-  gridDim.z = 1;
-  emu_run(kernel, args, gx * gy, threads, 0, false);
+  gridDim.z = gz;
+  emu_run(kernel, args, gx * gy * gz, threads, 0, false);
 }
 
 // Run `kernel(args)` on `blocks` blocks of `threads` threads with

@@ -8,8 +8,10 @@ For each fixture of tests/data/port, after one warm-up decode, times
 each ended by ``torch.cuda.synchronize`` and counted without the wrapped
 stages nested in it): host CAVLC parse, host enqueue (MV derivation and
 payload packing), the host part of the flushes (payload upload and
-launches), the kernel route and the GOP-scan route, and the output
-fetch; then one decode under ``torch.profiler`` for the device's busy
+launches), the kernel route and the GOP-scan route, inside the scan its
+batch's deblock parameter kernel (the rest of its batched work apart),
+its intra wavefront kernel, deblock kernel and half-pel stack kernel
+(where the tree has them), and the output fetch; then one decode under ``torch.profiler`` for the device's busy
 share and its heaviest kernels.  Prints two JSON objects per fixture, in
 ms per frame, with the card's name and power limit.  ``--tree`` imports
 ``hartallo_tpu_torch`` from a checkout of another commit, so that two
@@ -30,6 +32,7 @@ FIXTURES = REPO / "tests" / "data" / "port"
 def stages(name: str, runs: int) -> dict:
     import torch
 
+    import hartallo_tpu_torch.decode.d_gop as G
     import hartallo_tpu_torch.decode.decoder as DM
     from hartallo_tpu_torch.api import Codec, CodecConfig
 
@@ -42,7 +45,13 @@ def stages(name: str, runs: int) -> dict:
                (DM.Decoder, "_flush", "flush"),
                (DM, "decode_gop_fast", "kernel_route"),
                (DM, "decode_gop", "scan_route"),
+               (G, "prepare_pictures", "scan_batch_rest"),
+               (G, "deblock_params_dec_fast", "scan_deblock_params"),
+               (G, "intra_reconstruct_fast", "scan_intra"),
+               (G, "deblock_frame_aux_fast", "scan_deblock"),
+               (G, "halfpel_planes_fast", "scan_halfpel"),
                (DM._BatchOut, "fetch", "fetch")]
+    patches = [p for p in patches if hasattr(p[0], p[1])]
     S = Split()
     routes = []
 

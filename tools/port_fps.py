@@ -1,7 +1,7 @@
 """End-to-end decode and encode rates of the port on a CUDA device, for
 comparing two trees on one card in one run.
 
-    python tools/port_fps.py [--tree DIR] [--runs N] [--decode]
+    python tools/port_fps.py [--tree DIR] [--runs N] [--decode] [--routes]
 
 Imports ``hartallo_tpu_torch`` from ``DIR`` (this tree by default: give a
 checkout of another commit to time it on the same fixtures) and prints
@@ -17,7 +17,12 @@ one JSON line with the card's name and power limit and, through
   whole clip, each stream equal to the fixture; and of ``svc3_4cif_8``
   through ``Codec.encode`` (``chip_smoke.svc_encode``), in access units
   per second, after one warm-up encode, each stream equal to the fixture
-  (all three left out with ``--decode``).
+  (all three left out with ``--decode``);
+- with ``--routes``, decode fps of the other decode routes: ``qcif_6_wp``
+  (the GOP scan) through ``Codec.decode_annexb`` as above, and
+  ``shard_1080p_8`` through ``decode_gops_grouped`` in 2 groups of 2
+  bands on ``Mesh(("cuda:0",) * 4)`` (``chip_smoke.shard_decode``), one
+  warm-up and ``N`` timed decodes, every frame's MD5 checked.
 
 Run it for each tree in turns in one command (parent, this tree, this
 tree, parent) to compare them.  ``python tools/port_fps.py --pairs
@@ -47,7 +52,8 @@ def main(argv) -> None:
     # this tree's chip_smoke, then the package of the tree under test
     from bench import make_clip
     from chip_smoke import (card_line, decode_rates, encode_rates,
-                            load_fixture, svc_clips, svc_encode)
+                            frame_md5, load_fixture, shard_decode,
+                            svc_clips, svc_encode)
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     from hartallo_tpu_torch import kernels
     from hartallo_tpu_torch.api import Codec, CodecConfig
@@ -58,6 +64,19 @@ def main(argv) -> None:
     res = {"card": card_line(), "tree": str(pathlib.Path(tree).resolve()),
            "decode_fps": {name: decode_rates(torch, name, runs)
                           for name in DECODES}, "encode_fps": {}}
+    if "--routes" in argv:
+        from hartallo_tpu_torch.parallel.shard import Mesh
+        res["decode_fps"]["qcif_6_wp"] = decode_rates(torch, "qcif_6_wp",
+                                                      runs)
+        stream, meta = load_fixture("shard_1080p_8")
+        mesh, rates = Mesh(("cuda:0",) * 4), []
+        for i in range(runs + 1):                       # a warm-up first
+            frames, dt = shard_decode(torch, mesh, stream)
+            if [frame_md5(f) for f in frames] != meta["frame_md5"]:
+                raise SystemExit("shard_1080p_8: the sharded decode "
+                                 "misses the MD5s")
+            rates.append(len(frames) / dt)
+        res["decode_fps"]["shard_1080p_8 sharded"] = rates[1:]
     for name in () if "--decode" in argv else ENCODES:
         meta = load_fixture(name)[1]
         W, H = meta["width"], meta["height"]

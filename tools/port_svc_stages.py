@@ -10,8 +10,9 @@ decode and one encode of the fixture's clips (``tests/_torch_port
 in it, and each charged to the layer (DQId) being decoded or encoded:
 
 - decode: host CAVLC parse, inter-layer motion inference, the I_BL
-  upsampling, ``decode_frame_pre``, the intra wavefront, the deblock
-  kernel (parameter gather included), the batched route's host enqueue
+  upsampling, ``decode_frame_pre``, the intra wavefront kernel, the
+  deblock parameter kernel, the deblock kernel, the batched route's host
+  enqueue
   and its kernel route, the rS / coefficient state kept for the next
   layer, the residual resampling, the rest of the general route and of
   the flushes, and the output fetch;
@@ -20,7 +21,8 @@ in it, and each charged to the layer (DQId) being decoded or encoded:
   bodies, fetch with MVD/skip, CAVLC packing), the enhancement layers'
   upsampling, inferred-motion MC, motion inference, residual-prediction
   host work, transform and quantisation, the fetch of the levels and
-  their CAVLC packing, and the deblock kernel for every layer.
+  their CAVLC packing, and the deblock kernel for every layer (its
+  parameter kernel inside the P and I bodies).
 
 Then one decode under ``torch.profiler`` for the device's busy share.
 Prints JSON objects in ms per picture of each layer, with the card's name
@@ -47,7 +49,6 @@ def decode_split(name: str) -> dict:
 
     import hartallo_tpu_torch.decode.d_device as DD
     import hartallo_tpu_torch.decode.decoder as DM
-    import hartallo_tpu_torch.encode.e_device as E
     import hartallo_tpu_torch.svc.upsample as UP
     from _torch_port import load_fixture
     from hartallo_tpu_torch.api import Codec, CodecConfig
@@ -69,8 +70,9 @@ def decode_split(name: str) -> dict:
         (UP, "upsample_plane", "upsample", None),
         (UP, "upsample_residual_plane_np", "residual_resample", None),
         (DD, "decode_frame_pre", "decode_frame_pre", None),
-        (DM, "intra_reconstruct", "intra", None),
-        (E, "deblock_frame_fast", "deblock_kernel", None),
+        (DM, "intra_reconstruct_fast", "intra", None),
+        (DM, "deblock_params_dec_fast", "deblock_params", None),
+        (DM, "deblock_frame_aux_fast", "deblock_kernel", None),
         (DM.Decoder, "_enqueue_batched", "enqueue", None),
         (DM, "decode_gop_fast", "kernel_route", None),
         (DM.d_pool, "residual_planes_np", "layer_state", None),
@@ -120,7 +122,7 @@ def encode_split(name: str) -> dict:
         (PD, "refine_subpel_rounds_fast", "subpel_refine", None),
         (E, "_p_frame_body", "p_body_rest", None),
         (EN, "i_frame_fused", "i_body_rest", None),
-        (E, "deblock_frame_fast", "deblock_kernel", None),
+        (E, "deblock_frame_aux_fast", "deblock_kernel", None),
         (EN.Encoder, "finish_frame", "fetch_mvd", None),
         (EN.Encoder, "_pack_slices", "cavlc_pack", None),
         (SV, "upsample_plane", "upsample", None),
