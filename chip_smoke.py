@@ -65,9 +65,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``k_deblock_params_dec`` of ``deblock.cu``) against their plain twins
    on seeded inputs at one MB, QCIF (with inter and I_BL MBs), CIF (also
    constrained intra over three slices with the above-right flags false
-   on a row), 720p, 1080p and the shard phase's 120x34 band
-   (INTRA_DEC_CASES), the parameters also on 5 QCIF pictures a launch
-   and in the GOP scan's dense buffer; every output equal;
+   on a row, intra MBs under intra MBs above-right with inter MBs
+   between, and all inter), 720p, 1080p (also with one intra MB in 50)
+   and the shard phase's 120x34 band (INTRA_DEC_CASES), the parameters
+   also on 5 QCIF pictures a launch and in the GOP scan's dense buffer;
+   every output equal;
 7. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
@@ -152,10 +154,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    P body kernels per picture at CIF, 720p and 1080p the same way, after
    the launch floor (the profiler's device time of a one-element fill);
    the decoder's intra wavefront and deblock parameter kernels per
-   picture at CIF, 720p, 1080p and the 120x34 band with their wrappers
-   and alone, the wavefront beside its chain estimate (the gw + 2 gh - 2
-   MBs of its critical path times the one-MB picture's kernel time less
-   the launch floor); each beside its bound
+   picture at CIF, 720p, 1080p, the 120x34 band and the 1080p picture
+   with one intra MB in 50 with their wrappers and alone, the wavefront
+   at the all-intra sizes beside its chain model gw s + (gh - 1)(2 s +
+   h), with the in-row step s and the row-to-row hand-off h from the
+   times of a 120x1 and a 1x68 picture less the launch floor; each
+   beside its bound
    (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``,
    ``p_bound``, ``intra_dec_bound``, ``params_dec_bound``);
    encode fps at CIF, 720p and
@@ -694,7 +698,8 @@ def intra_inputs(W: int, H: int, seed: int, masked=False, slices=1,
 
 def intra_dec_inputs(gw: int, gh: int, seed: int, kinds=(0, 0, 0, 1),
                      rows=None, constrained=False, tr_false_row=None,
-                     none_tr=False, diagonal=False, modes=(9, 4, 4)):
+                     none_tr=False, diagonal=False, modes=(9, 4, 4),
+                     layout=None):
     """numpy inputs of ``intra_reconstruct`` at gw x gh MBs: (the three
     PAD-padded int32 planes, then res_y, res_c, kind, i16_mode, i4_modes,
     chroma_mode, avail_left, avail_top, avail_tr).  The planes' interiors
@@ -708,7 +713,12 @@ def intra_dec_inputs(gw: int, gh: int, seed: int, kinds=(0, 0, 0, 1),
     rows (one slice when None), constrained intra prediction (inter
     neighbours unavailable) with ``constrained``, the above-right flags of
     MB row ``tr_false_row`` all false, or None for avail_tr with
-    ``none_tr``."""
+    ``none_tr``.  ``layout`` places the MBs drawn from ``kinds`` and makes
+    every other MB inter (kind 3): "staircase", where (mx + my) % 3 == 0,
+    so that each lies under the above-right one and beside inter MBs,
+    with every Intra4x4 MB's block 5 in mode 3 or 7 (the modes that read
+    the above-right MB); "columns", the even columns, so that every one
+    right of column 0 has an inter MB on its left."""
     import numpy as np
     from hartallo_tpu_torch.decode.intra_recon import (availability_masks,
                                                        availability_tr)
@@ -723,17 +733,23 @@ def intra_dec_inputs(gw: int, gh: int, seed: int, kinds=(0, 0, 0, 1),
             inner = rng.integers(0, 256, (h, w))
         planes.append(np.pad(inner, 32).astype(np.int32))
     kind = rng.choice(np.asarray(kinds), (gh, gw)).astype(np.int32)
+    my, mx = np.mgrid[:gh, :gw]
+    if layout is not None:
+        keep = {"staircase": (mx + my) % 3 == 0, "columns": mx % 2 == 0}
+        kind = np.where(keep[layout], kind, 3).astype(np.int32)
     inter = (kind >= 3) & (kind != 8)
     sid = (np.arange(gh) // (rows or gh))[:, None].repeat(gw, 1)
     al, at = availability_masks(sid, constrained, inter)
     atr = availability_tr(sid, constrained, inter)
     if tr_false_row is not None:
         atr[tr_false_row] = False
-    return (*planes,
-            rng.integers(-60, 61, (gh, gw, 16, 16)).astype(np.int32),
-            rng.integers(-60, 61, (gh, gw, 2, 8, 8)).astype(np.int32), kind,
-            rng.integers(0, modes[1], (gh, gw)).astype(np.int32),
-            rng.integers(0, modes[0], (gh, gw, 16)).astype(np.int32),
+    res_y = rng.integers(-60, 61, (gh, gw, 16, 16)).astype(np.int32)
+    res_c = rng.integers(-60, 61, (gh, gw, 2, 8, 8)).astype(np.int32)
+    i16m = rng.integers(0, modes[1], (gh, gw)).astype(np.int32)
+    i4m = rng.integers(0, modes[0], (gh, gw, 16)).astype(np.int32)
+    if layout == "staircase":
+        i4m[..., 5] = rng.choice(np.asarray([3, 7]), (gh, gw))
+    return (*planes, res_y, res_c, kind, i16m, i4m,
             rng.integers(0, modes[2], (gh, gw)).astype(np.int32), al, at,
             None if none_tr else atr)
 
@@ -822,7 +838,8 @@ def intra_phase(torch, card):
 
 
 # (label, gw, gh, intra_dec_inputs options): the decoder's intra wavefront
-# against its twin; all-intra pictures at the timed sizes
+# against its twin; all-intra pictures at the timed sizes, and a 1080p
+# picture with one intra MB in 50 (the scan and shard routes' common case)
 INTRA_DEC_CASES = (
     ("one MB", 1, 1, {}),
     ("QCIF mixed with inter MBs", 11, 9, {"kinds": (0, 1, 3, 4, 8)}),
@@ -830,24 +847,43 @@ INTRA_DEC_CASES = (
     ("CIF constrained, 3 slices, tr false on row 7", 22, 18,
      {"kinds": (0, 1, 3), "rows": 6, "constrained": True,
       "tr_false_row": 7}),
+    ("CIF, intra under intra above-right", 22, 18,
+     {"kinds": (0,), "layout": "staircase"}),
+    ("CIF all inter", 22, 18, {"kinds": (3, 4, 5)}),
     ("720p", 80, 45, {}),
     ("1080p", 120, 68, {}),
     ("band 120x34", 120, 34, {}),
+    ("1080p, one intra MB in 50", 120, 68, {"kinds": (0,) + (3,) * 49}),
 )
-DEC_TIMED = ("CIF", "720p", "1080p", "band 120x34")
+DEC_TIMED = ("CIF", "720p", "1080p", "band 120x34",
+             "1080p, one intra MB in 50")
+# all-intra pictures timed for the wavefront's chain model: one MB, a row
+# of 120 MBs (gives the in-row step s) and a column of 68 (the row-to-row
+# hand-off h)
+DEC_UNITS = (("one MB", 1, 1), ("120x1", 120, 1), ("1x68", 1, 68))
 
 
-def intra_dec_bound(gw: int, gh: int):
-    """Bound of one ``intra_reconstruct_fast`` call on an all-intra
-    picture: bytes, the function's new PAD-padded int32 planes written,
-    of its input planes only the pad read (every interior sample is
-    predicted anew), the int32 residuals and modes (406 words an MB)
-    read; operations, 8 a predicted sample (three taps, the rounding, the
+def intra_dec_bound(gw: int, gh: int, n_intra=None):
+    """Bound of one ``intra_reconstruct_fast`` call on a picture with
+    ``n_intra`` intra MBs (all when None): bytes, the function's new
+    PAD-padded int32 planes written, its input planes read but the intra
+    MBs' samples (each is predicted anew), the intra MBs' int32 residuals
+    and modes (406 words an MB) and the other MBs' kinds read;
+    operations, 8 a predicted sample (three taps, the rounding, the
     shift, the residual, the clip)."""
+    n = gw * gh if n_intra is None else n_intra
     planes = 4 * ((gh * 16 + 64) * (gw * 16 + 64) +
                   2 * (gh * 8 + 64) * (gw * 8 + 64))
-    pad = planes - 4 * 384 * gw * gh
-    return bound(planes + pad + gw * gh * 406 * 4, 8 * 384 * gw * gh)
+    read = planes - 4 * 384 * n
+    return bound(planes + read + n * 406 * 4 + (gw * gh - n) * 4,
+                 8 * 384 * n)
+
+
+def intra_dec_model(gw: int, gh: int, s_us: float, h_us: float) -> float:
+    """The wavefront's chain model in µs (launch excluded): gw in-row
+    steps s, and for each row below the first two steps and a hand-off
+    h."""
+    return gw * s_us + (gh - 1) * (2 * s_us + h_us)
 
 
 def params_dec_bound(gw: int, gh: int, K: int = 1):
@@ -865,12 +901,12 @@ def dec_kernels_phase(torch, card):
     at the same grids and in the GOP scan's dense buffer (the twins timed
     on their check runs); then both kernels alone per picture at
     DEC_TIMED (the profiler's device time) and with their wrappers (CUDA
-    events), beside their bounds, and the wavefront's chain estimate: the
-    gw + 2 gh - 2 MBs of its critical path times the one-MB picture's
-    kernel time less the launch floor (``launch_floor_us``); an estimate,
-    not a floor, since an MB inside a running wavefront overlaps its loads
-    with its neighbours' work.  Returns (max_abs_err, and at 720p: the wrapper's and the
-    twin's ms and the bound) for each kernel."""
+    events), beside their bounds, and the wavefront's chain model
+    (``intra_dec_model``) at the all-intra sizes: the in-row step s is
+    the 120x1 picture's time less the launch floor (``launch_floor_us``)
+    over 120, the hand-off h the 1x68 picture's so over 68, less s.
+    Returns (max_abs_err, and at 720p: the wrapper's and the twin's ms
+    and the bound) for each kernel."""
     import numpy as np
     from hartallo_tpu_torch.decode import intra_recon_fast as IDF
     from hartallo_tpu_torch.decode.intra_recon import intra_reconstruct
@@ -879,7 +915,7 @@ def dec_kernels_phase(torch, card):
     def cuda(a):
         return None if a is None else torch.tensor(a, device="cuda")
     errs = {"intra_dec": 0, "deblock_params_dec": 0}
-    plain_ms, timed = {}, {}
+    plain_ms, timed, n_intra = {}, {}, {}
     for k, (label, gw, gh, opts) in enumerate(INTRA_DEC_CASES):
         args = [cuda(a) for a in intra_dec_inputs(gw, gh, SEED + k, **opts)]
         got = IDF.intra_reconstruct_fast(tuple(args[:3]), *args[3:], gw=gw,
@@ -921,12 +957,15 @@ def dec_kernels_phase(torch, card):
         if not same:
             raise SystemExit(f"the deblock parameter kernel != plain at "
                              f"{label}")
-    # timed: all-intra pictures (an Intra16x16 MB in four), one MB first
-    # for the chain floor
-    for label, gw, gh in (("one MB", 1, 1), ("CIF", 22, 18),
-                          ("720p", 80, 45), ("1080p", 120, 68),
-                          ("band 120x34", 120, 34)):
-        args = [cuda(a) for a in intra_dec_inputs(gw, gh, SEED)]
+    # timed: the model's unit pictures, then DEC_TIMED (all-intra pictures
+    # with an Intra16x16 MB in four, and the sparse picture)
+    cases = {label: (gw, gh, opts) for label, gw, gh, opts in
+             INTRA_DEC_CASES if label in DEC_TIMED}
+    for label, gw, gh, opts in (*((*u, {}) for u in DEC_UNITS),
+                                *((k, *v) for k, v in cases.items())):
+        inputs = intra_dec_inputs(gw, gh, SEED, **opts)
+        n_intra[label] = int(np.isin(inputs[5], (0, 1)).sum())
+        args = [cuda(a) for a in inputs]
         trec = cuda(deblock_rec_inputs(gw, gh, 1, SEED)[0])
         offs = deblock_rec_inputs(1, 1, 1, 0)[1]
 
@@ -941,23 +980,33 @@ def dec_kernels_phase(torch, card):
                         event_ms(torch, params, 20),
                         kernel_us(torch, params, 20, "k_deblock_params_dec"),
                         gw, gh)
-    mb_us, floor_us = timed["one MB"][1], launch_floor_us(torch)
-    print(f"[{card}] decode kernels phase: one-MB intra picture "
-          f"{mb_us} us alone, launch floor {floor_us} us", flush=True)
+    floor_us = launch_floor_us(torch)
+    units = [timed[u[0]][1] for u in DEC_UNITS]
+    s_us = h_us = None
+    if None not in (floor_us, *units):
+        s_us = (units[1] - floor_us) / 120
+        h_us = (units[2] - floor_us) / 68 - s_us
+    print(f"[{card}] decode kernels phase: intra wavefront alone: one MB "
+          f"{units[0]} us, 120x1 {units[1]} us, 1x68 {units[2]} us; launch "
+          f"floor {floor_us} us; in-row step s = {s_us} us, hand-off h = "
+          f"{h_us} us", flush=True)
     for label in DEC_TIMED:
         ms, dev_us, pms, pdev_us, gw, gh = timed[label]
-        chain = gw + 2 * gh - 2
         dev = "not measured" if dev_us is None else f"{dev_us:.1f} us"
         pdev = "not measured" if pdev_us is None else f"{pdev_us:.2f} us"
-        est = "not measured" if mb_us is None or floor_us is None else \
-            f"{chain} MBs x ({mb_us:.1f} - {floor_us:.1f}) us = " \
-            f"{chain * (mb_us - floor_us):.1f} us"
-        b_ms, b_by = intra_dec_bound(gw, gh)
+        model = ""
+        if n_intra[label] == gw * gh:
+            model = ", chain model not measured" if s_us is None else \
+                f", chain model {gw} s + {gh - 1} (2 s + h) = " \
+                f"{intra_dec_model(gw, gh, s_us, h_us):.1f} us (+ the " \
+                f"launch floor)"
+        b_ms, b_by = intra_dec_bound(gw, gh, n_intra[label])
         pb_ms, pb_by = params_dec_bound(gw, gh)
-        print(f"[{card}] intra decode kernel {label}: {ms * 1e3:.1f} "
-              f"us/picture with the wrapper, kernel alone {dev}, chain "
-              f"estimate {est}, plain torch {plain_ms[label][0] * 1e3:.1f} "
-              f"us, bound {b_ms * 1e3:.3f} us ({b_by})", flush=True)
+        print(f"[{card}] intra decode kernel {label} ({n_intra[label]} "
+              f"intra MBs): {ms * 1e3:.1f} us/picture with the wrapper, "
+              f"kernel alone {dev}{model}, plain torch "
+              f"{plain_ms[label][0] * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.3f} us ({b_by})", flush=True)
         print(f"[{card}] deblock parameter kernel (decoder) {label}: "
               f"{pms * 1e3:.1f} us/picture with the wrapper, kernel alone "
               f"{pdev}, plain torch {plain_ms[label][1] * 1e3:.1f} us, "

@@ -14,13 +14,17 @@
 // Two launches: emu_launch_grid runs the blocks of a grid one after
 // another (me_search.cu, whose blocks share nothing); emu_launch_cooperative
 // runs every block of the grid at once, as a cooperative launch keeps them
-// resident (intra_encode.cu, whose rows wait on each other), with the
-// primitives of csrc/device_prims.cuh: acquire loads and release stores
-// on std::atomic_ref, a spin-wait that sleeps between polls, barriers of
-// some of a block's warps, and each block's own dynamic shared memory.  A
-// spin-wait whose counter does not move for EMU_STALL_SECONDS sets
-// emu_stalled and returns, and so does every later one: the launch ends
-// with wrong outputs instead of hanging.
+// resident (intra_encode.cu and intra_decode.cu, whose rows wait on each
+// other), with the primitives of csrc/device_prims.cuh: acquire loads
+// and release stores on std::atomic_ref, a spin-wait that sleeps between
+// polls, barriers of some of a block's warps and their arrive-only half,
+// and each block's own dynamic shared memory; it can start the blocks in
+// reverse order, each some time after the block behind it, so that lower
+// rows run first.  A spin-wait whose counter does not move for
+// EMU_STALL_SECONDS, or a hand-written spin loop (spin_on) still running
+// that long after the launch began, sets emu_stalled and returns, and so
+// does every later one: the launch ends with wrong outputs instead of
+// hanging.
 #include <algorithm>
 #include <array>
 #include <atomic>
@@ -80,6 +84,15 @@ class EmuBarrier {
       return;
     }
     cv_.wait(lock, [&] { return phase_ != phase; });
+  }
+  // count one arrival without waiting (bar.arrive)
+  void arrive() {
+    std::lock_guard<std::mutex> lock(m_);
+    if (++count_ == n_) {
+      count_ = 0;
+      ++phase_;
+      cv_.notify_all();
+    }
   }
 
  private:
@@ -158,6 +171,13 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 inline unsigned __reduce_min_sync(unsigned, unsigned v) {
   const uint32_t* s = emu_exchange(v);
   return *std::min_element(s, s + 32);
+}
+
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  const uint32_t* s = emu_exchange(v);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= s[l];
+  return r;
 }
 
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
@@ -274,6 +294,27 @@ inline void st_release(int* p, int v) {
   std::atomic_ref<int>(*p).store(v, std::memory_order_release);
 }
 
+inline int ld_acquire_cta(const int* p) { return ld_acquire(p); }
+
+inline void st_release_cta(int* p, int v) { st_release(p, v); }
+
+
+inline std::chrono::steady_clock::time_point emu_launch_start;
+
+// A hand-written spin loop's pause: 50 us; false (give up) once the launch
+// has run EMU_STALL_SECONDS or another wait stalled.
+inline bool spin_on() {
+  if (emu_stalled.load()) return false;
+  std::this_thread::sleep_for(std::chrono::microseconds(50));
+  if (std::chrono::steady_clock::now() - emu_launch_start >
+      std::chrono::duration<double>(EMU_STALL_SECONDS)) {
+    emu_stalled = true;
+    return false;
+  }
+  return true;
+}
+
+
 // Polls every 100 us: a busy spin would take the cores that the rows it
 // waits for need, and a host running other work slows every row alike.
 inline void wait_progress(const int* p, int v) {
@@ -305,7 +346,19 @@ inline void bar_sync(int id, int threads) {
   b->arrive_and_wait();
 }
 
+inline void bar_arrive(int id, int threads) {
+  EmuBarrier* b;
+  {
+    std::lock_guard<std::mutex> lock(emu_block->named_mutex);
+    auto& slot = emu_block->named[id];
+    if (!slot) slot = std::make_unique<EmuBarrier>(threads);
+    b = slot.get();
+  }
+  b->arrive();
+}
+
 inline int* block_smem() { return emu_block->smem.data(); }
+
 
 // the dynamic shared memory of a kernel that declares
 // `extern __shared__ int smem[]` (one block at a time)
@@ -316,9 +369,11 @@ alignas(16) int smem[1 << 16];
 // Run `kernel(args)` as `blocks` blocks of `threads` threads each (a
 // multiple of 32), with `smem_words` ints of dynamic shared memory a
 // block; every block at once with `concurrent`, else one after another.
+// With `start_gap_us` > 0 (concurrent only), block b starts
+// (blocks - 1 - b) * start_gap_us after the launch: the last block first.
 template <class Kernel, class Args>
 void emu_run(Kernel kernel, const Args& args, int blocks, int threads,
-             size_t smem_words, bool concurrent) {
+             size_t smem_words, bool concurrent, int start_gap_us = 0) {
   blockDim.x = threads;
   std::vector<std::unique_ptr<EmuBlock>> ctx;
   std::vector<std::thread> pool;
@@ -329,8 +384,11 @@ void emu_run(Kernel kernel, const Args& args, int blocks, int threads,
     bi.x = b % gridDim.x;
     bi.y = b / gridDim.x % gridDim.y;
     bi.z = b / gridDim.x / gridDim.y;
+    const auto delay =
+        std::chrono::microseconds((long)(blocks - 1 - b) * start_gap_us);
     for (int t = 0; t < threads; ++t)
-      pool.emplace_back([t, bi, blk, &kernel, &args] {
+      pool.emplace_back([t, bi, blk, delay, &kernel, &args] {
+        std::this_thread::sleep_for(delay);
         threadIdx.x = t;
         blockIdx = bi;
         emu_block = blk;
@@ -360,14 +418,17 @@ void emu_launch_grid(Kernel kernel, const Args& args, int gx, int gy,
 }
 
 // Run `kernel(args)` on `blocks` blocks of `threads` threads with
-// `smem_words` ints of dynamic shared memory each, all at once.  Returns
-// false when a spin-wait stalled.
+// `smem_words` ints of dynamic shared memory each, all at once (with
+// `start_gap_us`, the last block first, each block that long after the
+// one behind it).  Returns false when a spin-wait stalled.
 template <class Kernel, class Args>
 bool emu_launch_cooperative(Kernel kernel, const Args& args, int blocks,
-                            int threads, size_t smem_words) {
+                            int threads, size_t smem_words,
+                            int start_gap_us = 0) {
   gridDim.x = blocks;
   gridDim.y = gridDim.z = 1;
   emu_stalled = false;
-  emu_run(kernel, args, blocks, threads, smem_words, true);
+  emu_launch_start = std::chrono::steady_clock::now();
+  emu_run(kernel, args, blocks, threads, smem_words, true, start_gap_us);
   return !emu_stalled;
 }

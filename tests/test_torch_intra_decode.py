@@ -186,7 +186,10 @@ def test_cuda_intra_kernel_equals_twin(cuda_device, label, gw, gh):
     from hartallo_tpu_torch.decode.intra_recon import intra_reconstruct
     for seed, opts in ((1, {}), (2, {"kinds": (0, 1, 3, 8), "rows": 3,
                                      "constrained": True,
-                                     "tr_false_row": 1})):
+                                     "tr_false_row": 1}),
+                       (3, {"kinds": (0, 1) + (3,) * 14}),
+                       (4, {"kinds": (0,), "layout": "staircase"}),
+                       (5, {"kinds": (3, 4, 5)})):
         case = [None if a is None else torch.tensor(a, device=cuda_device)
                 for a in CS.intra_dec_inputs(gw, gh, seed, **opts)]
         before = F.LAUNCHES

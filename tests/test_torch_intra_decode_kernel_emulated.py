@@ -5,24 +5,33 @@ emulation of the CUDA features it uses, against its plain twin.
 after ``tests/cuda_emulation.h`` and launched as the wrapper launches it:
 one block of ``intra_recon_fast.THREADS`` per MB row, every row's block
 at once (one ``std::thread`` per CUDA thread, barriers for
-``__syncthreads`` and ``__syncwarp``, the rows' progress counters on
-``std::atomic_ref`` with acquire loads and release stores, a sleeping
-spin-wait).  The rows run as freely as on the card, so a row that reads
-its neighbours before they are published reads stale values.  This holds
-the kernel's indexing, lane mapping, the Intra4x4 chain's steps, the
-neighbour rules at the picture's and slices' edges and the rows' waits
-against ``decode/intra_recon.intra_reconstruct`` on every run where there
-is no card; nvcc's build and the card stay the authority (the ``cuda``
-tests of ``tests/test_torch_intra_decode.py`` and ``chip_smoke.py``).
-Inputs: ``chip_smoke.intra_dec_inputs``: I4x4-only, I16-only and mixed
-pictures, inter MBs between intra ones, constrained intra prediction over
-row slices, the above-right flags false on a row, one MB, 1xN and Nx1
+``__syncthreads``, ``__syncwarp`` and the named barriers that hand the
+edge warp's slots to the compute warps, the rows' progress counters and
+the warps' done counters on ``std::atomic_ref`` with acquire loads and
+release stores, sleeping spin loops).  The rows run as freely as on the
+card, so a row that reads its neighbours before they are published reads
+stale values; with ``lower_rows_first`` each row starts well before the
+row above it, so such a read is stale every time.  This holds the
+kernel's indexing, lane mapping, the Intra4x4 taps and chain's steps, the
+left columns passed from slot to slot, the neighbour rules at the
+picture's and slices' edges and the rows' waits against
+``decode/intra_recon.intra_reconstruct`` on every run where there is no
+card; nvcc's build and the card stay the authority (the ``cuda`` tests of
+``tests/test_torch_intra_decode.py`` and ``chip_smoke.py``).  Inputs:
+``chip_smoke.intra_dec_inputs``: I4x4-only, I16-only and mixed pictures,
+inter MBs between intra ones, constrained intra prediction over row
+slices, the above-right flags false on a row, one MB, 1xN and Nx1
 pictures, a picture taller than wide, a texture along the anti-diagonals,
-and modes past their range (the twin clamps them).
-``test_emulated_mutants_fail`` builds two broken copies of the source
-(block 5 predicting from the above-right MB where ``avail_tr`` is false;
-an MB of kind 2 overwritten by a prediction) and shows that each
-disagrees with the twin.  Tolerance: exact equality of every plane.
+modes past their range (the twin clamps them), a sparse picture (one
+intra MB in eight), intra MBs under intra MBs above-right with inter MBs
+between them (also with lower rows first), intra MBs whose left MB is
+inter, and an all-inter picture (every plane unchanged, every counter at
+gw).  ``test_emulated_mutants_fail`` builds three broken copies of the
+source (block 5 predicting from the above-right MB where ``avail_tr`` is
+false; an MB of kind 2 overwritten by a prediction; a row that does not
+wait for the intra MB above-right, run with lower rows first) and shows
+that each disagrees with the twin.  Tolerance: exact equality of every
+plane.
 """
 import ctypes
 import os
@@ -49,11 +58,11 @@ extern "C" int emu_intra_decode(
     const int32_t* kind, const int32_t* i16m, const int32_t* i4m,
     const int32_t* cm, const uint8_t* al, const uint8_t* at,
     const uint8_t* atr, const int32_t* tab, int* prog, int gw, int gh,
-    int threads) {
+    int threads, int start_gap_us) {
   Args a{iy, iu, iv, oy, ou, ov, res_y, res_c, kind, i16m, i4m, cm,
          al, at, atr, tab, prog, gw, gh};
   return emu_launch_cooperative(k_intra_decode, a, gh, threads,
-                                SMEM_WORDS) ? 0 : 1;
+                                smem_bytes(gw) / 4, start_gap_us) ? 0 : 1;
 }
 """
 
@@ -82,7 +91,7 @@ def _build(text: str, tag: str):
     dll = ctypes.CDLL(str(lib))
     dll.emu_intra_decode.restype = ctypes.c_int
     dll.emu_intra_decode.argtypes = [ctypes.c_void_p] * 17 + \
-        [ctypes.c_int] * 3
+        [ctypes.c_int] * 4
     return dll, out
 
 
@@ -93,7 +102,12 @@ def emulated():
     shutil.rmtree(out, ignore_errors=True)
 
 
-def run(dll, case, gw, gh):
+# with lower_rows_first, each row's block starts this long after the
+# block of the row below it
+START_GAP_US = 200_000
+
+
+def run(dll, case, gw, gh, lower_rows_first=False):
     """The emulated kernel on the numpy inputs ``case``; returns its three
     planes as tensors."""
     from hartallo_tpu_torch.decode import intra_recon_fast as F
@@ -110,7 +124,7 @@ def run(dll, case, gw, gh):
     args = [*keep[:3], *out, *keep[3:], prog]
     stalled = dll.emu_intra_decode(
         *(None if a is None else a.ctypes.data for a in args), gw, gh,
-        F.THREADS)
+        F.THREADS, START_GAP_US if lower_rows_first else 0)
     assert not stalled, "a row waited for a neighbour that never came"
     np.testing.assert_array_equal(prog, gw)
     return tuple(map(torch.tensor, out))
@@ -138,6 +152,12 @@ CASES = [
     ("3x9, taller than wide", 3, 9, {"rows": 4}),
     ("8x5 diagonal texture", 8, 5, {"diagonal": True}),
     ("modes past their range", 4, 3, {"modes": (12, 6, 6)}),
+    ("sparse, one intra MB in eight", 16, 5, {"kinds": (0, 1) + (3,) * 14}),
+    ("intra under intra above-right, inter between", 9, 5,
+     {"kinds": (0,), "layout": "staircase"}),
+    ("intra MBs with an inter left MB", 8, 4,
+     {"kinds": (0, 1), "layout": "columns"}),
+    ("all inter", 6, 4, {"kinds": (3, 4, 5)}),
 ]
 
 
@@ -149,22 +169,46 @@ def test_emulated_kernel_equals_plain_twin(emulated, label, gw, gh, opts):
     want = twin(case, gw, gh)
     for g, w, name in zip(got, want, "YUV"):
         np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)
+    if opts.get("kinds") == (3, 4, 5):
+        for g, p in zip(got, case[:3]):
+            np.testing.assert_array_equal(g.numpy(), p)
 
 
-# (label, text replaced, its replacement, the case that shows it)
-MUTANTS = [
-    ("block 5 takes the above-right MB without avail_tr",
-     "(at_edge | (P[P_ATR] == 0))", "at_edge",
-     (9, 4, {"kinds": (0,), "tr_false_row": 2})),
-    ("an MB of kind 2 overwritten by a prediction",
-     "kind == 0 || kind == 1", "kind == 0 || kind == 1 || kind == 2",
-     (4, 3, {"kinds": (0, 1, 2, 8)})),
+# (label, gw, gh, intra_dec_inputs options): run with lower rows first
+ORDERED = [
+    ("intra under intra above-right, lower rows first", 6, 4,
+     {"kinds": (0,), "layout": "staircase"}),
+    ("mixed, lower rows first", 5, 4, {}),
 ]
 
 
-@pytest.mark.parametrize("label,old,new,case", MUTANTS,
+@pytest.mark.parametrize("label,gw,gh,opts", ORDERED,
+                         ids=[c[0] for c in ORDERED])
+def test_emulated_kernel_lower_rows_first(emulated, label, gw, gh, opts):
+    case = CS.intra_dec_inputs(gw, gh, 300 + 7 * gw + gh, **opts)
+    got = run(emulated, case, gw, gh, lower_rows_first=True)
+    for g, w, name in zip(got, twin(case, gw, gh), "YUV"):
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)
+
+
+# (label, text replaced, its replacement, the case that shows it, whether
+# lower rows start first)
+MUTANTS = [
+    ("block 5 takes the above-right MB without avail_tr",
+     "(at_edge | (atr == 0))", "at_edge",
+     (9, 4, {"kinds": (0,), "tr_false_row": 2}), False),
+    ("an MB of kind 2 overwritten by a prediction",
+     "kind == 0 || kind == 1", "kind == 0 || kind == 1 || kind == 2",
+     (4, 3, {"kinds": (0, 1, 2, 8)}), False),
+    ("the wait leaves out the intra MB above-right",
+     "intra_at(1, n + 1) ? n + 2", "false ? n + 2",
+     (6, 4, {"kinds": (0,), "layout": "staircase"}), True),
+]
+
+
+@pytest.mark.parametrize("label,old,new,case,lower_rows_first", MUTANTS,
                          ids=[m[0] for m in MUTANTS])
-def test_emulated_mutants_fail(label, old, new, case):
+def test_emulated_mutants_fail(label, old, new, case, lower_rows_first):
     text = SOURCE.read_text()
     assert text.count(old) == 1, old
     dll, out = _build(text.replace(old, new),
@@ -172,7 +216,7 @@ def test_emulated_mutants_fail(label, old, new, case):
     try:
         gw, gh, opts = case
         inputs = CS.intra_dec_inputs(gw, gh, 300 + 7 * gw + gh, **opts)
-        got = run(dll, inputs, gw, gh)
+        got = run(dll, inputs, gw, gh, lower_rows_first)
         want = twin(inputs, gw, gh)
         assert not all(torch.equal(g, w) for g, w in zip(got, want)), \
             f"the mutant '{label}' went unnoticed"

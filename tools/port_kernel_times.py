@@ -3,7 +3,7 @@ in one run.
 
     python tools/port_kernel_times.py dump PAYLOADS.npz
     python tools/port_kernel_times.py time PAYLOADS.npz [--tree DIR] [--plain]
-        [--intra-only | --me-only | --p-only]
+        [--intra-only | --me-only | --p-only | --dec-only]
 
 ``dump`` parses the fixtures with this tree's decoder (nothing is
 decoded) and stores the GOP kernel's payloads: the 16 pictures of
@@ -56,10 +56,22 @@ limit:
   bound (``chip_smoke.p_bound``); and the launch floor, the profiler's
   device time of a one-element fill (``chip_smoke.launch_floor_us``).
 
+- the decoder's intra wavefront (``intra_reconstruct_fast``), where the
+  tree has it, on ``chip_smoke.intra_dec_inputs`` at the chain model's
+  unit pictures (``chip_smoke.DEC_UNITS``: one MB, 120x1, 1x68) and
+  ``chip_smoke.DEC_TIMED`` (CIF, 720p, 1080p, the 120x34 band, all
+  intra, and 1080p with one intra MB in 50): µs per picture with the
+  wrapper (CUDA events) and alone (``chip_smoke.kernel_us``), the plain
+  twin's with ``--plain``, its bound (``chip_smoke.intra_dec_bound``,
+  on the picture's intra MBs), the in-row step s and hand-off h from
+  the unit pictures less the launch floor, and the chain model
+  (``chip_smoke.intra_dec_model``) at the all-intra sizes.
+
 ``--intra-only`` times the intra encode kernel alone, ``--me-only`` the
-motion search kernels alone and ``--p-only`` the P-picture body alone
-(for turns of two trees on one card: parent, tree, tree, parent); the
-payloads are then not read.
+motion search kernels alone, ``--p-only`` the P-picture body alone and
+``--dec-only`` the decoder's intra wavefront alone (for turns of two
+trees on one card: parent, tree, tree, parent); the payloads are then
+not read.
 """
 from __future__ import annotations
 
@@ -157,9 +169,54 @@ def time_p_body(res: dict, plain: bool) -> None:
                 res[f"{n}_plain_us"][label] = 1e3 * ms
 
 
+def time_intra_dec(res: dict, plain: bool) -> None:
+    """The decoder's intra wavefront's entries of ``res`` (see the top)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import (DEC_TIMED, DEC_UNITS, INTRA_DEC_CASES, SEED,
+                            event_ms, intra_dec_bound, intra_dec_inputs,
+                            intra_dec_model, kernel_us, launch_floor_us)
+    from hartallo_tpu_torch.decode import intra_recon_fast as IDF
+    from hartallo_tpu_torch.decode.intra_recon import intra_reconstruct
+    floor = res["launch_floor_us"] = launch_floor_us(torch)
+    out = {k: res.setdefault(f"intra_dec_{k}", {}) for k in
+           ("us", "kernel_us", "plain_us", "bound_us", "model_us")}
+    full = set()
+    for label, gw, gh, opts in (*((*u, {}) for u in DEC_UNITS),
+                                *(c for c in INTRA_DEC_CASES
+                                  if c[0] in DEC_TIMED)):
+        inputs = intra_dec_inputs(gw, gh, SEED, **opts)
+        n = int(np.isin(inputs[5], (0, 1)).sum())
+        if n == gw * gh:
+            full.add((label, gw, gh))
+        args = [None if a is None else torch.tensor(a, device="cuda")
+                for a in inputs]
+
+        def call():
+            IDF.intra_reconstruct_fast(tuple(args[:3]), *args[3:], gw=gw,
+                                       gh=gh)
+        out["us"][label] = 1e3 * event_ms(torch, call, 10)
+        out["kernel_us"][label] = kernel_us(torch, call, 10,
+                                            "k_intra_decode")
+        out["bound_us"][label] = 1e3 * intra_dec_bound(gw, gh, n)[0]
+        if plain:
+            out["plain_us"][label] = 1e3 * event_ms(
+                torch, lambda: intra_reconstruct(tuple(args[:3]), *args[3:],
+                                                 gw=gw, gh=gh), 1)
+    t = out["kernel_us"]
+    if None in (floor, t["120x1"], t["1x68"]):
+        return
+    s_us = res["intra_dec_s_us"] = (t["120x1"] - floor) / 120
+    h_us = res["intra_dec_h_us"] = (t["1x68"] - floor) / 68 - s_us
+    for label, gw, gh in full:
+        if label in DEC_TIMED:
+            out["model_us"][label] = intra_dec_model(gw, gh, s_us, h_us)
+
+
 def time_kernels(path: str, tree: str, plain: bool,
                  intra_only: bool = False, me_only: bool = False,
-                 p_only: bool = False) -> None:
+                 p_only: bool = False, dec_only: bool = False) -> None:
     sys.path.insert(0, str(REPO))
     import numpy as np
     import torch
@@ -194,6 +251,10 @@ def time_kernels(path: str, tree: str, plain: bool,
            "refine_plain_us": {}, "refine_bound_us": {},
            "refine_seeded_us": {}, "refine_seeded_kernel_us": {},
            "refine_seeded_host_us": {}}
+    if dec_only:
+        time_intra_dec(res, plain)
+        print(json.dumps(res), flush=True)
+        return
     alone = intra_only or me_only or p_only
     for key, (pay, gw, gh, S) in ({} if alone else
                                   _payloads(path)).items():
@@ -323,6 +384,9 @@ def time_kernels(path: str, tree: str, plain: bool,
             res["refine_seeded_host_us"][name] = host_us(refine, 10)
     if not (intra_only or me_only):
         time_p_body(res, plain)
+    if not alone and importlib.util.find_spec(
+            "hartallo_tpu_torch.decode.intra_recon_fast") is not None:
+        time_intra_dec(res, plain)
     print(json.dumps(res), flush=True)
 
 
@@ -334,7 +398,7 @@ def main(argv) -> None:
             str(REPO)
         time_kernels(argv[1], tree, "--plain" in argv,
                      "--intra-only" in argv, "--me-only" in argv,
-                     "--p-only" in argv)
+                     "--p-only" in argv, "--dec-only" in argv)
     else:
         raise SystemExit(__doc__)
 
