@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. stop at once when torch sees no CUDA device; print the card's name
    and power limit (``nvidia-smi``);
-2. build the CUDA kernels from the six sources of
+2. build the CUDA kernels from the seven sources of
    ``hartallo_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per
    source, all at once) and print
    ptxas' registers and spills, and the intra encode kernel's dynamic
@@ -70,17 +70,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and the shard phase's 120x34 band (INTRA_DEC_CASES), the parameters
    also on 5 QCIF pictures a launch and in the GOP scan's dense buffer;
    every output equal;
+6d. GOP scan kernels phase: the residual (``k_residual_dec``), MC
+   (``k_mc_dec``) and ring write (``k_ring_write_dec``) kernels of
+   ``mc_decode.cu`` against their plain twins at QCIF, CIF, 720p, 1080p
+   and the shard phase's 120x34 band (MC_DEC_CASES): the residual on two
+   pictures a launch with qp 0..51, Intra16x16 MBs and int16-extreme
+   coefficients at chroma QP offsets -12, 0 and +12; the MC on three
+   slots with per-4x4 MVs up to 2,000 quarter pels outside the picture
+   and weights with logWD 0..7, from the scan's uint8 ring and, at the
+   band, the int32 stacks; the ring write on noisy rings; every output
+   equal;
 7. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
    equal the one the JAX package recorded, every picture must take the
    GOP kernel, and none of the decoder's other kernels may run;
 8. scan phase (the GOP-scan route), launch counts set to 0 just before
-   it: the weighted-prediction fixture ``qcif_6_wp`` decodes to its MD5s
-   with 1 kernel and 5 scan pictures: one deblock parameter launch for
-   the batch, one intra wavefront launch, and a deblock and a half-pel
-   stack launch for each scan picture, every call held against its
-   plain twin;
+   each fixture: the weighted-prediction fixtures ``qcif_6_wp``,
+   ``720p_8_wp`` and ``1080p_8_wp`` decode to their MD5s with 1 kernel
+   picture and 5, 7 and 7 scan pictures: one residual and one deblock
+   parameter launch for each scan batch, an MC, a deblock and a ring
+   write launch for each scan picture, an intra wavefront launch for
+   each scan picture with an intra MB, no half-pel stack (qcif_6_wp: 1,
+   5, 5 and 1), every call held against its plain twin;
 8b. general phase (the general route), launch counts set to 0 just
    before it: ``qcif_6_sl`` (scaling lists) and ``pcm_64x48`` (PCM MBs)
    decode to their MD5s with every picture on the general route; the
@@ -123,6 +135,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    encode and the full decode every call of any kernel is held against
    its plain twin on the same inputs, at the path's own shapes (QCIF,
    CIF and 4CIF), tolerance 0;
+10b. ILP phase, launch counts set to 0 just before it: ``svc_quality_4``
+   (a QCIF layer and its quality refinement layer, 4 pictures) encoded
+   through ``Codec.encode`` byte-equal to its fixture, the inter-layer
+   prediction's MC kernel and half-pel stack once for each refined P
+   picture (3), every kernel call held against its plain twin;
 11. shard phase (the row-sharded path), launch counts set to 0 just
    before it, on ``Mesh(("cuda:0",) * 4)``: the 1080p P step
    (``p_encode_step_sharded``, four bands of 17 MB rows) must give the
@@ -133,7 +150,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bands of 34 MB rows each) every frame's MD5 with 16 deblock and 16
    deblock parameter kernel launches, an intra wavefront launch for each
    band picture with an Intra4x4 or Intra16x16 MB (``DecodeWork``, at
-   least one), a half-pel stack launch for each ring
+   least one), 16 residual and 16 MC launches and no ring write, a
+   half-pel stack launch for each ring
    slot of each band picture, and none of the GOP kernel; every kernel
    call of both is held against its plain twin, tolerance 0 (in the
    scan, SVC and shard phases the deblock and intra wavefront twins
@@ -158,10 +176,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with one intra MB in 50 with their wrappers and alone, the wavefront
    at the all-intra sizes beside its chain model gw s + (gh - 1)(2 s +
    h), with the in-row step s and the row-to-row hand-off h from the
-   times of a 120x1 and a 1x68 picture less the launch floor; each
+   times of a 120x1 and a 1x68 picture less the launch floor; the GOP
+   scan's residual, MC and ring write kernels per picture at CIF, 720p,
+   1080p and the band with their wrappers and alone; each
    beside its bound
    (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``,
-   ``p_bound``, ``intra_dec_bound``, ``params_dec_bound``);
+   ``p_bound``, ``intra_dec_bound``, ``params_dec_bound``,
+   ``residual_dec_bound``, ``mc_dec_bound``, ``ring_write_bound``);
    encode fps at CIF, 720p and
    1080p, decode fps at CIF, 720p and 1080p, the SVC
    clip's encode and decode rates, ms per sharded 1080p P step on four
@@ -170,7 +191,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a warm-up (for the encodes and the four-band runs, the encode, SVC
    and shard phases' runs).
 
-Then one JSON object describing the eleven kernels, the card's name and
+Then one JSON object describing the fourteen kernels, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -421,9 +442,18 @@ def kernel_us(torch, fn, reps: int, name: str, launches: int = 1):
     """Device time in µs per call of fn(), which launches the kernel whose
     name holds ``name`` ``launches`` times: the mean of its launches over
     reps calls after one warm-up, from ``torch.profiler``'s device-side
-    events (no host time: for a kernel that the host's set-up outlasts),
-    times ``launches``; None when the trace holds none.  A trace may drop
-    events, so the mean is taken over the launches it holds."""
+    records (no host time: for a kernel that the host's set-up outlasts),
+    times ``launches``; None when the trace holds none.
+
+    Only launches made inside the profiled window count, each once: a
+    device record is kept when a runtime launch call of the window
+    carries its correlation id (where the trace pairs any record with
+    such a call), and a launch's time is the span from the first to the
+    last of its records.  A mean over ``key_averages()`` would also take
+    in a record of the name that the window did not launch, and count a
+    launch split into several records more than once.  A trace can lose
+    records: where the launches kept are not ``reps * launches``, or a
+    record was not paired, a line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -433,12 +463,27 @@ def kernel_us(torch, fn, reps: int, name: str, launches: int = 1):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [(e.device_time_total, e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and name in e.key]
-        if events:
-            return launches * sum(t for t, _ in events) / \
-                sum(n for _, n in events)
+        events = prof.events()
+        calls = {e.id for e in events if e.device_type == DeviceType.CPU
+                 and "Launch" in e.name}
+        records = [e for e in events if e.device_type == DeviceType.CUDA
+                   and name in e.name]
+        seen = len(records)
+        if calls & {e.id for e in records}:
+            records = [e for e in records if e.id in calls]
+        spans = {}
+        for e in records:
+            t0, t1 = spans.get(e.id, (e.time_range.start, e.time_range.end))
+            spans[e.id] = (min(t0, e.time_range.start),
+                           max(t1, e.time_range.end))
+        if spans:
+            if len(spans) != reps * launches or seen != len(spans):
+                print(f"kernel_us {name}: {len(spans)} launches kept of "
+                      f"{reps * launches} made, from {len(records)} of the "
+                      f"{seen} device records in the trace ({len(calls)} "
+                      "launch calls in it)", flush=True)
+            return launches * sum(t1 - t0 for t0, t1 in spans.values()) / \
+                len(spans)
     return None
 
 
@@ -613,6 +658,110 @@ def deblock_rec_inputs(gw: int, gh: int, K: int, seed: int, wide=False,
                                     if shape else 1)).astype(np.int32)
             for name, shape in layout], axis=1))
     return np.stack(recs), record_offsets(layout)[0]
+
+
+def _coeffs(rng, shape):
+    """Seeded int16 coefficients: 40% zeros, most small, 7% anywhere in
+    the int16 range and 3% at its ends (so that sums and shifts carry
+    past int32, as torch's arithmetic wraps)."""
+    import numpy as np
+    pick = rng.random(shape)
+    v = rng.integers(-40, 41, shape)
+    v = np.where(pick < 0.4, 0, v)
+    v = np.where((pick > 0.9) & (pick <= 0.97),
+                 rng.integers(-32768, 32768, shape), v)
+    return np.where(pick > 0.97, rng.choice(
+        np.array([-32768, -32767, 32766, 32767]), shape), v)
+
+
+def residual_rec_inputs(gw: int, gh: int, K: int, seed: int):
+    """Seeded dense buffers of K pictures for ``residual_planes_fast``:
+    (K, gh*gw, WORDS) int32 numpy of ``d_fused.DEC_FIELDS`` and the
+    offsets of ``mc_decode_fast.RESIDUAL_FIELDS`` in them.  Coefficients
+    from ``_coeffs``, qp 0..51 per MB, kinds I4x4, I16 (a third), P ones
+    and I_BL; the other words seeded."""
+    import numpy as np
+    from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
+    from hartallo_tpu_torch.decode.mc_decode_fast import RESIDUAL_FIELDS
+    from hartallo_tpu_torch.ops.deblock_fast import record_offsets
+    rng = np.random.default_rng(seed)
+    n = gh * gw
+    offs, words = record_offsets(DEC_FIELDS, RESIDUAL_FIELDS)
+    rec = rng.integers(-99, 100, (K, n, words)).astype(np.int32)
+    la, ld, ca, cd, qp, kind = offs
+    for o, w in ((la, 256), (ld, 16), (ca, 128), (cd, 8)):
+        rec[:, :, o:o + w] = _coeffs(rng, (K, n, w))
+    rec[:, :, qp] = rng.integers(0, 52, (K, n))
+    rec[:, :, kind] = rng.choice(np.array([0, 1, 1, 1, 3, 4, 8]), (K, n))
+    return rec, offs
+
+
+def mc_dec_inputs(gw: int, gh: int, S: int, seed: int, band=False):
+    """Seeded inputs of one ``mc_recon_fast`` call, numpy, in its order:
+    the reference stacks (the GOP scan's uint8 ring of
+    ``d_gop.ring_shapes``, or with ``band`` the sharded band step's int32
+    stacks of the padded picture's own size), noise everywhere (so that a
+    wrong clamp reads another value); per 4x4 block an MV (a third
+    within 16 quarter pels, a third within the pad, a third up to 2,000
+    quarter pels out), per 8x8 quadrant a slot in 0..S-1 and the weights
+    [w, o, logWD] (w and o in -128..127, logWD 0..7; a quarter the
+    identity), chroma each plane its own; residual planes mostly small,
+    2% up to 2^25; MBs inter with probability 0.8."""
+    import numpy as np
+    from hartallo_tpu_torch.decode.d_gop import _QUAD, ring_shapes
+    rng = np.random.default_rng(seed)
+    H, W, N = gh * 16, gw * 16, gh * gw * 16
+    if band:
+        shapes = ((S, 4, H + 64, W + 64), (S, H // 2 + 64, W // 2 + 64),
+                  (S, H // 2 + 64, W // 2 + 64))
+        dtype = np.int32
+    else:
+        shapes, dtype = ring_shapes(gw, gh, S), np.uint8
+    stacks = [rng.integers(0, 256, s).astype(dtype) for s in shapes]
+    reach = rng.choice(np.array([16, 4 * 40, 2000]), (N, 2))
+    mv = rng.integers(-reach, reach + 1).astype(np.int32)
+
+    def per_quad(a):                     # (gh, gw, 4, ...) -> (N, ...)
+        return np.ascontiguousarray(
+            a[:, :, _QUAD].reshape((N,) + a.shape[3:])).astype(np.int32)
+
+    def weights(shape):
+        wp = np.stack([rng.integers(-128, 128, shape),
+                       rng.integers(-128, 128, shape),
+                       rng.integers(0, 8, shape)], -1)
+        ident = rng.random(shape) < 0.25
+        wp[ident] = (1, 0, 0)
+        return wp
+    slot = per_quad(rng.integers(0, S, (gh, gw, 4)))
+    wp_l = per_quad(weights((gh, gw, 4)))
+    wp_c = per_quad(weights((gh, gw, 4, 2)))
+
+    def residual(shape):
+        r = rng.integers(-300, 301, shape)
+        big = rng.random(shape) < 0.02
+        return np.where(big, rng.integers(-(1 << 25), 1 << 25, shape),
+                        r).astype(np.int32)
+    return (*stacks, mv, slot, wp_l, wp_c, residual((H, W)),
+            residual((2, H // 2, W // 2)), rng.random((gh, gw)) < 0.8)
+
+
+def ring_write_inputs(gw: int, gh: int, S: int, seed: int):
+    """Seeded inputs of one ``ring_write_fast`` call, numpy: the deblocked
+    PAD-padded planes (Y, U, V) int32 0..255 (noise in the pad too, which
+    the function must not read; pass their interiors), the uint8 rings of
+    ``d_gop.ring_shapes`` with noise, the slot to write and a noisy
+    output row."""
+    import numpy as np
+    from hartallo_tpu_torch.decode.d_gop import ring_shapes
+    rng = np.random.default_rng(seed)
+    H, W = gh * 16, gw * 16
+    planes = [rng.integers(0, 256, s).astype(np.int32) for s in (
+        (H + 64, W + 64), (H // 2 + 64, W // 2 + 64),
+        (H // 2 + 64, W // 2 + 64))]
+    rings = [rng.integers(0, 256, s).astype(np.uint8)
+             for s in ring_shapes(gw, gh, S)]
+    out = rng.integers(0, 256, (H * 3 // 2, W)).astype(np.uint8)
+    return planes, rings, int(rng.integers(0, S)), out
 
 
 def deblock_phase(torch, card):
@@ -892,6 +1041,137 @@ def params_dec_bound(gw: int, gh: int, K: int = 1):
     about 40 a 4x4 block (its two bS and its share of the six sets)."""
     n = K * gw * gh
     return bound(n * (59 * 4 + 62 * 2), 40 * 16 * n)
+
+
+def residual_dec_bound(gw: int, gh: int, K: int = 1):
+    """Bound of one ``residual_planes_fast`` call on K pictures: bytes,
+    the 410 words of an MB's record it needs (coefficients, qp and kind)
+    read and its 384 int32 samples written; operations, about 12 a
+    sample (the dequant's multiply, rounding and shift, the inverse
+    transform's two stages, the DC's share)."""
+    n = K * gw * gh
+    return bound(n * (410 * 4 + 384 * 4), 12 * 384 * n)
+
+
+def mc_dec_bound(gw: int, gh: int, n_inter: int, elem: int):
+    """Bound of one ``mc_recon_fast`` call with ``n_inter`` inter MBs and
+    reference samples of ``elem`` bytes: bytes, the three padded int32
+    planes written, and for each inter MB its residual (384 int32), its
+    16 blocks' MV, slot and weights (12 words each) and at least one
+    reference sample per predicted sample read, and the inter mask;
+    operations, about 10 a predicted sample (taps, average or bilinear
+    sum, weight, residual, clip)."""
+    H, W = gh * 16, gw * 16
+    out = 4 * ((H + 64) * (W + 64) + 2 * (H // 2 + 64) * (W // 2 + 64))
+    return bound(out + n_inter * (384 * 4 + 16 * 12 * 4 + 384 * elem) +
+                 gw * gh, 10 * 384 * n_inter)
+
+
+def ring_write_bound(gw: int, gh: int, hr: int, wr: int, hcr: int,
+                     wcr: int):
+    """Bound of one ``ring_write_fast`` call into a ring of (4, hr, wr) and
+    (hcr, wcr) byte slots: bytes, the three deblocked int32 interiors
+    read, the slot's four luma planes and two chroma planes and the
+    (H*3/2, W) output row written; operations, the half-pel filters' 36
+    a padded luma sample (as ``gop_bound``)."""
+    H, W = gh * 16, gw * 16
+    return bound(4 * H * W * 3 // 2 + 4 * hr * wr + 2 * hcr * wcr +
+                 H * W * 3 // 2, 36 * (H + 64) * (W + 64))
+
+
+# the GOP scan kernels' cases: (label, gw, gh, the band's int32 stacks);
+# timed per picture at all but QCIF
+MC_DEC_CASES = (("QCIF", 11, 9, False), ("CIF", 22, 18, False),
+                ("720p", 80, 45, False), ("1080p", 120, 68, False),
+                ("band 120x34", 120, 34, True))
+MC_DEC_TIMED = ("CIF", "720p", "1080p", "band 120x34")
+
+
+def mc_dec_phase(torch, card):
+    """The GOP scan's residual, MC and ring write kernels against their
+    plain twins (tolerance 0) on seeded inputs at MC_DEC_CASES: the
+    residual on two pictures a launch at chroma QP offsets -12, 0 and 12
+    (``residual_rec_inputs``: qp 0..51, I16 MBs, int16-extreme
+    coefficients), the MC on three slots (``mc_dec_inputs``: per-4x4 MVs
+    up to 2,000 quarter pels out, weights with logWD 0..7; the scan's
+    uint8 ring, and at the band the int32 stacks), the ring write
+    (``ring_write_inputs``); then each kernel per picture with its
+    wrapper (CUDA events) and alone (``kernel_us``), the twin (timed on
+    its check run) and the bound.  Returns (max_abs_err, and at 1080p:
+    the wrapper's and the twin's ms and the bound) for each kernel."""
+    from hartallo_tpu_torch.decode import mc_decode_fast as M
+    from hartallo_tpu_torch.decode.d_gop import ring_shapes
+
+    def cuda(a):
+        return torch.tensor(a, device="cuda")
+
+    def checked(key, label, fast, plain, args, err):
+        got = fast(*args)
+        want = []
+        ms = event_ms(torch, lambda: want.append(plain(*args)), 1,
+                      warm=False)
+        e, same, _ = outputs_diff(torch, got, want[0])
+        if not same:
+            raise SystemExit(f"the {key} kernel != plain at {label}")
+        err[key] = max(err[key], e)
+        return ms
+    errs = dict.fromkeys(MC_KERNELS, 0)
+    results = {}
+    for k, (label, gw, gh, band) in enumerate(MC_DEC_CASES):
+        rec, offs = residual_rec_inputs(gw, gh, 2, SEED + k)
+        trec = cuda(rec)
+        for cqo in (-12, 0, 12):
+            r_ms = checked("residual_dec", f"{label}, offset {cqo}",
+                           lambda r, c: M.residual_planes_fast(
+                               r, offs, c, gw=gw, gh=gh),
+                           lambda r, c: M.residual_planes_plain(
+                               r, offs, c, gw=gw, gh=gh), (trec, cqo), errs)
+        case = [cuda(a) for a in mc_dec_inputs(gw, gh, 3, SEED + k,
+                                               band=band)]
+        m_ms = checked("mc_dec", label,
+                       lambda *a: M.mc_recon_fast(*a, gw=gw, gh=gh),
+                       lambda *a: M.mc_recon_plain(*a, gw=gw, gh=gh), case,
+                       errs)
+        planes, rings, ws, out = ring_write_inputs(gw, gh, 3, SEED + k)
+        tp = [cuda(p)[32:-32, 32:-32] for p in planes]
+        rk, rp = [cuda(r) for r in rings], [cuda(r) for r in rings]
+        ok, op = cuda(out), cuda(out)
+        M.ring_write_fast(*tp, *rk, ws, ok, gw=gw, gh=gh)
+        w_ms = event_ms(torch, lambda: M.ring_write_plain(
+            *tp, *rp, ws, op, gw=gw, gh=gh), 1, warm=False)
+        e, same, _ = outputs_diff(torch, (*rk, ok), (*rp, op))
+        if not same:
+            raise SystemExit(f"the ring_write_dec kernel != plain at {label}")
+        errs["ring_write_dec"] = max(errs["ring_write_dec"], e)
+        print(f"GOP scan kernels phase {label} ({gw}x{gh} MBs): residual, "
+              f"MC ({'int32' if band else 'uint8'} stacks) and ring write "
+              f"== plain", flush=True)
+        if label not in MC_DEC_TIMED:
+            continue
+        one = trec[:1].contiguous()
+        n_inter = int(case[-1].sum())
+        calls = {
+            "residual_dec": (lambda: M.residual_planes_fast(
+                one, offs, 0, gw=gw, gh=gh), r_ms / 2,
+                residual_dec_bound(gw, gh)),
+            "mc_dec": (lambda: M.mc_recon_fast(*case, gw=gw, gh=gh), m_ms,
+                       mc_dec_bound(gw, gh, n_inter,
+                                    case[0].element_size())),
+            "ring_write_dec": (lambda: M.ring_write_fast(
+                *tp, *rk, ws, ok, gw=gw, gh=gh), w_ms,
+                ring_write_bound(gw, gh, *ring_shapes(gw, gh, 3)[0][2:],
+                                 *ring_shapes(gw, gh, 3)[1][1:]))}
+        for key, (fn, plain_ms, (b_ms, b_by)) in calls.items():
+            ms = event_ms(torch, fn, 20)
+            dev_us = kernel_us(torch, fn, 20, DEC_KERNELS[key])
+            dev = "not measured" if dev_us is None else f"{dev_us:.2f} us"
+            print(f"[{card}] GOP scan kernel {DEC_KERNELS[key]} {label}: "
+                  f"{ms * 1e3:.1f} us/picture with the wrapper, kernel "
+                  f"alone {dev}, plain torch {plain_ms * 1e3:.1f} us, bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by})", flush=True)
+            if label == "1080p":
+                results[key] = (ms, plain_ms, b_ms, b_by)
+    return errs, results
 
 
 def dec_kernels_phase(torch, card):
@@ -1285,7 +1565,11 @@ P_KERNELS = {"part_decide": "k_part_decide", "halfpel": "k_halfpel_enc",
              "deblock_params": "k_deblock_params"}
 # the decoder's kernels outside the GOP kernel
 DEC_KERNELS = {"intra_dec": "k_intra_decode",
-               "deblock_params_dec": "k_deblock_params_dec"}
+               "deblock_params_dec": "k_deblock_params_dec",
+               "residual_dec": "k_residual_dec", "mc_dec": "k_mc_dec",
+               "ring_write_dec": "k_ring_write_dec"}
+# the GOP scan's own kernels (csrc/mc_decode.cu)
+MC_KERNELS = ("residual_dec", "mc_dec", "ring_write_dec")
 
 
 def p_case_tensors(torch, k: int):
@@ -1450,21 +1734,25 @@ SVC = "svc3_4cif_8"
 
 def dec_launches():
     """The launch counts of the decoder's kernels outside the GOP kernel:
-    {intra_dec, deblock_params_dec, halfpel} (the half-pel stack counts
-    the encoder's launches too)."""
+    {intra_dec, deblock_params_dec, residual_dec, mc_dec, ring_write_dec,
+    halfpel} (the half-pel stack and the MC count the encoder's launches
+    too)."""
     from hartallo_tpu_torch.decode import intra_recon_fast as IDF
+    from hartallo_tpu_torch.decode import mc_decode_fast as M
     from hartallo_tpu_torch.encode import p_body_fast as PB
     from hartallo_tpu_torch.ops import deblock_fast as D
     return {"intra_dec": IDF.LAUNCHES,
-            "deblock_params_dec": D.PARAMS_LAUNCHES,
+            "deblock_params_dec": D.PARAMS_LAUNCHES, **M.LAUNCHES,
             "halfpel": PB.LAUNCHES["halfpel"]}
 
 
 def zero_dec_launches():
     from hartallo_tpu_torch.decode import intra_recon_fast as IDF
+    from hartallo_tpu_torch.decode import mc_decode_fast as M
     from hartallo_tpu_torch.encode import p_body_fast as PB
     from hartallo_tpu_torch.ops import deblock_fast as D
     IDF.LAUNCHES = D.PARAMS_LAUNCHES = PB.LAUNCHES["halfpel"] = 0
+    M.LAUNCHES.update(dict.fromkeys(M.LAUNCHES, 0))
 
 
 def slice_phase(torch):
@@ -1495,41 +1783,67 @@ def slice_phase(torch):
     return launches
 
 
+SCAN = ("qcif_6_wp", "720p_8_wp", "1080p_8_wp")
+
+
 def scan_phase(torch):
     """The GOP-scan route on the card, launch counts set to 0 just before
-    it, every kernel call held against its plain twin (``TwinChecks``):
-    qcif_6_wp (explicit weighted prediction on its P pictures, which the
-    kernel refuses) decodes to its MD5s with 1 kernel and 5 scan
-    pictures: one deblock parameter launch for the batch of 5, one intra
-    wavefront launch (the one scan picture with an intra MB), and a
-    deblock launch and a half-pel stack launch for each scan picture.
-    Returns the twin checks and the launches."""
+    each fixture, every kernel call held against its plain twin
+    (``TwinChecks``): each SCAN fixture (explicit weighted prediction on
+    its P pictures, which the GOP kernel refuses) decodes to its MD5s
+    with its IDR picture on the kernel and the others on the scan: one
+    residual and one deblock parameter launch for each scan batch, an
+    MC, a deblock and a ring write launch for each scan picture, an intra
+    wavefront launch for each scan picture with an intra MB (both counted
+    from the parsed pictures, ``DecodeWork``) and no half-pel stack;
+    qcif_6_wp: 1 residual, 5 MC, 5 ring write, 1 intra wavefront and 1
+    deblock parameter launch.  Returns the twin checks and the launches
+    of all three."""
     from hartallo_tpu_torch.decode import d_gop_fast as F
     from hartallo_tpu_torch.ops import deblock_fast as D
-    twins = TwinChecks(torch, "qcif_6_wp")
-    F.LAUNCHES = D.LAUNCHES = 0
-    zero_dec_launches()
-    with twins:
-        st, _, _ = decode_fixture(torch, "qcif_6_wp")
-    launches, db, dec = F.LAUNCHES, D.LAUNCHES, dec_launches()
-    print(f"scan phase: qcif_6_wp {st}, GOP kernel launches {launches}, "
-          f"deblock kernel launches {db}, other decode kernel launches "
-          f"{dec}; == plain twin on {twins.calls}, max_abs_err "
-          f"{twins.err}", flush=True)
-    if st != {"kernel_pictures": 1, "scan_pictures": 5,
-              "general_pictures": 0}:
-        raise SystemExit(f"qcif_6_wp: expected 1 kernel / 5 scan pictures, "
-                         f"got {st}")
-    want = {"intra_dec": 1, "deblock_params_dec": 1, "halfpel": 5}
-    if launches != 1 or db != 5 or dec != want:
-        raise SystemExit(f"qcif_6_wp: {launches} GOP kernel, {db} deblock "
-                         f"kernel and {dec} launches, expected 1, 5 and "
-                         f"{want}")
-    checked = {k: twins.calls[k] for k in ("gop", "deblock", *want)}
-    if checked != {"gop": 1, "deblock": 5, **want}:
-        raise SystemExit(f"qcif_6_wp: twin checks {twins.calls} do not "
-                         "cover the path")
-    return twins, {"deblock": db, **dec}
+    twins, work = TwinChecks(torch, "scan"), DecodeWork()
+    total = {"gop": 0, "deblock": 0}
+    for name in SCAN:
+        F.LAUNCHES = D.LAUNCHES = 0
+        zero_dec_launches()
+        w0 = dict(work.counts)
+        with twins, work:
+            st, _, nf = decode_fixture(torch, name)
+        launches, db, dec = F.LAUNCHES, D.LAUNCHES, dec_launches()
+        w = {k: v - w0[k] for k, v in work.counts.items()}
+        print(f"scan phase: {name} {st}, GOP kernel launches {launches}, "
+              f"deblock kernel launches {db}, other decode kernel launches "
+              f"{dec}; scan batches {w['scan_batches']}, scan pictures "
+              f"with an intra MB {w['scan_intra']}", flush=True)
+        n = nf - 1
+        if st != {"kernel_pictures": 1, "scan_pictures": n,
+                  "general_pictures": 0} or w["scan_pictures"] != n:
+            raise SystemExit(f"{name}: expected 1 kernel / {n} scan "
+                             f"pictures, got {st} and {w}")
+        want = {"intra_dec": w["scan_intra"],
+                "deblock_params_dec": w["scan_batches"],
+                "residual_dec": w["scan_batches"], "mc_dec": n,
+                "ring_write_dec": n, "halfpel": 0}
+        if name == "qcif_6_wp" and want != {
+                "intra_dec": 1, "deblock_params_dec": 1, "residual_dec": 1,
+                "mc_dec": 5, "ring_write_dec": 5, "halfpel": 0}:
+            raise SystemExit(f"qcif_6_wp: parsed pictures {w}")
+        if launches != 1 or db != n or dec != want:
+            raise SystemExit(f"{name}: {launches} GOP kernel, {db} deblock "
+                             f"kernel and {dec} launches, expected 1, {n} "
+                             f"and {want}")
+        total["gop"] += launches
+        total["deblock"] += db
+        for k, v in dec.items():
+            total[k] = total.get(k, 0) + v
+    print(f"scan phase: == plain twin on {twins.calls}, MB grids "
+          f"{ {k: sorted(v) for k, v in twins.shapes.items() if v} }, "
+          f"max_abs_err {twins.err}", flush=True)
+    checked = {k: twins.calls[k] for k in total}
+    if checked != total:
+        raise SystemExit(f"scan: twin checks {twins.calls} do not cover "
+                         f"the path's launches {total}")
+    return twins, total
 
 
 class DecodeWork:
@@ -1538,13 +1852,15 @@ class DecodeWork:
     ``general`` the general-route pictures, ``intra_dec`` those with an
     Intra4x4 or Intra16x16 MB, ``deblock_params_dec`` those with an MB
     edge to filter (disable_deblocking_filter_idc other than 1 on some
-    MB), and ``shard_intra`` the band pictures of the sharded decode with
-    an Intra4x4 or Intra16x16 MB (kinds 0 and 1 of the dense buffer)."""
+    MB), ``shard_intra`` the band pictures of the sharded decode with
+    an Intra4x4 or Intra16x16 MB (kinds 0 and 1 of the dense buffer), and
+    of the GOP scan the batches (``scan_batches``), their pictures
+    (``scan_pictures``) and those with an intra MB (``scan_intra``)."""
 
     def __init__(self):
         self.counts = dict.fromkeys(
-            ("general", "intra_dec", "deblock_params_dec", "shard_intra"),
-            0)
+            ("general", "intra_dec", "deblock_params_dec", "shard_intra",
+             "scan_batches", "scan_pictures", "scan_intra"), 0)
 
     def __enter__(self):
         import numpy as np
@@ -1554,8 +1870,9 @@ class DecodeWork:
         self.DM, self.S = DM, S
         self.real_general = DM.Decoder._reconstruct_general
         self.real_step = S.decode_frame_step_sharded
-        counts, real_general, real_step = \
-            self.counts, self.real_general, self.real_step
+        self.real_scan = DM.decode_gop
+        counts, real_general, real_step, real_scan = \
+            self.counts, self.real_general, self.real_step, self.real_scan
 
         def general(dec, sps, pps, sh, nh, sd, *rest, **kw):
             counts["general"] += 1
@@ -1570,13 +1887,20 @@ class DecodeWork:
             counts["shard_intra"] += sum(bool(np.isin(k, (0, 1)).any())
                                          for k in kind)
             return real_step(mesh, packed, *rest, **kw)
+        def scan(packed, write_slot, has_intra, *rest, **kw):
+            counts["scan_batches"] += 1
+            counts["scan_pictures"] += len(write_slot)
+            counts["scan_intra"] += int(np.sum(has_intra))
+            return real_scan(packed, write_slot, has_intra, *rest, **kw)
         DM.Decoder._reconstruct_general = general
         S.decode_frame_step_sharded = step
+        DM.decode_gop = scan
         return self
 
     def __exit__(self, *exc):
         self.DM.Decoder._reconstruct_general = self.real_general
         self.S.decode_frame_step_sharded = self.real_step
+        self.DM.decode_gop = self.real_scan
 
 
 GENERAL = ("qcif_6_sl", "pcm_64x48")
@@ -1612,7 +1936,8 @@ def general_phase(torch):
             raise SystemExit(f"{name}: expected {nf} general-route "
                              f"pictures, got {st}")
     want = {"intra_dec": w["intra_dec"],
-            "deblock_params_dec": w["deblock_params_dec"], "halfpel": 0}
+            "deblock_params_dec": w["deblock_params_dec"],
+            **dict.fromkeys(MC_KERNELS, 0), "halfpel": 0}
     if gop or db != w["deblock_params_dec"] or dec != want or \
             w["general"] != frames or not w["intra_dec"]:
         raise SystemExit(f"general route: {gop} GOP kernel, {db} deblock "
@@ -1818,13 +2143,19 @@ class TwinChecks:
     ``halfpel_planes_fast`` and ``p_residual_fast`` and
     ``e_device.deblock_params_fast`` for the rest of its P-picture body,
     and ``halfpel_planes_fast`` where the decoder builds a reference's
-    stack: ``d_gop``, ``decoder`` and ``parallel/shard``), is held against
+    stack: ``d_gop``, ``decoder`` and ``parallel/shard``, and the SVC
+    encoder's inter-layer prediction's, ``svc``;
+    ``d_gop.residual_planes_fast``, ``mc_recon_fast`` and
+    ``ring_write_fast`` for the GOP scan and the sharded band step, and
+    ``svc.mc_recon_fast`` for the inter-layer prediction), is held against
     the plain twin on the same inputs, tolerance 0: the GOP kernel's
     output and ring (the ring cloned before the call), the deblocked
     planes, the parameter rows, the intra wavefront's planes, the intra
     encode's eleven outputs, the full search's eight outputs, the
     refinement's MVs and costs (against the twin's chain of its rounds),
-    and every output of the four P body kernels.  The twins launch
+    every output of the four P body kernels, the residual planes, the MC's
+    three planes, and the ring write's whole rings and output row (the
+    twin on clones taken before the call).  The twins launch
     nothing, so the launch counts stay the path's.  The deblock and the
     intra wavefront twins (some 150,000 and 200,000 small ops at a 1080p
     band grid) run through ``ops/graphs.replayed``: eager ops the first
@@ -1839,9 +2170,10 @@ class TwinChecks:
         from hartallo_tpu_torch.decode import decoder as DM
         from hartallo_tpu_torch.encode import e_device as E
         from hartallo_tpu_torch.encode import p_device as PD
+        from hartallo_tpu_torch.encode import svc as SV
         from hartallo_tpu_torch.parallel import shard as S
-        self.torch, self.DM, self.E, self.G, self.PD, self.S = \
-            torch, DM, E, G, PD, S
+        self.torch, self.DM, self.E, self.G, self.PD, self.S, self.SV = \
+            torch, DM, E, G, PD, S, SV
         self.label = label
         kernels = ("gop", "deblock", "intra", "full_search", "refine",
                    *P_KERNELS, *DEC_KERNELS)
@@ -1909,6 +2241,35 @@ class TwinChecks:
                      self.torch.equal(got, want))
         return got
 
+    def _residual_dec(self, rec, offsets, cqo, *, gw, gh):
+        from hartallo_tpu_torch.decode import mc_decode_fast as M
+        got = self.real_residual(rec, offsets, cqo, gw=gw, gh=gh)
+        want = M.residual_planes_plain(rec, offsets, cqo, gw=gw, gh=gh)
+        _, same, pairs = outputs_diff(self.torch, got, want)
+        self._record("residual_dec", gw, gh, pairs, same)
+        return got
+
+    def _mc_dec(self, *args, gw, gh):
+        from hartallo_tpu_torch.decode import mc_decode_fast as M
+        got = self.real_mc(*args, gw=gw, gh=gh)
+        _, same, pairs = outputs_diff(self.torch, got,
+                                      M.mc_recon_plain(*args, gw=gw, gh=gh))
+        self._record("mc_dec", gw, gh, pairs, same)
+        return got
+
+    def _ring_write(self, y2, u2, v2, ringY, ringU, ringV, ws, out, *, gw,
+                    gh):
+        from hartallo_tpu_torch.decode import mc_decode_fast as M
+        rings = [r.clone() for r in (ringY, ringU, ringV)]
+        want = out.clone()
+        got = self.real_ring(y2, u2, v2, ringY, ringU, ringV, ws, out,
+                             gw=gw, gh=gh)
+        M.ring_write_plain(y2, u2, v2, *rings, ws, want, gw=gw, gh=gh)
+        _, same, pairs = outputs_diff(
+            self.torch, (ringY, ringU, ringV, got), (*rings, want))
+        self._record("ring_write_dec", gw, gh, pairs, same)
+        return got
+
     def _p_body(self, kernel, real, plain, decode=False):
         """A checked call of the P body kernel ``kernel``: the wrapper
         ``real``, the twin ``plain`` on the same arguments (``decode``:
@@ -1968,7 +2329,8 @@ class TwinChecks:
     def _sites(self):
         """(module, wrapper name, the checked call) of every call site."""
         from hartallo_tpu_torch.ops.wide import halfpel_planes
-        E, PD, G, DM, S = self.E, self.PD, self.G, self.DM, self.S
+        E, PD, G, DM, S, SV = self.E, self.PD, self.G, self.DM, self.S, \
+            self.SV
         p_body = [(PD, "partition_decide_fast", "part_decide",
                    PD.partition_decide, False),
                   (PD, "halfpel_planes_fast", "halfpel", halfpel_planes,
@@ -1978,7 +2340,9 @@ class TwinChecks:
                   (E, "deblock_params_fast", "deblock_params",
                    E.deblock_params, False),
                   *((mod, "halfpel_planes_fast", "halfpel", halfpel_planes,
-                     True) for mod in (G, DM, S))]
+                     True) for mod in (DM, S)),
+                  (SV, "halfpel_planes_fast", "halfpel", halfpel_planes,
+                   False)]
         sites = [(mod, name, self._p_body(kernel, getattr(mod, name), plain,
                                           decode))
                  for mod, name, kernel, plain, decode in p_body]
@@ -1992,7 +2356,11 @@ class TwinChecks:
                   (G, "intra_reconstruct_fast", self._intra_dec),
                   (DM, "intra_reconstruct_fast", self._intra_dec),
                   (G, "deblock_params_dec_fast", self._params_dec),
-                  (DM, "deblock_params_dec_fast", self._params_dec)]
+                  (DM, "deblock_params_dec_fast", self._params_dec),
+                  (G, "residual_planes_fast", self._residual_dec),
+                  (G, "mc_recon_fast", self._mc_dec),
+                  (SV, "mc_recon_fast", self._mc_dec),
+                  (G, "ring_write_fast", self._ring_write)]
         return sites
 
     def __enter__(self):
@@ -2003,6 +2371,9 @@ class TwinChecks:
             self.PD.refine_subpel_rounds_fast
         self.real_intra_dec = self.G.intra_reconstruct_fast
         self.real_params_dec = self.G.deblock_params_dec_fast
+        self.real_residual = self.G.residual_planes_fast
+        self.real_mc = self.G.mc_recon_fast
+        self.real_ring = self.G.ring_write_fast
         sites = self._sites()
         self.saved = [(mod, name, getattr(mod, name))
                       for mod, name, _ in sites]
@@ -2039,6 +2410,7 @@ def svc_phase(torch):
     with twins:
         mine, _ = svc_encode(torch, meta, clips)
     enc_db, intra = D.LAUNCHES, IF.LAUNCHES
+    ilp = dec_launches()["mc_dec"]          # inter-layer predictions
     me = (MF.FULL_SEARCH_LAUNCHES, MF.REFINE_LAUNCHES)
     pb = dict(PB.LAUNCHES)
     if mine != stream:
@@ -2102,8 +2474,8 @@ def svc_phase(torch):
             (twins.calls["full_search"], twins.calls["refine"]) != me:
         raise SystemExit(f"SVC: {me[0]} full search and {me[1]} refinement "
                          f"launches, twin checks {twins.calls}")
-    want_pb = {"part_decide": me[0], "halfpel": me[1], "p_residual": me[0],
-               "deblock_params": enc_db}
+    want_pb = {"part_decide": me[0], "halfpel": me[1] + ilp,
+               "p_residual": me[0], "deblock_params": enc_db}
     full = dec["frame_md5"]
     if pb != want_pb or any(twins.calls[n] != pb[n] for n in pb
                             if n != "halfpel") or \
@@ -2125,9 +2497,21 @@ def svc_phase(torch):
         raise SystemExit(f"SVC: decode launches {dec} for routes {routes} "
                          f"and parsed pictures {parsed}; twin checks "
                          f"{twins.calls}")
+    # the GOP scan's kernels: an MC and a ring write launch for each scan
+    # picture of a decode
+    if any(d[k] != routes[key]["scan_pictures"] for key, d in dec.items()
+           for k in ("mc_dec", "ring_write_dec")) or \
+            (twins.calls["mc_dec"] - ilp, twins.calls["ring_write_dec"],
+             twins.calls["residual_dec"]) != (
+                full["mc_dec"], full["ring_write_dec"], full["residual_dec"]):
+        raise SystemExit(f"SVC: decode launches {dec} for routes {routes}; "
+                         f"twin checks {twins.calls}")
     pb["halfpel"] += sum(d["halfpel"] for d in dec.values())
+    # the MC kernel's launches: the decodes' and the encode's inter-layer
+    # predictions
     return launches, db, intra, me, stream, clips, twins, pb, \
-        {k: sum(d[k] for d in dec.values()) for k in DEC_KERNELS}
+        {k: sum(d[k] for d in dec.values()) + (ilp if k == "mc_dec" else 0)
+         for k in DEC_KERNELS}
 
 
 def svc_fps(torch, card, stream, clips):
@@ -2143,6 +2527,61 @@ def svc_fps(torch, card, stream, clips):
               f"{max(runs):.2f} worst {min(runs):.2f} (pictures/s "
               f"{max(runs) * nl:.2f} / {min(runs) * nl:.2f}; 3 runs after "
               f"a warm-up)", flush=True)
+
+
+SVC_QUALITY = "svc_quality_4"
+
+
+def ilp_phase(torch):
+    """The SVC encoder's inter-layer prediction (``svc._ilp_predict``) on
+    the card, launch counts set to 0 just before it: ``svc_quality_4``
+    (one QCIF layer with a quality refinement layer, 4 pictures, the
+    ``bench.make_clip`` clip) encoded through ``Codec.encode`` byte-equal
+    to the fixture, one MC launch and one half-pel stack (besides the
+    refinement's) for each refined P picture, every call of any kernel
+    held against its plain twin (``TwinChecks``).  Returns (the twin
+    checks, the MC launches, the half-pel stacks of the prediction)."""
+    from bench import make_clip
+    from hartallo_tpu_torch.api import Codec, CodecConfig
+    from hartallo_tpu_torch.decode import d_gop_fast as F
+    from hartallo_tpu_torch.encode import me_fast as MF
+    from hartallo_tpu_torch.encode import p_body_fast as PB
+    from hartallo_tpu_torch.ops import deblock_fast as D
+    stream, meta = load_fixture(SVC_QUALITY)
+    (W, H), = meta["layers"]
+    cfg = CodecConfig(width=W, height=H, **{
+        k: meta[k] for k in ("qp", "gop_size", "deblock", "me_range",
+                             "quality_layers", "quality_qp_delta")})
+    clip = make_clip(W, H, meta["frames"])
+    twins = TwinChecks(torch, SVC_QUALITY)
+    F.LAUNCHES = D.LAUNCHES = 0
+    MF.FULL_SEARCH_LAUNCHES = MF.REFINE_LAUNCHES = 0
+    PB.LAUNCHES.update(dict.fromkeys(PB.LAUNCHES, 0))
+    zero_dec_launches()
+    with twins:
+        codec = Codec(cfg)
+        out = b"".join(r.headers + r.data for r in
+                       (codec.encode(f, W, H) for f in clip))
+    torch.cuda.synchronize()
+    dec = dec_launches()
+    mc, hp = dec["mc_dec"], dec["halfpel"] - MF.REFINE_LAUNCHES
+    print(f"ILP phase: {SVC_QUALITY} encoded byte-equal to the fixture "
+          f"{out == stream} ({len(out)} bytes); MC launches {mc}, half-pel "
+          f"stacks of the prediction {hp}; == plain twin on "
+          f"{ {k: v for k, v in twins.calls.items() if v} }, max_abs_err "
+          f"{ {k: v for k, v in twins.err.items() if twins.calls[k]} }",
+          flush=True)
+    if out != stream:
+        raise SystemExit(f"{SVC_QUALITY}: the port's stream differs from "
+                         "the fixture")
+    n = meta["frames"] - 1
+    if mc != n or hp != n or twins.calls["mc_dec"] != mc or \
+            twins.calls["halfpel"] != dec["halfpel"] or \
+            dec["residual_dec"] or dec["ring_write_dec"]:
+        raise SystemExit(f"{SVC_QUALITY}: launches {dec}, twin checks "
+                         f"{twins.calls}; expected {n} MC launches and "
+                         f"{n} prediction half-pel stacks")
+    return twins, mc, hp
 
 
 SHARD = "shard_1080p_8"
@@ -2285,10 +2724,16 @@ def shard_phase(torch):
             (twins.calls["intra_dec"], twins.calls["deblock_params_dec"],
              twins.decode_halfpel) != (dec["intra_dec"], n_dec,
                                        dec["halfpel"]) or \
-            any(twins.shapes[n] != {(120, 34)} for n in DEC_KERNELS):
+            (dec["residual_dec"], dec["mc_dec"], dec["ring_write_dec"]) != \
+            (n_dec, n_dec, 0) or \
+            (twins.calls["residual_dec"], twins.calls["mc_dec"],
+             twins.calls["ring_write_dec"]) != (n_dec, n_dec, 0) or \
+            any(twins.shapes[n] != {(120, 34)} for n in DEC_KERNELS
+                if n != "ring_write_dec"):
         raise SystemExit(f"shard: decode launches {dec}, twin checks "
                          f"{twins.calls} at {twins.shapes}; expected "
-                         f"{n_dec} deblock parameter launches, a half-pel "
+                         f"{n_dec} deblock parameter, residual and MC "
+                         "launches and no ring write, a half-pel "
                          "stack per ring slot of each band picture, and "
                          f"{work.counts['shard_intra']} intra wavefront "
                          "launches (one per band picture with an intra "
@@ -2446,6 +2891,7 @@ def main() -> int:
     me_err, me_times = me_phase(torch, card)
     p_err, p_times = p_phase(torch, card)
     dec_err, dec_times = dec_kernels_phase(torch, card)
+    mc_err, mc_times = mc_dec_phase(torch, card)
     launches = slice_phase(torch)
     scan_twins, scan_launches = scan_phase(torch)
     gen_twins, gen_launches = general_phase(torch)
@@ -2455,6 +2901,7 @@ def main() -> int:
     t_svc = time.perf_counter()
     svc_launches, svc_db, svc_in, svc_me, svc_stream, clips, twins, \
         svc_pb, svc_dec = svc_phase(torch)
+    ilp_twins, ilp_mc, ilp_hp = ilp_phase(torch)
     svc_s = time.perf_counter() - t_svc
     for name in ENCODE_MAIN:
         encode_fps(torch, name, card)
@@ -2472,6 +2919,8 @@ def main() -> int:
           f"{time.perf_counter() - started:.1f} s (the SVC phase and its "
           f"rates {svc_s:.1f} s, the shard phase and its rates "
           f"{shard_s:.1f} s)", flush=True)
+    dec_err, dec_times = {**dec_err, **mc_err}, {**dec_times, **mc_times}
+    ilp = {"mc_dec": ilp_mc, "halfpel": ilp_hp}
     print(json.dumps({"kernels": [
         {"name": "decode_gop_fast", "route": "cuda",
          "source": "hartallo_tpu_torch/csrc/d_gop.cu",
@@ -2528,13 +2977,15 @@ def main() -> int:
            "source": "hartallo_tpu_torch/csrc/p_encode.cu",
            "replaces": replaces,
            "launches": pb_launches[key] + scan_launches.get(key, 0) +
-           svc_pb[key] + shard_pb[key],
+           svc_pb[key] + shard_pb[key] + ilp.get(key, 0),
            "launches_by_path": {"encode": pb_launches[key],
                                 "scan": scan_launches.get(key, 0),
                                 "svc": svc_pb[key],
-                                "shard": shard_pb[key]},
+                                "shard": shard_pb[key],
+                                "ilp": ilp.get(key, 0)},
            "max_abs_err": max(p_err[key], scan_twins.err[key],
-                              twins.err[key], shard_twins.err[key]),
+                              twins.err[key], shard_twins.err[key],
+                              ilp_twins.err[key]),
            "ms": p_times[key][0], "plain_ms": p_times[key][1],
            "bound_ms": p_times[key][2], "bound_by": p_times[key][3],
            "library_ms": None}
@@ -2558,14 +3009,15 @@ def main() -> int:
            "source": f"hartallo_tpu_torch/csrc/{source}",
            "replaces": replaces,
            "launches": scan_launches[key] + gen_launches[key] +
-           svc_dec[key] + shard_dec[key],
+           svc_dec[key] + shard_dec[key] + ilp.get(key, 0),
            "launches_by_path": {"scan": scan_launches[key],
                                 "general": gen_launches[key],
                                 "svc": svc_dec[key],
-                                "shard": shard_dec[key]},
+                                "shard": shard_dec[key],
+                                "ilp": ilp.get(key, 0)},
            "max_abs_err": max(dec_err[key], scan_twins.err[key],
                               gen_twins.err[key], twins.err[key],
-                              shard_twins.err[key]),
+                              shard_twins.err[key], ilp_twins.err[key]),
            "ms": dec_times[key][0], "plain_ms": dec_times[key][1],
            "bound_ms": dec_times[key][2], "bound_by": dec_times[key][3],
            "library_ms": None}
@@ -2577,7 +3029,17 @@ def main() -> int:
                "deblock.cu",
                "hartallo_tpu/ops/deblock_pallas.py:274 _edge_params of "
                "deblock_frame_pl, with ops/wide.py:310 compute_bs_grids "
-               "(in d_gop.prepare_pictures and the general route)")))]}))
+               "(in d_gop.prepare_pictures and the general route)"),
+              ("residual_planes_fast", "residual_dec", "mc_decode.cu",
+               "hartallo_tpu/decode/d_gop.py:120-127 (XLA: ops/wide.py:259 "
+               "residual_planes_wide)"),
+              ("mc_recon_fast", "mc_dec", "mc_decode.cu",
+               "hartallo_tpu/decode/d_gop.py:183-191 (XLA: ops/wide.py:117 "
+               "mc_luma_plane, :161 mc_chroma_plane, the residual add, "
+               "mask and pad)"),
+              ("ring_write_fast", "ring_write_dec", "mc_decode.cu",
+               "hartallo_tpu/decode/d_gop.py:208-229 (XLA: the ring write "
+               "and output, ops/wide.py:49 halfpel_planes)")))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

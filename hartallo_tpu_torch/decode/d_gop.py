@@ -6,37 +6,39 @@ Python loop walks the pictures in decode order with the DPB held as a
 ring of reference slots, each slot the four half-pel grids [G, b, h, j]
 of one picture plus its padded chroma.  This is the route of the pictures
 the whole-GOP kernel (``d_gop_fast``) refuses, as in the JAX package.
-On a CUDA device these steps are hand-written kernels, on the CPU their
-plain twins: the deblock parameters of the K pictures
-(``ops/deblock_fast.deblock_params_dec_fast``, one launch), each
-picture's intra wavefront (``decode/intra_recon_fast
-.intra_reconstruct_fast``) and deblock (``deblock_frame_aux_fast``; the
-JAX package runs the Pallas ``deblock_frame_pl`` here on a TPU), and
-the half-pel stack of each reference it writes
-(``encode/p_body_fast.halfpel_planes_fast``).  The batched work
-(``prepare_pictures``) and the per-picture body
-(``reconstruct_picture``) are also the band body of the sharded decode,
-``parallel/shard.decode_frame_step_sharded``.
+On a CUDA device every step is a hand-written kernel, on the CPU its
+plain twin: the residual planes of the K pictures
+(``decode/mc_decode_fast.residual_planes_fast``) and their deblock
+parameters (``ops/deblock_fast.deblock_params_dec_fast``), one launch
+each; then for each picture the MC with the residual
+(``mc_recon_fast``), the intra wavefront (``decode/intra_recon_fast
+.intra_reconstruct_fast``), the deblock (``deblock_frame_aux_fast``; the
+JAX package runs the Pallas ``deblock_frame_pl`` here on a TPU) and the
+ring write of its half-pel stack, chroma and output row
+(``ring_write_fast``).  The batched work (``prepare_pictures``) and the
+per-picture body (``reconstruct_picture``) are also the band body of the
+sharded decode, ``parallel/shard.decode_frame_step_sharded``.
 
 Reference counterpart: the per-picture decode driver
 ``hl_codec_264_decode_avc.c:55-263``.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
-from hartallo_tpu_torch.core.tables import QP_SCALE_CHROMA
 from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
 from hartallo_tpu_torch.decode.intra_recon import PAD
 from hartallo_tpu_torch.decode.intra_recon_fast import intra_reconstruct_fast
-from hartallo_tpu_torch.encode.p_body_fast import halfpel_planes_fast
+from hartallo_tpu_torch.decode.mc_decode_fast import (RESIDUAL_FIELDS,
+                                                      mc_recon_fast,
+                                                      residual_planes_fast,
+                                                      ring_write_fast)
 from hartallo_tpu_torch.ops.deblock_fast import (deblock_frame_aux_fast,
                                                  deblock_params_dec_fast,
                                                  record_offsets)
-from hartallo_tpu_torch.ops.wide import (mc_chroma_plane, mc_grids,
-                                         mc_luma_plane, pad_edge,
-                                         residual_planes_wide)
 
 _OFF = {}
 _o = 0
@@ -45,8 +47,12 @@ for _name, _shape in DEC_FIELDS:
     _OFF[_name] = (_o, _o + _w, _shape)
     _o += _w
 WORDS = _o
-# the deblock parameters' fields in the dense buffer
+# the deblock parameters' and the residual's fields in the dense buffer
 DEBLOCK_OFFSETS = record_offsets(DEC_FIELDS)[0]
+RESIDUAL_OFFSETS = record_offsets(DEC_FIELDS, RESIDUAL_FIELDS)[0]
+# the 8x8 quadrant of each 4x4 block of an MB, raster order
+_QUAD = np.array([(by >> 1) * 2 + (bx >> 1) for by in range(4)
+                  for bx in range(4)])
 
 
 def _field(packed, name, gw, gh):
@@ -86,72 +92,48 @@ def decode_gop(packed, write_slot, has_intra, ringY, ringU, ringV,
     packed = torch.as_tensor(np.asarray(packed), device=dev).to(torch.int32)
     write_slot = [int(s) for s in np.asarray(write_slot)]
     has_intra = [bool(h) for h in np.asarray(has_intra)]
-    H, W = gh * 16, gw * 16
+    K, H, W = packed.shape[0], gh * 16, gw * 16
     batch = prepare_pictures(packed, gw=gw, gh=gh,
                              chroma_qp_off=chroma_qp_off)
-    outs = []
-    Hp, Wp = H + 2 * PAD, W + 2 * PAD
-    Hcp, Wcp = H // 2 + 2 * PAD, W // 2 + 2 * PAD
-    for k in range(packed.shape[0]):
+    out = torch.empty((K, H * 3 // 2, W), dtype=torch.uint8, device=dev)
+    for k in range(K):
         y2, u2, v2 = reconstruct_picture(batch, k, ringY, ringU, ringV,
                                          has_intra[k], gw=gw, gh=gh)
-        uv = torch.stack([u2, v2], dim=1).reshape(H // 2, W)
-        outs.append(torch.cat([y2, uv], dim=0).to(torch.uint8))
-
-        ws = write_slot[k]
-        ringY[ws].zero_()
-        ringY[ws, :, :Hp, :Wp] = halfpel_planes_fast(pad_edge(y2)) \
-            .to(torch.uint8)
-        for ring, c in ((ringU, u2), (ringV, v2)):
-            ring[ws].zero_()
-            ring[ws, :Hcp, :Wcp] = pad_edge(c).to(torch.uint8)
-    return torch.stack(outs), ringY, ringU, ringV
+        ring_write_fast(y2, u2, v2, ringY, ringU, ringV, write_slot[k],
+                        out[k], gw=gw, gh=gh)
+    return out, ringY, ringU, ringV
 
 
 def prepare_pictures(packed, *, gw: int, gh: int, chroma_qp_off: int):
     """The work of K pictures that needs no reference: residual planes,
     deblock parameters and the MC and intra inputs, batched over the
     pictures.  packed (K, gh*gw, WORDS) int32 on the device, contiguous;
-    returns a dict that ``reconstruct_picture`` reads."""
+    returns a dict that ``reconstruct_picture`` reads: per picture the
+    residual planes, the deblock rows, the per-4x4-block MVs, slots and
+    weights (each 8x8 quadrant's spread to its four blocks, contiguous),
+    the inter mask and the intra maps."""
     dev = packed.device
     K = packed.shape[0]
-    M = K * gh * gw
     N = gh * gw * 16
-    qpc_table = torch.as_tensor(QP_SCALE_CHROMA, dtype=torch.int32,
-                                device=dev)
 
     def fld(name):
         return _field(packed, name, gw, gh)
 
-    def sl(name):
-        return packed[:, :, slice(*_OFF[name][:2])]
-
-    qp, kind = fld("qp"), fld("kind")
-    res_y, res_c = residual_planes_wide(
-        sl("luma_ac").reshape(M, 16, 16), sl("luma_dc").reshape(M, 16),
-        sl("chroma_ac").reshape(M, 2, 4, 16), sl("chroma_dc").reshape(M, 2, 4),
-        qp.reshape(M), (kind == 1).reshape(M), chroma_qp_off, qpc_table,
-        gw, gh)
-
-    mv = fld("mv")                                     # (K,gh,gw,4,4,2)
-    ref44 = fld("ref_idx").reshape(K, gh, gw, 2, 2) \
-        .repeat_interleave(2, 3).repeat_interleave(2, 4)
-    inter_mask = (kind >= 3) & (kind != 8)
+    kind = fld("kind")
+    res_y, res_c = residual_planes_fast(packed, RESIDUAL_OFFSETS,
+                                        chroma_qp_off, gw=gw, gh=gh)
+    quad = _quad(dev)
     return {
         "res_y": res_y, "res_c": res_c,
         "aux": deblock_params_dec_fast(packed, DEBLOCK_OFFSETS,
                                        chroma_qp_off, gw=gw, gh=gh),
-        "grids": mc_grids(gw, gh, dev),
-        "mask_y": inter_mask.repeat_interleave(16, -2)
-        .repeat_interleave(16, -1),
-        "mask_c": inter_mask.repeat_interleave(8, -2)
-        .repeat_interleave(8, -1),
-        "wp_l": fld("wp_l").reshape(K, gh, gw, 2, 2, 3)
-        .repeat_interleave(2, 3).repeat_interleave(2, 4).reshape(K, N, 3),
-        "wp_c": fld("wp_c").reshape(K, gh, gw, 2, 2, 2, 3)
-        .repeat_interleave(2, 3).repeat_interleave(2, 4)
+        "mv": fld("mv").reshape(K, N, 2).contiguous(),
+        "slot": fld("ref_idx")[..., quad].reshape(K, N),
+        "wp_l": fld("wp_l").reshape(K, gh, gw, 4, 3)[:, :, :, quad]
+        .reshape(K, N, 3),
+        "wp_c": fld("wp_c").reshape(K, gh, gw, 4, 2, 3)[:, :, :, quad]
         .reshape(K, N, 2, 3),
-        "mv": mv.reshape(K, N, 2), "slot": ref44.reshape(K, N),
+        "inter": (kind >= 3) & (kind != 8),
         **{name: fld(name) for name in ("kind", "i16_mode", "i4_modes",
                                         "chroma_mode")},
         **{name: fld(name) != 0 for name in ("avail_l", "avail_t",
@@ -159,35 +141,30 @@ def prepare_pictures(packed, *, gw: int, gh: int, chroma_qp_off: int):
     }
 
 
+@lru_cache(maxsize=None)
+def _quad(device) -> torch.Tensor:
+    """``_QUAD`` on ``device``, made once per device.  Shared: never
+    written."""
+    return torch.as_tensor(_QUAD, device=device)
+
+
 def reconstruct_picture(batch, k, stackY, ringU, ringV, has_intra: bool,
                         *, gw: int, gh: int):
     """Picture k of a ``prepare_pictures`` batch: MC from the reference
-    slots, residual add, the intra wavefront when ``has_intra``
-    (``intra_reconstruct_fast``), and the frame deblock on the batch's
-    parameters (``deblock_frame_aux_fast``).  stackY (S, 4, Hr, Wr) holds
-    each slot's [G, b, h, j] planes, ringU/ringV (S, Hcr, Wcr) the padded
-    chroma (either may be over-allocated, uint8 or int32).  Returns the
-    (H, W), (H/2, W/2), (H/2, W/2) int32 planes."""
+    slots with the residual added (``mc_recon_fast``), the intra
+    wavefront when ``has_intra`` (``intra_reconstruct_fast``), and the
+    frame deblock on the batch's parameters (``deblock_frame_aux_fast``).
+    stackY (S, 4, Hr, Wr) holds each slot's [G, b, h, j] planes,
+    ringU/ringV (S, Hcr, Wcr) the padded chroma (either may be
+    over-allocated; uint8 or int32, both the same).  Returns the (H, W),
+    (H/2, W/2), (H/2, W/2) int32 interiors of the deblocked padded
+    planes."""
     b = batch
     H, W = gh * 16, gw * 16
-    dev = stackY.device
-    bx, by, cbx, cby = b["grids"]
-    mvf, slot = b["mv"][k], b["slot"][k]
     ry, rc = b["res_y"][k], b["res_c"][k]
-    pY = mc_luma_plane(stackY, slot, bx, by, mvf[:, 0], mvf[:, 1],
-                       b["wp_l"][k], gw, gh)
-    pU = mc_chroma_plane(ringU, slot, cbx, cby, mvf[:, 0], mvf[:, 1],
-                         b["wp_c"][k][:, 0], gw, gh)
-    pV = mc_chroma_plane(ringV, slot, cbx, cby, mvf[:, 0], mvf[:, 1],
-                         b["wp_c"][k][:, 1], gw, gh)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    planes = tuple(
-        torch.nn.functional.pad(
-            torch.where(msk, torch.clamp(p + r, 0, 255), zero),
-            (PAD, PAD, PAD, PAD))
-        for p, r, msk in ((pY, ry, b["mask_y"][k]),
-                          (pU, rc[0], b["mask_c"][k]),
-                          (pV, rc[1], b["mask_c"][k])))
+    planes = mc_recon_fast(stackY, ringU, ringV, b["mv"][k], b["slot"][k],
+                           b["wp_l"][k], b["wp_c"][k], ry, rc,
+                           b["inter"][k], gw=gw, gh=gh)
     if has_intra:
         planes = intra_reconstruct_fast(
             planes, ry.reshape(gh, 16, gw, 16).permute(0, 2, 1, 3),

@@ -44,6 +44,8 @@ from hartallo_tpu_torch.decode import nal as N
 from hartallo_tpu_torch.decode.d_pool import (accumulated_residual_planes_np,
                                               residual_planes_np)
 from hartallo_tpu_torch.decode.intra_recon import PAD
+from hartallo_tpu_torch.decode.mc_decode_fast import (identity_mc_inputs,
+                                                      mc_recon_fast)
 from hartallo_tpu_torch.decode.params import (PPS, SPS, SpsSvcExt,
                                               write_subset_sps)
 from hartallo_tpu_torch.decode.slice_decode import MB_IBL, MB_PBL
@@ -56,14 +58,14 @@ from hartallo_tpu_torch.encode.intra_encode import (_blocks_of_mb,
                                                     _mb_of_blocks,
                                                     chroma_blocks,
                                                     chroma_plane)
+from hartallo_tpu_torch.encode.p_body_fast import halfpel_planes_fast
 from hartallo_tpu_torch.encode.slice_encode import FramePacker
 from hartallo_tpu_torch.ops.transform import (chroma_dc_descale,
                                               dequant_4x4, forward_dct_4x4,
                                               forward_hadamard_quant_dc_chroma,
                                               forward_quant_4x4,
                                               inverse_transform_4x4)
-from hartallo_tpu_torch.ops.wide import (halfpel_planes, mc_chroma_plane,
-                                         mc_grids, mc_luma_plane, pad_edge)
+from hartallo_tpu_torch.ops.wide import pad_edge
 from hartallo_tpu_torch.svc.motion import infer_motion
 from hartallo_tpu_torch.svc.upsample import (upsample_plane,
                                              upsample_residual_plane_np)
@@ -71,20 +73,20 @@ from hartallo_tpu_torch.svc.upsample import (upsample_plane,
 
 def _ilp_predict(refY, refU, refV, mvf, *, gw: int, gh: int):
     """Inter prediction planes from the layer's own (padded) reference
-    with per-4x4 inferred MVs: the decoder's MC, bit-exact."""
-    dev = refY.device
-    hp = halfpel_planes(refY)[None]
-    bx, by, cbx, cby = mc_grids(gw, gh, dev)
-    n = gh * gw * 16
-    slot = torch.zeros((n,), dtype=torch.int32, device=dev)
-    wp = torch.zeros((n, 3), dtype=torch.int32, device=dev)
-    wp[:, 0] = 1
-    pY = mc_luma_plane(hp, slot, bx, by, mvf[:, 0], mvf[:, 1], wp, gw, gh)
-    pU = mc_chroma_plane(refU[None], slot, cbx, cby, mvf[:, 0], mvf[:, 1],
-                         wp, gw, gh)
-    pV = mc_chroma_plane(refV[None], slot, cbx, cby, mvf[:, 0], mvf[:, 1],
-                         wp, gw, gh)
-    return pY, pU, pV
+    with per-4x4 inferred MVs: the decoder's MC, bit-exact.  The half-pel
+    stack (``halfpel_planes_fast``) and the MC (``mc_recon_fast`` with
+    slot 0, identity weights, no residual and every MB inter) are the
+    decoder's kernels on a CUDA device, their plain twins on the CPU."""
+    H, W = gh * 16, gw * 16
+    slot, wp_l, wp_c, res_y, res_c, inter = identity_mc_inputs(
+        gw, gh, refY.device)
+    pY, pU, pV = mc_recon_fast(
+        halfpel_planes_fast(refY)[None], refU.contiguous()[None],
+        refV.contiguous()[None], mvf.contiguous(), slot, wp_l, wp_c, res_y,
+        res_c, inter, gw=gw, gh=gh)
+    return (pY[PAD:PAD + H, PAD:PAD + W],
+            pU[PAD:PAD + H // 2, PAD:PAD + W // 2],
+            pV[PAD:PAD + H // 2, PAD:PAD + W // 2])
 
 
 def _edge_repad(plane, pad=PAD):

@@ -21,7 +21,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "kernels"
 LIB = BUILD_DIR / "libhl_kernels.so"
 SOURCES = ("d_gop.cu", "deblock.cu", "intra_decode.cu", "intra_encode.cu",
-           "me_search.cu", "p_encode.cu")
+           "me_search.cu", "p_encode.cu", "mc_decode.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -115,6 +115,13 @@ def load():
         lib.hl_deblock_params.argtypes = [P] * 9 + [I] * 3 + [P]
         lib.hl_p_encode_attributes.restype = I
         lib.hl_p_encode_attributes.argtypes = [P]
+        lib.hl_residual_dec.restype = I
+        lib.hl_residual_dec.argtypes = [P, I, P, P, P] + [I] * 4 + [P]
+        lib.hl_mc_dec.restype = I
+        lib.hl_mc_dec.argtypes = [P] * 3 + [I] + [P] * 10 + [I] * 6 + [P]
+        lib.hl_ring_write_dec.restype = I
+        lib.hl_ring_write_dec.argtypes = [P] * 3 + [I] * 3 + [P] * 4 + \
+            [I] * 6 + [P]
         lib.hl_cuda_error_string.restype = ctypes.c_char_p
         lib.hl_cuda_error_string.argtypes = [I]
         _lib = lib

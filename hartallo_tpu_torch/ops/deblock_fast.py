@@ -44,15 +44,15 @@ DEBLOCK_FIELDS = (("kind", ()), ("qp", ()), ("mv", (4, 4, 2)),
                   ("fint", ()))
 
 
-def record_offsets(fields) -> tuple:
-    """The word offsets of ``DEBLOCK_FIELDS`` in a record laid out as
+def record_offsets(fields, wanted=DEBLOCK_FIELDS) -> tuple:
+    """The word offsets of the ``wanted`` fields in a record laid out as
     ``fields`` ((name, shape) pairs, one after another), and the record's
-    words: ((10 offsets), words)."""
+    words: ((an offset a wanted field), words)."""
     offs, o = {}, 0
     for name, shape in fields:
         offs[name] = o
         o += int(np.prod(shape, dtype=int)) if shape else 1
-    return tuple(offs[name] for name, _ in DEBLOCK_FIELDS), o
+    return tuple(offs[name] for name, _ in wanted), o
 
 
 # the offsets of ``pack_deblock_record``'s record

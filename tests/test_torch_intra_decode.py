@@ -13,9 +13,10 @@ kernels against the twins on a GPU.
   per-MB offsets, ``fint`` false on some MBs, edge flags on column 0
   and row 0, chroma QP offsets -3 and 5).
 - Routing, on the CPU (where each wrapper runs its twin): the GOP scan
-  of ``qcif_6_wp`` calls the parameter wrapper once for its batch of 5
-  pictures, the intra wrapper once (its one scan picture with an intra
-  MB) and the half-pel stack's once a scan picture; the general route of
+  of ``qcif_6_wp`` calls the parameter and residual wrappers once for
+  its batch of 5 pictures, the intra wrapper once (its one scan picture
+  with an intra MB) and the MC and ring write wrappers once a scan
+  picture (and not the half-pel stack's); the general route of
   ``qcif_6_sl`` the parameter wrapper once a picture and the intra
   wrapper once a picture with an intra MB; each decode keeps its MD5s.
 - The wrappers refuse tensors on more than one device.
@@ -128,7 +129,8 @@ def _counted(monkeypatch):
                       (DM, "intra_reconstruct_fast"),
                       (G, "deblock_params_dec_fast"),
                       (DM, "deblock_params_dec_fast"),
-                      (G, "halfpel_planes_fast"),
+                      (G, "residual_planes_fast"), (G, "mc_recon_fast"),
+                      (G, "ring_write_fast"),
                       (DM, "halfpel_planes_fast")):
         real = getattr(mod, name)
 
@@ -143,7 +145,8 @@ def _counted(monkeypatch):
     ("qcif_6_wp", {"kernel_pictures": 1, "scan_pictures": 5,
                    "general_pictures": 0},
      {"intra_reconstruct_fast": 1, "deblock_params_dec_fast": 1,
-      "halfpel_planes_fast": 5}),
+      "residual_planes_fast": 1, "mc_recon_fast": 5,
+      "ring_write_fast": 5}),
     ("qcif_6_sl", {"kernel_pictures": 0, "scan_pictures": 0,
                    "general_pictures": 6},
      {"intra_reconstruct_fast": 2, "deblock_params_dec_fast": 6}),
@@ -253,7 +256,7 @@ def _since(before):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fixture,want", [
-    ("qcif_6_wp", {"intra": 1, "params": 1, "halfpel": 5, "deblock": 5}),
+    ("qcif_6_wp", {"intra": 1, "params": 1, "halfpel": 0, "deblock": 5}),
     ("qcif_6_sl", {"intra": 2, "params": 6, "halfpel": 0, "deblock": 6}),
     ("svc_il_4", {"intra": 0, "params": 4, "halfpel": 0, "deblock": 4}),
 ])

@@ -21,11 +21,13 @@ coded rows), small QCIF streams cover the batched path's stream classes:
 three slices per picture, FMO slice groups, no deblocking across slice
 edges, non-reference P pictures (two temporal layers), and a plain
 6-picture stream that the tests rewrite into DPB and weighted-prediction
-variants.  Two such rewrites are stored too: ``qcif_6_wp``, ``qcif_6`` with
+variants.  Such rewrites are stored too: ``qcif_6_wp``, ``qcif_6`` with
 explicit weighted prediction on every P slice
 (``tests/_torch_port.weighted_rewrite``), a stream whose P pictures the
 GOP kernel refuses, so ``chip_smoke.py`` keeps the GOP scan measured on
-the card; and ``qcif_6_sl``, ``qcif_6`` with non-flat 4x4 scaling lists
+the card, and ``720p_8_wp`` and ``1080p_8_wp``, the same rewrite of
+``720p_8`` and ``1080p_8``, which take the GOP scan at full width; and
+``qcif_6_sl``, ``qcif_6`` with non-flat 4x4 scaling lists
 (``tests/_torch_port.scaling_list_rewrite``), which the general decode
 path decodes.
 
@@ -95,7 +97,9 @@ FIXTURES = {
 }
 # name -> (base fixture, function of tests/_torch_port.py rewriting it)
 REWRITES = {"qcif_6_wp": ("qcif_6", "weighted_rewrite"),
-            "qcif_6_sl": ("qcif_6", "scaling_list_rewrite")}
+            "qcif_6_sl": ("qcif_6", "scaling_list_rewrite"),
+            "720p_8_wp": ("720p_8", "weighted_rewrite"),
+            "1080p_8_wp": ("1080p_8", "weighted_rewrite")}
 # name -> the SVC configuration (tests/_torch_port.svc_config): layers
 # lowest first, frames per layer and the CodecConfig settings
 SVC = {
