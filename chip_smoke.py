@@ -76,10 +76,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and the shard phase's 120x34 band (MC_DEC_CASES): the residual on two
    pictures a launch with qp 0..51, Intra16x16 MBs and int16-extreme
    coefficients at chroma QP offsets -12, 0 and +12; the MC on three
-   slots with per-4x4 MVs up to 2,000 quarter pels outside the picture
-   and weights with logWD 0..7, from the scan's uint8 ring and, at the
-   band, the int32 stacks; the ring write on noisy rings; every output
-   equal;
+   slots with per-4x4 MVs up to 2,000 quarter pels outside the picture,
+   and again with coherent motion (one MV an MB), and weights with logWD
+   0..7, from the scan's uint8 ring and, at the band, the int32 stacks;
+   the ring write on noisy rings; every output equal;
 7. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
@@ -162,8 +162,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel's time on the 720p IDR picture; per deblocked frame, the
    wrapper with its parameter gather, the launch alone and the plain
    twin; the intra encode kernel per picture at one MB, CIF, 720p and
-   1080p, with its wrapper and alone (the profiler's device time),
-   beside its chain floor (the gw + 2 gh - 2 MBs of its critical path
+   1080p, with its wrapper and alone (the profiler's device time, each
+   launch after an L2 flush, the median: ``kernel_us``), beside its
+   chain floor (the gw + 2 gh - 2 MBs of its critical path
    times the one-MB picture's kernel time), the twin at CIF and 720p
    (each twin timed on its check run); the full search and the two-round
    refinement launch per picture at CIF, 720p and 1080p, with the
@@ -438,12 +439,29 @@ def event_ms(torch, fn, reps, warm=True):
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_us(torch, fn, reps: int, name: str, launches: int = 1):
+_L2_FLUSH = []
+
+
+def l2_flush(torch):
+    """Read a 128 MiB buffer on the card (2.5 times the H100's 50 MB L2),
+    so that the next kernel reads its inputs from HBM, not from the L2
+    that its previous call left warm, and finds the L2 holding clean
+    lines (a flush that writes leaves dirty lines, whose write-back the
+    next kernel would pay: 5-8 µs more at 1080p on an H100)."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(32 << 20, dtype=torch.int32,
+                                     device="cuda"))
+    _L2_FLUSH[0].sum()
+
+
+def kernel_us(torch, fn, reps: int, name: str, launches: int = 1,
+              lead_in: int = 32):
     """Device time in µs per call of fn(), which launches the kernel whose
-    name holds ``name`` ``launches`` times: the mean of its launches over
-    reps calls after one warm-up, from ``torch.profiler``'s device-side
-    records (no host time: for a kernel that the host's set-up outlasts),
-    times ``launches``; None when the trace holds none.
+    name holds ``name`` ``launches`` times: the median of its launches
+    over reps calls after one warm-up, each call after ``l2_flush`` (a
+    cold L2, as the bytes bounds assume), from ``torch.profiler``'s
+    device-side records (no host time: for a kernel that the host's
+    set-up outlasts), times ``launches``; None when the trace holds none.
 
     Only launches made inside the profiled window count, each once: a
     device record is kept when a runtime launch call of the window
@@ -452,25 +470,36 @@ def kernel_us(torch, fn, reps: int, name: str, launches: int = 1):
     last of its records.  A mean over ``key_averages()`` would also take
     in a record of the name that the window did not launch, and count a
     launch split into several records more than once.  A trace can lose
-    records: where the launches kept are not ``reps * launches``, or a
-    record was not paired, a line says so."""
+    the device records of a window's first launches (in the smoke on an
+    H100, those of its first 5-11 launch calls, after 20 ms of idle host
+    too), so the window opens with ``lead_in`` flushes and a
+    synchronize.  Where the launches kept are not ``reps * launches``,
+    or a record was not paired, a line says so and gives the kept
+    launches' places among the window's launch calls (1 the first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
+    l2_flush(torch)
     torch.cuda.synchronize()
     for _ in range(3):           # a trace now and then comes back empty
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead_in):
+                l2_flush(torch)
+            torch.cuda.synchronize()
             for _ in range(reps):
+                l2_flush(torch)
                 fn()
             torch.cuda.synchronize()
         events = prof.events()
-        calls = {e.id for e in events if e.device_type == DeviceType.CPU
-                 and "Launch" in e.name}
+        calls = sorted((e.time_range.start, e.id) for e in events
+                       if e.device_type == DeviceType.CPU
+                       and "Launch" in e.name)
+        place = {cid: i + 1 for i, (_, cid) in enumerate(calls)}
         records = [e for e in events if e.device_type == DeviceType.CUDA
                    and name in e.name]
         seen = len(records)
-        if calls & {e.id for e in records}:
-            records = [e for e in records if e.id in calls]
+        if place.keys() & {e.id for e in records}:
+            records = [e for e in records if e.id in place]
         spans = {}
         for e in records:
             t0, t1 = spans.get(e.id, (e.time_range.start, e.time_range.end))
@@ -478,19 +507,25 @@ def kernel_us(torch, fn, reps: int, name: str, launches: int = 1):
                            max(t1, e.time_range.end))
         if spans:
             if len(spans) != reps * launches or seen != len(spans):
+                kept = sorted(place.get(i, 0) for i in spans)
                 print(f"kernel_us {name}: {len(spans)} launches kept of "
                       f"{reps * launches} made, from {len(records)} of the "
                       f"{seen} device records in the trace ({len(calls)} "
-                      "launch calls in it)", flush=True)
-            return launches * sum(t1 - t0 for t0, t1 in spans.values()) / \
-                len(spans)
+                      f"launch calls in it; the kept at places {kept})",
+                      flush=True)
+            times = sorted(t1 - t0 for t0, t1 in spans.values())
+            n = len(times)
+            return launches * (times[n // 2] + times[(n - 1) // 2]) / 2
     return None
 
 
 def launch_floor_us(torch):
     """The profiler's device time in µs of a one-element fill on the card:
-    the least a launch takes, which the short kernels are read against."""
+    the least a launch takes, which the short kernels are read against.
+    Read once more first without ``kernel_us``' lead-in, whose line shows
+    what the trace loses then."""
     one = torch.zeros(1, device="cuda")
+    kernel_us(torch, lambda: one.fill_(1.0), 20, "FillFunctor", lead_in=0)
     return kernel_us(torch, lambda: one.fill_(1.0), 20, "FillFunctor")
 
 
@@ -696,17 +731,19 @@ def residual_rec_inputs(gw: int, gh: int, K: int, seed: int):
     return rec, offs
 
 
-def mc_dec_inputs(gw: int, gh: int, S: int, seed: int, band=False):
+def mc_dec_inputs(gw: int, gh: int, S: int, seed: int, band=False,
+                  coherent=False):
     """Seeded inputs of one ``mc_recon_fast`` call, numpy, in its order:
     the reference stacks (the GOP scan's uint8 ring of
     ``d_gop.ring_shapes``, or with ``band`` the sharded band step's int32
     stacks of the padded picture's own size), noise everywhere (so that a
     wrong clamp reads another value); per 4x4 block an MV (a third
     within 16 quarter pels, a third within the pad, a third up to 2,000
-    quarter pels out), per 8x8 quadrant a slot in 0..S-1 and the weights
-    [w, o, logWD] (w and o in -128..127, logWD 0..7; a quarter the
-    identity), chroma each plane its own; residual planes mostly small,
-    2% up to 2^25; MBs inter with probability 0.8."""
+    quarter pels out; with ``coherent`` one MV an MB, within 64 quarter
+    pels, for all its blocks), per 8x8 quadrant a slot in 0..S-1 and the
+    weights [w, o, logWD] (w and o in -128..127, logWD 0..7; a quarter
+    the identity), chroma each plane its own; residual planes mostly
+    small, 2% up to 2^25; MBs inter with probability 0.8."""
     import numpy as np
     from hartallo_tpu_torch.decode.d_gop import _QUAD, ring_shapes
     rng = np.random.default_rng(seed)
@@ -720,6 +757,9 @@ def mc_dec_inputs(gw: int, gh: int, S: int, seed: int, band=False):
     stacks = [rng.integers(0, 256, s).astype(dtype) for s in shapes]
     reach = rng.choice(np.array([16, 4 * 40, 2000]), (N, 2))
     mv = rng.integers(-reach, reach + 1).astype(np.int32)
+    if coherent:
+        mv = np.repeat(rng.integers(-64, 65, (gh * gw, 2)), 16,
+                       axis=0).astype(np.int32)
 
     def per_quad(a):                     # (gh, gw, 4, ...) -> (N, ...)
         return np.ascontiguousarray(
@@ -1087,83 +1127,109 @@ MC_DEC_CASES = (("QCIF", 11, 9, False), ("CIF", 22, 18, False),
 MC_DEC_TIMED = ("CIF", "720p", "1080p", "band 120x34")
 
 
+def scan_kernels(torch, label, gw, gh, rec, offs, mc, rw, timed=True):
+    """The GOP scan's three kernels on one picture's inputs, each against
+    its plain twin (tolerance 0; SystemExit where they differ) and, with
+    ``timed``, timed: rec (1, gh*gw, words) int32 records with the
+    offsets offs of ``mc_decode_fast.RESIDUAL_FIELDS`` (chroma QP offset
+    0); mc the arguments of ``mc_recon_fast``; rw those of
+    ``ring_write_fast`` (the deblocked interiors, the rings, the slot and
+    the output row: the kernel writes into them, the twin into copies).
+    Returns {key: (max_abs_err, ms with the wrapper (CUDA events), µs
+    alone (``kernel_us``), the wrapper's host µs (``host_us``), the
+    twin's ms on its check run, (bound ms, bound by))} for MC_KERNELS;
+    the three times None without ``timed``."""
+    from hartallo_tpu_torch.decode import mc_decode_fast as M
+    hr, wr = rw[3].shape[2:]
+    hcr, wcr = rw[4].shape[1:]
+    twin_rw = (*rw[:3], *(r.clone() for r in rw[3:6]), rw[6], rw[7].clone())
+    calls = {
+        "residual_dec": (M.residual_planes_fast, M.residual_planes_plain,
+                         (rec, offs, 0), (rec, offs, 0),
+                         residual_dec_bound(gw, gh)),
+        "mc_dec": (M.mc_recon_fast, M.mc_recon_plain, mc, mc,
+                   mc_dec_bound(gw, gh, int(mc[-1].sum()),
+                                mc[0].element_size())),
+        "ring_write_dec": (M.ring_write_fast, M.ring_write_plain, rw, twin_rw,
+                           ring_write_bound(gw, gh, hr, wr, hcr, wcr))}
+
+    def outputs(f, a):               # the ring write's are its rings and row
+        r = f(*a, gw=gw, gh=gh)
+        return (*a[3:6], a[7]) if a is rw or a is twin_rw else r
+    res = {}
+    for key, (fast, twin, a, ta, bnd) in calls.items():
+        got = outputs(fast, a)
+        want = []
+        plain_ms = event_ms(torch, lambda: want.append(outputs(twin, ta)), 1,
+                            warm=False)
+        err, same, _ = outputs_diff(torch, got, want[0])
+        if not same:
+            raise SystemExit(f"the {key} kernel != plain at {label}")
+
+        def fn():
+            fast(*a, gw=gw, gh=gh)
+        res[key] = (err, *((event_ms(torch, fn, 20),
+                            kernel_us(torch, fn, 20, DEC_KERNELS[key]),
+                            host_us(fn, 20)) if timed else (None,) * 3),
+                    plain_ms, bnd)
+    return res
+
+
 def mc_dec_phase(torch, card):
     """The GOP scan's residual, MC and ring write kernels against their
     plain twins (tolerance 0) on seeded inputs at MC_DEC_CASES: the
     residual on two pictures a launch at chroma QP offsets -12, 0 and 12
     (``residual_rec_inputs``: qp 0..51, I16 MBs, int16-extreme
     coefficients), the MC on three slots (``mc_dec_inputs``: per-4x4 MVs
-    up to 2,000 quarter pels out, weights with logWD 0..7; the scan's
-    uint8 ring, and at the band the int32 stacks), the ring write
-    (``ring_write_inputs``); then each kernel per picture with its
-    wrapper (CUDA events) and alone (``kernel_us``), the twin (timed on
-    its check run) and the bound.  Returns (max_abs_err, and at 1080p:
-    the wrapper's and the twin's ms and the bound) for each kernel."""
+    up to 2,000 quarter pels out, and coherent motion, one MV an MB;
+    weights with logWD 0..7; the scan's uint8 ring, and at the band the
+    int32 stacks), the ring write (``ring_write_inputs``); then
+    ``scan_kernels`` on one picture: each kernel checked again, and at
+    MC_DEC_TIMED per picture with its wrapper (CUDA events) and alone
+    (``kernel_us``), the twin (timed on its check run) and the bound.
+    Returns (max_abs_err, and at 1080p: the wrapper's and the twin's ms
+    and the bound) for each kernel."""
     from hartallo_tpu_torch.decode import mc_decode_fast as M
-    from hartallo_tpu_torch.decode.d_gop import ring_shapes
 
     def cuda(a):
         return torch.tensor(a, device="cuda")
 
-    def checked(key, label, fast, plain, args, err):
-        got = fast(*args)
-        want = []
-        ms = event_ms(torch, lambda: want.append(plain(*args)), 1,
-                      warm=False)
-        e, same, _ = outputs_diff(torch, got, want[0])
+    def checked(key, label, fast, plain, args):
+        e, same, _ = outputs_diff(torch, fast(*args), plain(*args))
         if not same:
             raise SystemExit(f"the {key} kernel != plain at {label}")
-        err[key] = max(err[key], e)
-        return ms
+        errs[key] = max(errs[key], e)
     errs = dict.fromkeys(MC_KERNELS, 0)
     results = {}
     for k, (label, gw, gh, band) in enumerate(MC_DEC_CASES):
         rec, offs = residual_rec_inputs(gw, gh, 2, SEED + k)
         trec = cuda(rec)
         for cqo in (-12, 0, 12):
-            r_ms = checked("residual_dec", f"{label}, offset {cqo}",
-                           lambda r, c: M.residual_planes_fast(
-                               r, offs, c, gw=gw, gh=gh),
-                           lambda r, c: M.residual_planes_plain(
-                               r, offs, c, gw=gw, gh=gh), (trec, cqo), errs)
+            checked("residual_dec", f"{label}, offset {cqo}",
+                    lambda r, c: M.residual_planes_fast(r, offs, c, gw=gw,
+                                                        gh=gh),
+                    lambda r, c: M.residual_planes_plain(r, offs, c, gw=gw,
+                                                         gh=gh), (trec, cqo))
+        checked("mc_dec", f"{label}, coherent motion",
+                lambda *a: M.mc_recon_fast(*a, gw=gw, gh=gh),
+                lambda *a: M.mc_recon_plain(*a, gw=gw, gh=gh),
+                [cuda(a) for a in mc_dec_inputs(gw, gh, 3, SEED + k,
+                                                band=band, coherent=True)])
         case = [cuda(a) for a in mc_dec_inputs(gw, gh, 3, SEED + k,
                                                band=band)]
-        m_ms = checked("mc_dec", label,
-                       lambda *a: M.mc_recon_fast(*a, gw=gw, gh=gh),
-                       lambda *a: M.mc_recon_plain(*a, gw=gw, gh=gh), case,
-                       errs)
         planes, rings, ws, out = ring_write_inputs(gw, gh, 3, SEED + k)
-        tp = [cuda(p)[32:-32, 32:-32] for p in planes]
-        rk, rp = [cuda(r) for r in rings], [cuda(r) for r in rings]
-        ok, op = cuda(out), cuda(out)
-        M.ring_write_fast(*tp, *rk, ws, ok, gw=gw, gh=gh)
-        w_ms = event_ms(torch, lambda: M.ring_write_plain(
-            *tp, *rp, ws, op, gw=gw, gh=gh), 1, warm=False)
-        e, same, _ = outputs_diff(torch, (*rk, ok), (*rp, op))
-        if not same:
-            raise SystemExit(f"the ring_write_dec kernel != plain at {label}")
-        errs["ring_write_dec"] = max(errs["ring_write_dec"], e)
+        rw = (*(cuda(p)[32:-32, 32:-32] for p in planes),
+              *(cuda(r) for r in rings), ws, cuda(out))
+        timed = label in MC_DEC_TIMED
+        got = scan_kernels(torch, label, gw, gh, trec[:1].contiguous(), offs,
+                           case, rw, timed)
+        for key, (e, *_) in got.items():
+            errs[key] = max(errs[key], e)
         print(f"GOP scan kernels phase {label} ({gw}x{gh} MBs): residual, "
-              f"MC ({'int32' if band else 'uint8'} stacks) and ring write "
-              f"== plain", flush=True)
-        if label not in MC_DEC_TIMED:
-            continue
-        one = trec[:1].contiguous()
-        n_inter = int(case[-1].sum())
-        calls = {
-            "residual_dec": (lambda: M.residual_planes_fast(
-                one, offs, 0, gw=gw, gh=gh), r_ms / 2,
-                residual_dec_bound(gw, gh)),
-            "mc_dec": (lambda: M.mc_recon_fast(*case, gw=gw, gh=gh), m_ms,
-                       mc_dec_bound(gw, gh, n_inter,
-                                    case[0].element_size())),
-            "ring_write_dec": (lambda: M.ring_write_fast(
-                *tp, *rk, ws, ok, gw=gw, gh=gh), w_ms,
-                ring_write_bound(gw, gh, *ring_shapes(gw, gh, 3)[0][2:],
-                                 *ring_shapes(gw, gh, 3)[1][1:]))}
-        for key, (fn, plain_ms, (b_ms, b_by)) in calls.items():
-            ms = event_ms(torch, fn, 20)
-            dev_us = kernel_us(torch, fn, 20, DEC_KERNELS[key])
+              f"MC ({'int32' if band else 'uint8'} stacks; seeded and "
+              f"coherent motion) and ring write == plain", flush=True)
+        for key, (_, ms, dev_us, _, plain_ms, (b_ms, b_by)) in (
+                got.items() if timed else ()):
             dev = "not measured" if dev_us is None else f"{dev_us:.2f} us"
             print(f"[{card}] GOP scan kernel {DEC_KERNELS[key]} {label}: "
                   f"{ms * 1e3:.1f} us/picture with the wrapper, kernel "

@@ -27,39 +27,53 @@
 //
 // What bounds them on the H100: bytes.  At 1080p the residual reads the
 // 410 coefficient and parameter words of each MB and writes 384 int32
-// samples (about 26 MB, 8 us); the MC reads the residual, the per-block
-// MVs, slots and weights and about one reference sample per predicted
-// sample, and writes three padded int32 planes (about 40 MB, 12 us); the
-// ring write reads the deblocked planes and writes the byte slot and the
-// output row (about 27 MB, 8 us).  None holds a chain: every output
-// sample is a short function of inputs read once.
+// samples (about 26 MB, 7.7 us at 3.35 TB/s); the MC reads the residual,
+// the per-block MVs, slots and weights and about one reference sample per
+// predicted sample, and writes three padded int32 planes (about 32 MB with
+// 80% inter MBs, 9.5 us; chip_smoke.mc_dec_bound); the ring write reads
+// the deblocked planes once and writes the byte slot and the output row
+// (about 27 MB, 8.2 us; chip_smoke.ring_write_bound).  None holds a
+// chain: every output sample is a short function of inputs read once.
 //
-// Design (a first cut, simple and right).
-// - k_residual_dec: a warp an MB, four MBs a block of 128 threads.  Lane
-//   l < 16 takes raster 4x4 block l: the Intra16x16 DC Hadamard by width-16
-//   shuffles (the four values of its column, then of its row), its block's
-//   16 coefficients dequantised and inverse transformed in registers, four
-//   int4 row stores.  Lanes 16-23 take chroma block (comp, b) = ((l - 16)
-//   >> 2, (l - 16) & 3): the 2x2 DC Hadamard as a butterfly of two xor
-//   shuffles in groups of four, then the same.  Lanes 24-31 only take part
-//   in the shuffles.
-// - k_mc_dec: a thread per four samples of a row of the padded output
-//   planes (luma, then U, then V, on a 1-D grid): outside the picture, or
-//   in an MB that is not inter, it stores zeros; else it loads its block's
-//   MV, slot and weights and forms the four samples (luma: the clamped
-//   origin and the quarter-pel case's two taps over [G, b, h, j], averaged;
-//   chroma: two 2x2 blocks' bilinear taps), weighs them, adds the
-//   residual, clips, and stores one int4.  The reference stacks are read
-//   with their own dims as strides, as bytes (the scan's ring) or int32
-//   (the band stacks); the kernel is a template on that type.
-// - k_ring_write_dec: blockIdx.z 0, the luma slot: k_halfpel_enc's scheme
-//   (p_encode.cu), a block of 256 threads per 64 x 16 tile, G staged with
-//   its halo in shared memory once, each coordinate clamped into the
-//   picture (pad_edge, then _edge_pad's clamp into the padded plane, is
-//   one clamp into the picture), the horizontal sums once, 4 samples of a
-//   row a thread, one 32-bit store a plane; a tile wholly in the margin
-//   stores zeros.  z 1: both chroma slots, z 2: the output row, 4 bytes a
-//   thread.
+// Design.
+// - k_residual_dec (a first cut): a warp an MB, four MBs a block of 128
+//   threads.  Lane l < 16 takes raster 4x4 block l: the Intra16x16 DC
+//   Hadamard by width-16 shuffles (the four values of its column, then of
+//   its row), its block's 16 coefficients dequantised and inverse
+//   transformed in registers, four int4 row stores.  Lanes 16-23 take
+//   chroma block (comp, b) = ((l - 16) >> 2, (l - 16) & 3): the 2x2 DC
+//   Hadamard as a butterfly of two xor shuffles in groups of four, then
+//   the same.  Lanes 24-31 only take part in the shuffles.
+// - k_mc_dec: two warps an MB, a block per strip of four MBs of an MB
+//   row (a 2-D grid, no division).  The MB's two warps read its 16
+//   blocks' MVs, slots and weights once, 192 coalesced words into shared
+//   memory (its residual rows meanwhile); then warp h's lane l forms luma
+//   row 8 h + (l >> 2), columns 4 (l & 3) .. + 3, and two samples of
+//   chroma plane h, row l >> 2, one row of 2x2 block (l >> 3, l & 3): an
+//   MB's luma and both chroma planes from one block, one luma group and
+//   one chroma pair a lane.  A tap's row of four reference bytes is two
+//   aligned 32-bit loads joined by __funnelshift_r; the quarter-pel
+//   average is one __vavgu4, a chroma sample's bilinear sum one __dp4a
+//   over a __byte_perm of its two rows.  On the band's int32 stacks a row
+//   is four scalar words.  The quarter-pel case table is two 64-bit
+//   immediates, not constant memory, which would serialise a warp over
+//   its lanes' distinct cases.  An MB that is not inter stores zeros and
+//   reads no parameter.  One more block a row stores its side pads,
+//   three more rows of blocks the pad rows of each plane.  The kernel is
+//   a template on the reference type: uint8 (the scan's ring) or int32
+//   (the band stacks), each read with its own dims as strides.
+// - k_ring_write_dec: one flat grid, the luma slot's 64 x 32 tiles, then
+//   the chroma slots' 64 x 32 tiles (no block idle).  A luma tile stages
+//   its G with a halo of 2 rows above, 3 below and 4 columns a side in
+//   shared memory once, as int4 (each coordinate clamped into the picture:
+//   pad_edge, then _edge_pad's clamp into the padded plane, is one clamp
+//   into the picture; a 4-column group is all inside or all one edge
+//   sample); a thread takes 4 columns of 2 rows, walking down with G and
+//   its horizontal sums of six rows in registers, and stores one word a
+//   plane a row and, inside the picture, the output row's luma from the
+//   same G.  A chroma tile reads each sample of both planes once (int4)
+//   and writes the slots and the output row's chroma.  A tile wholly in
+//   the slot's margin stores zeros.
 //
 // Integer only.  Sums and products wrap as torch's int32 does (they are
 // formed in uint32_t); right shifts of negative values floor.  The
@@ -75,8 +89,7 @@ constexpr int PAD = 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 // ops/wide.py's tables (core/tables.py): QUANT_V[qp % 6] in raster
-// order, QP_SCALE_CHROMA, and _QPT, the quarter-pel cases 4 fy + fx ->
-// (plane, dx, dy) of the two taps (planes 0 G, 1 b, 2 h, 3 j)
+// order and QP_SCALE_CHROMA
 __constant__ int c_quant_v[6][16] = {
     {10, 13, 10, 13, 13, 16, 13, 16, 10, 13, 10, 13, 13, 16, 13, 16},
     {11, 14, 11, 14, 14, 18, 14, 18, 11, 14, 11, 14, 14, 18, 14, 18},
@@ -88,13 +101,6 @@ __constant__ int c_qpc[52] = {
     0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17,
     18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 29, 30, 31, 32, 32, 33,
     34, 34, 35, 35, 36, 36, 37, 37, 37, 38, 38, 38, 39, 39, 39, 39};
-__constant__ int c_qpt[16][6] = {
-    {0, 0, 0, 0, 0, 0}, {0, 0, 0, 1, 0, 0}, {1, 0, 0, 1, 0, 0},
-    {1, 0, 0, 0, 1, 0}, {0, 0, 0, 2, 0, 0}, {1, 0, 0, 2, 0, 0},
-    {1, 0, 0, 3, 0, 0}, {1, 0, 0, 2, 1, 0}, {2, 0, 0, 2, 0, 0},
-    {2, 0, 0, 3, 0, 0}, {3, 0, 0, 3, 0, 0}, {3, 0, 0, 2, 1, 0},
-    {2, 0, 0, 0, 0, 1}, {2, 0, 0, 1, 0, 1}, {3, 0, 0, 1, 0, 1},
-    {2, 1, 0, 1, 0, 1}};
 
 // int32 arithmetic that wraps as torch's does
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -268,7 +274,12 @@ __global__ void __launch_bounds__(RD_THREADS) k_residual_dec(RdArgs a) {
 // ---------------------------------------------------------------------------
 // k_mc_dec
 // ---------------------------------------------------------------------------
-constexpr int MC_THREADS = 256;          // a thread per 4 samples of a row
+constexpr int MC_MBS = 4;                // two warps an MB, a strip of 4
+constexpr int MC_THREADS = 64 * MC_MBS;  // MBs of one MB row a block
+// an MB's 16 blocks' parameters as staged: mv (16, 2) at 0, slot (16) at
+// 32, wp_l (16, 3) at 48, wp_c (16, 2, 3) at 96
+constexpr int MC_PARAM_WORDS = 192;
+constexpr int MC_SMEM_BYTES = MC_MBS * MC_PARAM_WORDS * 4;
 
 template <class T>
 struct McArgs {
@@ -288,17 +299,13 @@ struct McArgs {
   int ys_h, ys_w, cs_h, cs_w, gw, gh;
 };
 
-// the luma and the chroma groups of four samples
-__host__ __device__ inline long long mc_groups_y(int gw, int gh) {
-  return (long long)(16 * gh + 2 * PAD) * ((16 * gw + 2 * PAD) >> 2);
+// the grid: a block per strip of MC_MBS MBs of an MB row, one more block
+// a row for its side pads, and three more rows of blocks for the pad rows
+// above and below each plane
+__host__ __device__ inline int mc_strips(int gw) {
+  return (gw + MC_MBS - 1) / MC_MBS;
 }
-__host__ __device__ inline long long mc_groups_c(int gw, int gh) {
-  return (long long)(8 * gh + 2 * PAD) * ((8 * gw + 2 * PAD) >> 2);
-}
-__host__ __device__ inline int mc_blocks(int gw, int gh) {
-  return (int)((mc_groups_y(gw, gh) + 2 * mc_groups_c(gw, gh) +
-                MC_THREADS - 1) / MC_THREADS);
-}
+__host__ __device__ inline int mc_grid_rows(int gh) { return gh + 3; }
 
 // 8.4.2.3.2 explicit weighting (ops/wide._weigh), clipped
 __device__ __forceinline__ int weigh(int pred, int w, int o, int lwd) {
@@ -306,115 +313,251 @@ __device__ __forceinline__ int weigh(int pred, int w, int o, int lwd) {
                 wadd(wadd(wmul(pred, w), (1 << lwd) >> 1) >> lwd, o));
 }
 
+// _QPT as bytes: case 4 fy + fx -> plane a | dx a << 2 | dy a << 3 |
+// plane b << 4 | dx b << 6 | dy b << 7, case c in byte c & 7 of QPT_LO
+// (c < 8) or QPT_HI (a lane's case is its own: a table in constant
+// memory would serialise a warp over its distinct cases)
+constexpr unsigned long long QPT_LO = 0x6131212041111000ull;
+constexpr unsigned long long QPT_HI = 0x9693928263333222ull;
+
+__device__ __forceinline__ int qpt_case(int c) {
+  return (int)(((c & 8) ? QPT_HI : QPT_LO) >> ((c & 7) << 3)) & 255;
+}
+
+// Four consecutive reference samples from p, of which the first N are
+// used.  Bytes: the two aligned words around them joined by a funnel
+// shift, one little-endian word; the second word is read only where the
+// N samples reach into it (a random block then touches no more sectors
+// than its samples lie in), and at most 7 bytes past p, which the MC's
+// clamps keep inside the plane's next row.  int32: N scalar words (two
+// aligned int4 around them ran 13-16% slower on the H100 where the
+// blocks' MVs scatter, and no faster on a stream's own motion).
+template <int N>
+__device__ __forceinline__ uint32_t row4(const uint8_t* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~(uintptr_t)3);
+  const unsigned sh = (unsigned)(a & 3) << 3;
+  return __funnelshift_r(w[0], (int)(a & 3) > 4 - N ? w[1] : 0u, sh);
+}
+
+template <int N>
+__device__ __forceinline__ int4 row4(const int32_t* p) {
+  return make_int4(p[0], p[1], p[2], N > 3 ? p[3] : 0);
+}
+
+// the luma prediction of four samples: the rounded average of the two
+// taps' rows (a byte-wise __vavgu4 on the ring)
+__device__ __forceinline__ void luma4(const uint8_t* pa, const uint8_t* pb,
+                                      int (&pred)[4]) {
+  const uint32_t v = __vavgu4(row4<4>(pa), row4<4>(pb));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) pred[j] = (int)(v >> (8 * j)) & 255;
+}
+
+__device__ __forceinline__ void luma4(const int32_t* pa, const int32_t* pb,
+                                      int (&pred)[4]) {
+  const int4 a = row4<4>(pa), b = row4<4>(pb);
+  pred[0] = (a.x + b.x + 1) >> 1;
+  pred[1] = (a.y + b.y + 1) >> 1;
+  pred[2] = (a.z + b.z + 1) >> 1;
+  pred[3] = (a.w + b.w + 1) >> 1;
+}
+
+// the bilinear chroma prediction of a 2x2 block's two samples of a row
+// from rows p0 and p0 + stride (8.4.2.2.2); on the ring the four taps of a
+// sample as one word (__byte_perm) and their weighted sum as one __dp4a
+__device__ __forceinline__ void chroma2(const uint8_t* p0, int stride,
+                                        int dx, int dy, int (&pred)[2]) {
+  const uint32_t r0 = row4<3>(p0), r1 = row4<3>(p0 + stride);
+  const uint32_t w = (uint32_t)((8 - dx) * (8 - dy)) |
+                     (uint32_t)(dx * (8 - dy)) << 8 |
+                     (uint32_t)((8 - dx) * dy) << 16 |
+                     (uint32_t)(dx * dy) << 24;
+  pred[0] = (int)(__dp4a(__byte_perm(r0, r1, 0x5410), w, 32u) >> 6);
+  pred[1] = (int)(__dp4a(__byte_perm(r0, r1, 0x6521), w, 32u) >> 6);
+}
+
+__device__ __forceinline__ void chroma2(const int32_t* p0, int stride,
+                                        int dx, int dy, int (&pred)[2]) {
+  const int4 r0 = row4<3>(p0), r1 = row4<3>(p0 + stride);
+  const int a = (8 - dx) * (8 - dy), b = dx * (8 - dy), c = (8 - dx) * dy,
+            d = dx * dy;
+  pred[0] = (a * r0.x + b * r0.y + c * r1.x + d * r1.y + 32) >> 6;
+  pred[1] = (a * r0.y + b * r0.z + c * r1.y + d * r1.z + 32) >> 6;
+}
+
+// the zero pad of the three planes outside the MBs.  Rows gh + p of the
+// grid: the PAD rows above and below plane p, row by row over its
+// blocks; the extra block of an MB row: that row's PAD columns left and
+// right.
+template <class T>
+__device__ __forceinline__ void mc_zero_pad(const McArgs<T>& a, int strips) {
+  const int4 zero = make_int4(0, 0, 0, 0);
+  const int H = 16 * a.gh, Wo = 16 * a.gw + 2 * PAD;
+  const int Hc = 8 * a.gh, Wco = 8 * a.gw + 2 * PAD;
+  const int tid = threadIdx.x;
+  if (blockIdx.y >= a.gh) {
+    const int p = blockIdx.y - a.gh;
+    const int h = p ? Hc : H, w = p ? Wco : Wo;
+    int32_t* o = p == 0 ? a.out_y : p == 1 ? a.out_u : a.out_v;
+    for (int i = blockIdx.x; i < 2 * PAD; i += strips + 1) {
+      int32_t* row = o + (size_t)(i < PAD ? i : h + i) * w;
+      for (int c = tid << 2; c < w; c += MC_THREADS << 2) st4(row + c, zero);
+    }
+    return;
+  }
+  // MB row my's side pads: its 16 luma rows, then 8 rows of each chroma
+  // plane, 2 PAD / 4 int4 a row (PAD / 4 a side)
+  const int my = blockIdx.y;
+  for (int i = tid; i < 32 * (2 * PAD / 4); i += MC_THREADS) {
+    const int row = i >> 4, k = i & 15;        // 2 PAD / 4 == 16
+    const int col = ((k & 7) << 2) + (k >> 3) * (row < 16 ? Wo - PAD
+                                                          : Wco - PAD);
+    int32_t* o = row < 16 ? a.out_y + (size_t)(PAD + 16 * my + row) * Wo
+                          : (row < 24 ? a.out_u : a.out_v) +
+                                (size_t)(PAD + 8 * my + ((row - 16) & 7)) *
+                                    Wco;
+    st4(o + col, zero);
+  }
+}
+
+__device__ __forceinline__ int2 ld2(const int* p) {
+  return *reinterpret_cast<const int2*>(p);
+}
+__device__ __forceinline__ void st2(int* p, int2 v) {
+  *reinterpret_cast<int2*>(p) = v;
+}
+
 template <class T>
 __global__ void __launch_bounds__(MC_THREADS) k_mc_dec(McArgs<T> a) {
-  const long long t = (long long)blockIdx.x * MC_THREADS + threadIdx.x;
-  const long long ny = mc_groups_y(a.gw, a.gh), nc = mc_groups_c(a.gw, a.gh);
-  if (t >= ny + 2 * nc) return;
-  int v[4] = {0, 0, 0, 0};
-  int32_t* o;
-  if (t < ny) {                           // luma
-    const int H = 16 * a.gh, W = 16 * a.gw, gpr = (W + 2 * PAD) >> 2;
-    const int y = (int)(t / gpr), x = (int)(t - (long long)y * gpr) << 2;
-    o = a.out_y + (size_t)y * (W + 2 * PAD) + x;
-    const int py = y - PAD, px = x - PAD;
-    if (py >= 0 && py < H && px >= 0 && px < W &&
-        a.inter[(py >> 4) * a.gw + (px >> 4)]) {
-      const int n = ((((py >> 4) * a.gw + (px >> 4)) << 2 | ((py >> 2) & 3))
-                     << 2) | ((px >> 2) & 3);
-      const int mvx = a.mv[2 * n], mvy = a.mv[2 * n + 1];
-      const int s = a.slot[n];
-      const int w = a.wp_l[3 * n], off = a.wp_l[3 * n + 1],
-                lwd = a.wp_l[3 * n + 2];
-      // the block's clamped origin in the padded reference
-      const int xi = clampi(-(PAD - 2), W + PAD - 7, px + (mvx >> 2)) + PAD;
-      const int yi = clampi(-(PAD - 2), H + PAD - 7, (py & ~3) + (mvy >> 2)) +
-                     PAD + (py & 3);
-      const int* cs = c_qpt[4 * (mvy & 3) + (mvx & 3)];
-      const T* pa = a.ref_y +
-                    (((size_t)s * 4 + cs[0]) * a.ys_h + yi + cs[2]) * a.ys_w +
-                    xi + cs[1];
-      const T* pb = a.ref_y +
-                    (((size_t)s * 4 + cs[3]) * a.ys_h + yi + cs[5]) * a.ys_w +
-                    xi + cs[4];
-      const int4 r = ld4(a.res_y + (size_t)py * W + px);
-      const int rr[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int pred = ((int)pa[j] + (int)pb[j] + 1) >> 1;
-        v[j] = clampi(0, 255, wadd(weigh(pred, w, off, lwd), rr[j]));
-      }
-    }
-  } else {                                // chroma, U then V
-    const int comp = t - ny >= nc;
-    const long long tc = t - ny - comp * nc;
-    const int H = 8 * a.gh, W = 8 * a.gw, gpr = (W + 2 * PAD) >> 2;
-    const int y = (int)(tc / gpr), x = (int)(tc - (long long)y * gpr) << 2;
-    o = (comp ? a.out_v : a.out_u) + (size_t)y * (W + 2 * PAD) + x;
-    const int py = y - PAD, px = x - PAD;
-    if (py >= 0 && py < H && px >= 0 && px < W &&
-        a.inter[(py >> 3) * a.gw + (px >> 3)]) {
-      const T* ref = comp ? a.ref_v : a.ref_u;
-      const int4 r = ld4(a.res_c + ((size_t)comp * H + py) * W + px);
-      const int rr[4] = {r.x, r.y, r.z, r.w};
-      // two 2x2 blocks side by side: blocks bx and bx + 1 of the MB row by
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int cbx = px + 2 * h;       // the block's origin
-        const int n = ((((py >> 3) * a.gw + (px >> 3)) << 2 |
-                        ((py >> 1) & 3)) << 2) | ((cbx >> 1) & 3);
-        const int mvx = a.mv[2 * n], mvy = a.mv[2 * n + 1];
-        const int s = a.slot[n];
-        const int* wp = a.wp_c + 6 * n + 3 * comp;
-        const int xi = clampi(-(PAD - 1), W + PAD - 4, cbx + (mvx >> 3)) + PAD;
-        const int yi = clampi(-(PAD - 1), H + PAD - 4, (py & ~1) + (mvy >> 3)) +
-                       PAD + (py & 1);
-        const int dx = mvx & 7, dy = mvy & 7;
-        const T* p0 = ref + ((size_t)s * a.cs_h + yi) * a.cs_w + xi;
-        const T* p1 = p0 + a.cs_w;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int pred =
-              ((8 - dx) * (8 - dy) * (int)p0[j] + dx * (8 - dy) * (int)p0[j + 1] +
-               (8 - dx) * dy * (int)p1[j] + dx * dy * (int)p1[j + 1] + 32) >> 6;
-          v[2 * h + j] = clampi(
-              0, 255, wadd(weigh(pred, wp[0], wp[1], wp[2]), rr[2 * h + j]));
-        }
-      }
-    }
+  extern __shared__ int smem[];
+  const int strips = mc_strips(a.gw);
+  if (blockIdx.y >= a.gh || blockIdx.x == strips) {
+    mc_zero_pad(a, strips);
+    return;
   }
-  st4(o, make_int4(v[0], v[1], v[2], v[3]));
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int j = tid >> 6, half = (tid >> 5) & 1;    // MB j of the strip
+  const int my = blockIdx.y, mx = blockIdx.x * MC_MBS + j;
+  const int H = 16 * a.gh, W = 16 * a.gw, Wo = W + 2 * PAD;
+  const int Hc = H >> 1, Wc = W >> 1, Wco = Wc + 2 * PAD;
+  const int m = my * a.gw + mx;
+  const bool live = mx < a.gw && a.inter[m];
+  // luma: row ly of the MB, columns lc .. lc + 3, in block lb
+  const int ly = 8 * half + (lane >> 2), lc = (lane & 3) << 2;
+  const int lb = (ly >> 2 << 2) | (lane & 3);
+  // chroma: plane half, row cy of the MB, columns cc, cc + 1: one row of
+  // 2x2 block cb
+  const int cy = lane >> 2, cc = (lane & 3) << 1;
+  const int cb = (cy >> 1 << 2) | (lane & 3);
+  int4 ry = make_int4(0, 0, 0, 0);
+  int2 rc = make_int2(0, 0);
+  int* sp = smem + j * MC_PARAM_WORDS;
+  if (live) {
+    // the MB's 16 blocks' parameters, read once by its two warps, three
+    // coalesced words a thread; its residual rows meanwhile
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int w = (tid & 63) + 64 * k;
+      const int32_t* src = w < 32   ? a.mv + 32 * (size_t)m + w
+                           : w < 48 ? a.slot + 16 * (size_t)m + (w - 32)
+                           : w < 96 ? a.wp_l + 48 * (size_t)m + (w - 48)
+                                    : a.wp_c + 96 * (size_t)m + (w - 96);
+      sp[w] = *src;
+    }
+    ry = ld4(a.res_y + (size_t)(16 * my + ly) * W + 16 * mx + lc);
+    rc = ld2(a.res_c + ((size_t)half * Hc + 8 * my + cy) * Wc + 8 * mx + cc);
+  }
+  __syncthreads();
+  if (mx >= a.gw) return;                 // both warps of the MB
+  int32_t* oy =
+      a.out_y + (size_t)(PAD + 16 * my + ly) * Wo + PAD + 16 * mx + lc;
+  int32_t* oc = (half ? a.out_v : a.out_u) +
+                (size_t)(PAD + 8 * my + cy) * Wco + PAD + 8 * mx + cc;
+  if (!live) {                            // not inter: zeros, no parameter
+    st4(oy, make_int4(0, 0, 0, 0));
+    st2(oc, make_int2(0, 0));
+    return;
+  }
+  {
+    const int mvx = sp[2 * lb], mvy = sp[2 * lb + 1], s = sp[32 + lb];
+    const int* wl = sp + 48 + 3 * lb;
+    const int px = 16 * mx + lc, py = 16 * my + ly;
+    // the block's clamped origin in the padded reference
+    const int xi = clampi(-(PAD - 2), W + PAD - 7, px + (mvx >> 2)) + PAD;
+    const int yi = clampi(-(PAD - 2), H + PAD - 7, (py & ~3) + (mvy >> 2)) +
+                   PAD + (py & 3);
+    const int q = qpt_case(4 * (mvy & 3) + (mvx & 3));
+    const size_t plane = (size_t)a.ys_h * a.ys_w;
+    const T* base =
+        a.ref_y + (size_t)s * 4 * plane + (size_t)yi * a.ys_w + xi;
+    const T* pa = base + (q & 3) * plane + ((q >> 3) & 1) * a.ys_w +
+                  ((q >> 2) & 1);
+    const T* pb = base + ((q >> 4) & 3) * plane + (q >> 7) * a.ys_w +
+                  ((q >> 6) & 1);
+    int pred[4];
+    luma4(pa, pb, pred);
+    const int w = wl[0], off = wl[1], lwd = wl[2];
+    st4(oy,
+        make_int4(clampi(0, 255, wadd(weigh(pred[0], w, off, lwd), ry.x)),
+                  clampi(0, 255, wadd(weigh(pred[1], w, off, lwd), ry.y)),
+                  clampi(0, 255, wadd(weigh(pred[2], w, off, lwd), ry.z)),
+                  clampi(0, 255, wadd(weigh(pred[3], w, off, lwd), ry.w))));
+  }
+  {
+    const int mvx = sp[2 * cb], mvy = sp[2 * cb + 1], s = sp[32 + cb];
+    const int* wp = sp + 96 + 6 * cb + 3 * half;
+    const int px = 8 * mx + cc, py = 8 * my + cy;   // the block's column
+    const int xi = clampi(-(PAD - 1), Wc + PAD - 4, px + (mvx >> 3)) + PAD;
+    const int yi = clampi(-(PAD - 1), Hc + PAD - 4, (py & ~1) + (mvy >> 3)) +
+                   PAD + (py & 1);
+    const int dx = mvx & 7, dy = mvy & 7;
+    int pred[2];
+    chroma2((half ? a.ref_v : a.ref_u) + ((size_t)s * a.cs_h + yi) * a.cs_w +
+                xi,
+            a.cs_w, dx, dy, pred);
+    const int w = wp[0], off = wp[1], lwd = wp[2];
+    st2(oc, make_int2(clampi(0, 255, wadd(weigh(pred[0], w, off, lwd), rc.x)),
+                      clampi(0, 255, wadd(weigh(pred[1], w, off, lwd), rc.y))));
+  }
 }
 
 // ---------------------------------------------------------------------------
 // k_ring_write_dec
 // ---------------------------------------------------------------------------
 constexpr int RW_TW = 64;                // a tile: columns
-constexpr int RW_TH = 16;                // and rows
-constexpr int RW_THREADS = 256;          // a thread per 4 samples of a row
+constexpr int RW_TH = 32;                // and rows
+constexpr int RW_RUN = 2;                // rows a thread walks down
+constexpr int RW_THREADS = (RW_TW / 4) * (RW_TH / RW_RUN);
 constexpr int RW_GW = RW_TW + 8;         // G's staged row: 4 halo columns a
                                          // side (2 and 3 are read)
 constexpr int RW_ROWS = RW_TH + 5;       // staged rows: 2 above, 3 below
-constexpr int RW_SMEM_WORDS = RW_ROWS * (RW_GW + RW_TW);
-constexpr int RW_SMEM_BYTES = RW_SMEM_WORDS * 4;
-static_assert(RW_THREADS * 4 == RW_TW * RW_TH && RW_TW == 64,
-              "k_ring_write_dec maps a thread to 4 samples of a 64-wide row");
+constexpr int RW_SMEM_BYTES = RW_ROWS * RW_GW * 4;
+static_assert(RW_THREADS == 256 && RW_GW % 4 == 0,
+              "k_ring_write_dec: 16 column groups of 4 by 16 runs of rows");
 
 struct RwArgs {
   const int32_t* y;        // the deblocked picture (16 gh, 16 gw), row
   const int32_t* u;        // stride ys; chroma (8 gh, 8 gw), strides
-  const int32_t* v;        // us, vs
-  uint8_t* ring_y;         // slot ws: (4, hr, wr)
+  const int32_t* v;        // us, vs; each 16-byte aligned, strides
+  uint8_t* ring_y;         // multiples of 4; slot ws: (4, hr, wr)
   uint8_t* ring_u;         // (hcr, wcr)
   uint8_t* ring_v;
   uint8_t* out;            // (24 gh, 16 gw)
   int ys, us, vs, hr, wr, hcr, wcr, gw, gh;
 };
 
-__host__ __device__ inline int rw_rows(int gh, int hr, int hcr) {
-  int n = hr > 24 * gh ? hr : 24 * gh;
-  n = n > hcr ? n : hcr;
-  return (n + RW_TH - 1) / RW_TH;
+// the grid: the luma slot's 64 x 32 tiles (wr / 64 a row), then the
+// chroma slots' (both planes a tile)
+__host__ __device__ inline int rw_luma_tiles(int hr, int wr) {
+  return (wr / RW_TW) * ((hr + RW_TH - 1) / RW_TH);
+}
+__host__ __device__ inline int rw_chroma_cols(int wcr) {
+  return (wcr + RW_TW - 1) / RW_TW;
+}
+__host__ __device__ inline int rw_blocks(int hr, int wr, int hcr, int wcr) {
+  return rw_luma_tiles(hr, wr) +
+         rw_chroma_cols(wcr) * ((hcr + RW_TH - 1) / RW_TH);
 }
 
 // The 6-tap sum of p[0], p[s], ..., p[5 s] (halfpel_prims.cuh's taps)
@@ -423,89 +566,133 @@ __device__ __forceinline__ int tap6(const int* p, int s) {
          p[5 * s];
 }
 
+// four samples of a plane row from column c (a multiple of 4), the
+// columns clamped into [0, w - 1] (w a multiple of 4: the four are all
+// inside, or all on one side and each the edge sample)
+__device__ __forceinline__ int4 clamped4(const int32_t* row, int c, int w) {
+  if (c < 0) return make_int4(row[0], row[0], row[0], row[0]);
+  if (c >= w) return make_int4(row[w - 1], row[w - 1], row[w - 1], row[w - 1]);
+  return ld4(row + c);
+}
+
+__device__ __forceinline__ uint32_t pack4(int4 v) {
+  return pack4(v.x, v.y, v.z, v.w);
+}
+
+// the chroma slots and the output row's chroma: thread (rg, cg) takes
+// columns x .. x + 3 of RW_RUN rows of both planes, each sample read once
+__device__ void rw_chroma(const RwArgs& a, int tile) {
+  const int cols = rw_chroma_cols(a.wcr);
+  const int ty = tile / cols, tx = tile - ty * cols;
+  const int x = tx * RW_TW + ((threadIdx.x & 15) << 2);
+  const int yb = ty * RW_TH + (threadIdx.x >> 4) * RW_RUN;
+  if (x >= a.wcr) return;
+  const int H = 16 * a.gh, W = 16 * a.gw, Hc = H >> 1, Wc = W >> 1;
+  const bool col_in = x < Wc + 2 * PAD;
+  const bool col_out = x >= PAD && x < Wc + PAD;   // in the output row
+  for (int k = 0; k < RW_RUN; ++k) {
+    const int y = yb + k;
+    if (y >= a.hcr) return;
+    const bool in = col_in && y < Hc + 2 * PAD;
+    const int sy = clampi(0, Hc - 1, y - PAD);
+#pragma unroll
+    for (int comp = 0; comp < 2; ++comp) {
+      uint32_t q = 0;
+      if (in) {
+        q = pack4(clamped4((comp ? a.v : a.u) +
+                               (size_t)sy * (comp ? a.vs : a.us),
+                           x - PAD, Wc));
+        if (col_out && y >= PAD && y < Hc + PAD)
+          *reinterpret_cast<uint32_t*>(a.out + (size_t)(H + y - PAD) * W +
+                                       comp * Wc + x - PAD) = q;
+      }
+      *reinterpret_cast<uint32_t*>((comp ? a.ring_v : a.ring_u) +
+                                   (size_t)y * a.wcr + x) = q;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(RW_THREADS) k_ring_write_dec(RwArgs a) {
   extern __shared__ int smem[];
-  const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * RW_TW, y0 = blockIdx.y * RW_TH;
-  const int r = tid >> 4, c = (tid & 15) << 2;
-  const int y = y0 + r, x = x0 + c;
+  const int tile = blockIdx.x, luma_tiles = rw_luma_tiles(a.hr, a.wr);
+  if (tile >= luma_tiles) {
+    rw_chroma(a, tile - luma_tiles);
+    return;
+  }
+  // the luma slot, [G, b, h, j] of the edge-padded picture, and the
+  // output row's luma from the same staged G
+  const int tid = threadIdx.x, cols = a.wr / RW_TW;
+  const int ty = tile / cols, tx = tile - ty * cols;
+  const int x0 = tx * RW_TW, y0 = ty * RW_TH;
+  const int cg = tid & 15, rg = tid >> 4;
+  const int x = x0 + (cg << 2), yb = y0 + rg * RW_RUN;
   const int H = 16 * a.gh, W = 16 * a.gw;
-  if (blockIdx.z == 1) {                  // the chroma slots
-    if (y >= a.hcr || x >= a.wcr) return;
-    const int Hc = H >> 1, Wc = W >> 1;
-    const bool in = y < Hc + 2 * PAD && x < Wc + 2 * PAD;
-    const int sy = clampi(0, Hc - 1, y - PAD);
-    for (int comp = 0; comp < 2; ++comp) {
-      const int32_t* p = (comp ? a.v : a.u) + (size_t)sy * (comp ? a.vs : a.us);
-      int q[4] = {0, 0, 0, 0};
-      if (in)
-        for (int k = 0; k < 4; ++k) q[k] = p[clampi(0, Wc - 1, x + k - PAD)];
-      *reinterpret_cast<uint32_t*>((comp ? a.ring_v : a.ring_u) +
-                                   (size_t)y * a.wcr + x) =
-          pack4(q[0], q[1], q[2], q[3]);
-    }
-    return;
-  }
-  if (blockIdx.z == 2) {                  // the output row
-    if (y >= 24 * a.gh || x >= W) return;
-    const int32_t* p;
-    if (y < H) {
-      p = a.y + (size_t)y * a.ys + x;
-    } else if (x < (W >> 1)) {
-      p = a.u + (size_t)(y - H) * a.us + x;
-    } else {
-      p = a.v + (size_t)(y - H) * a.vs + x - (W >> 1);
-    }
-    *reinterpret_cast<uint32_t*>(a.out + (size_t)y * W + x) =
-        pack4(p[0], p[1], p[2], p[3]);
-    return;
-  }
-  // the luma slot, [G, b, h, j] of the edge-padded picture (hr is a
-  // multiple of 16: a tile's rows are all in the slot or none)
-  if (y0 >= a.hr) return;
   const int hp = H + 2 * PAD, wp = W + 2 * PAD;
   const size_t plane = (size_t)a.hr * a.wr;
-  uint8_t* o = a.ring_y + (size_t)y * a.wr + x;
+  uint8_t* o = a.ring_y + (size_t)yb * a.wr + x;
+  const int rows = min(RW_RUN, a.hr - yb);   // this thread's, in the slot
   if (y0 >= hp || x0 >= wp) {             // a tile in the margin
-    for (int p = 0; p < 4; ++p)
-      *reinterpret_cast<uint32_t*>(o + p * plane) = 0;
+    for (int k = 0; k < rows; ++k)
+      for (int p = 0; p < 4; ++p)
+        *reinterpret_cast<uint32_t*>(o + p * plane + (size_t)k * a.wr) = 0;
     return;
   }
-  int* sg = smem;                         // [RW_ROWS][RW_GW] G
-  int* sh = smem + RW_ROWS * RW_GW;       // [RW_ROWS][RW_TW] H1
   // staged row i is padded row y0 - 2 + i, staged column j padded column
-  // x0 - 4 + j; both clamped into the picture
-  for (int i = tid >> 5; i < RW_ROWS; i += RW_THREADS / 32) {
-    const int32_t* row =
-        a.y + (size_t)clampi(0, H - 1, y0 - 2 + i - PAD) * a.ys;
-    for (int j = tid & 31; j < RW_GW; j += 32)
-      sg[i * RW_GW + j] = row[clampi(0, W - 1, x0 - 4 + j - PAD)];
+  // x0 - 4 + j; both clamped into the picture; a row as 18 int4
+  int* sg = smem;
+  for (int i = tid; i < RW_ROWS * (RW_GW / 4); i += RW_THREADS) {
+    const int r = i / (RW_GW / 4), k = i - r * (RW_GW / 4);
+    st4(sg + r * RW_GW + 4 * k,
+        clamped4(a.y + (size_t)clampi(0, H - 1, y0 - 2 + r - PAD) * a.ys,
+                 x0 - 4 + 4 * k - PAD, W));
   }
   __syncthreads();
-  for (int i = tid; i < RW_ROWS * (RW_TW / 4); i += RW_THREADS) {
-    const int rr = i >> 4, cc = (i & 15) << 2;
-    const int4 g0 = ld4(sg + rr * RW_GW + cc), g1 = ld4(sg + rr * RW_GW + cc + 4),
-               g2 = ld4(sg + rr * RW_GW + cc + 8);
-    const int g[12] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y,
-                       g1.z, g1.w, g2.x, g2.y, g2.z, g2.w};
-    st4(sh + rr * RW_TW + cc, make_int4(tap6(g + 2, 1), tap6(g + 3, 1),
-                                        tap6(g + 4, 1), tap6(g + 5, 1)));
-  }
-  __syncthreads();
-  int q[4][4] = {};                       // [plane][sample]
-  if (y < hp && x < wp) {
-    for (int k = 0; k < 4; ++k) {
-      const int* gc = sg + r * RW_GW + c + 4 + k;   // G rows y - 2 .. y + 3
-      const int* hc = sh + r * RW_TW + c + k;       // H1 rows y - 2 .. y + 3
-      q[0][k] = gc[2 * RW_GW];
-      q[1][k] = hp_round5(hc[2 * RW_TW]);
-      q[2][k] = hp_round5(tap6(gc, RW_GW));
-      q[3][k] = hp_round10(tap6(hc, RW_TW));
+  const bool col_in = x < wp;
+  const bool col_out = x >= PAD && x < W + PAD;
+  // the window: G and its horizontal sums H1 of six staged rows, four
+  // columns, moving down one row a step
+  int g[6][4] = {}, h1[6][4] = {};
+  const int* base = sg + rg * RW_RUN * RW_GW + (cg << 2);
+#pragma unroll
+  for (int i = 0; i < RW_RUN + 5; ++i) {
+    const int* row = base + i * RW_GW;
+    const int4 v0 = ld4(row), v1 = ld4(row + 4), v2 = ld4(row + 8);
+    const int v[12] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y,
+                       v1.z, v1.w, v2.x, v2.y, v2.z, v2.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int t = 0; t < 5; ++t) {
+        g[t][j] = g[t + 1][j];
+        h1[t][j] = h1[t + 1][j];
+      }
+      g[5][j] = v[4 + j];
+      h1[5][j] = tap6(v + 2 + j, 1);
     }
+    if (i < 5) continue;
+    const int k = i - 5, y = yb + k;       // the output row
+    if (k >= rows) break;
+    int q[4][4] = {};                      // [plane][sample]
+    if (col_in && y < hp) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        q[0][j] = g[2][j];
+        q[1][j] = hp_round5(h1[2][j]);
+        q[2][j] = hp_round5(g[0][j] - 5 * g[1][j] + 20 * g[2][j] +
+                            20 * g[3][j] - 5 * g[4][j] + g[5][j]);
+        q[3][j] = hp_round10(h1[0][j] - 5 * h1[1][j] + 20 * h1[2][j] +
+                             20 * h1[3][j] - 5 * h1[4][j] + h1[5][j]);
+      }
+      if (col_out && y >= PAD && y < H + PAD)
+        *reinterpret_cast<uint32_t*>(a.out + (size_t)(y - PAD) * W + x -
+                                     PAD) =
+            pack4(q[0][0], q[0][1], q[0][2], q[0][3]);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      *reinterpret_cast<uint32_t*>(o + p * plane + (size_t)k * a.wr) =
+          pack4(q[p][0], q[p][1], q[p][2], q[p][3]);
   }
-  for (int p = 0; p < 4; ++p)
-    *reinterpret_cast<uint32_t*>(o + p * plane) =
-        pack4(q[p][0], q[p][1], q[p][2], q[p][3]);
 }
 
 }  // namespace
@@ -531,19 +718,19 @@ extern "C" int hl_mc_dec(const void* ref_y, const void* ref_u,
                          int32_t* out_y, int32_t* out_u, int32_t* out_v,
                          int ys_h, int ys_w, int cs_h, int cs_w, int gw,
                          int gh, cudaStream_t stream) {
-  const int blocks = mc_blocks(gw, gh);
+  const dim3 grid(mc_strips(gw) + 1, mc_grid_rows(gh));
   if (bytes == 1) {
     const McArgs<uint8_t> a{(const uint8_t*)ref_y, (const uint8_t*)ref_u,
                             (const uint8_t*)ref_v, mv, slot, wp_l, wp_c,
                             res_y, res_c, inter, out_y, out_u, out_v,
                             ys_h, ys_w, cs_h, cs_w, gw, gh};
-    k_mc_dec<uint8_t><<<blocks, MC_THREADS, 0, stream>>>(a);
+    k_mc_dec<uint8_t><<<grid, MC_THREADS, MC_SMEM_BYTES, stream>>>(a);
   } else if (bytes == 4) {
     const McArgs<int32_t> a{(const int32_t*)ref_y, (const int32_t*)ref_u,
                             (const int32_t*)ref_v, mv, slot, wp_l, wp_c,
                             res_y, res_c, inter, out_y, out_u, out_v,
                             ys_h, ys_w, cs_h, cs_w, gw, gh};
-    k_mc_dec<int32_t><<<blocks, MC_THREADS, 0, stream>>>(a);
+    k_mc_dec<int32_t><<<grid, MC_THREADS, MC_SMEM_BYTES, stream>>>(a);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -558,7 +745,7 @@ extern "C" int hl_ring_write_dec(const int32_t* y, const int32_t* u,
                                  cudaStream_t stream) {
   const RwArgs a{y, u, v, ring_y, ring_u, ring_v, out, ys, us, vs,
                  hr, wr, hcr, wcr, gw, gh};
-  const dim3 grid((wr + RW_TW - 1) / RW_TW, rw_rows(gh, hr, hcr), 3);
-  k_ring_write_dec<<<grid, RW_THREADS, RW_SMEM_BYTES, stream>>>(a);
+  k_ring_write_dec<<<rw_blocks(hr, wr, hcr, wcr), RW_THREADS, RW_SMEM_BYTES,
+                     stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -247,7 +247,9 @@ def ring_write_fast(y2, u2, v2, ringY, ringU, ringV, ws: int, out, *,
                     gw: int, gh: int):
     """Write a decoded picture into slot ws of the DPB ring and into its
     output row: y2 (H, W), u2 / v2 (H/2, W/2) the deblocked int32
-    interiors (any row stride, unit column stride, samples in 0..255);
+    interiors (unit column stride, a row stride that is a multiple of 4
+    and data 16-byte aligned, as the kernel reads int4; samples in
+    0..255);
     ringY (S, 4, Hr, Wr), ringU / ringV (S, Hcr, Wcr) contiguous uint8
     (``d_gop.ring_shapes``: Hr a multiple of 16, Wr of 64); out (H*3/2,
     W) contiguous uint8.  CUDA tensors -> one ``hl_ring_write_dec``
@@ -263,10 +265,12 @@ def ring_write_fast(y2, u2, v2, ringY, ringU, ringV, ws: int, out, *,
     for p, shape, n in ((y2, (H, W), "y2"), (u2, (H // 2, W // 2), "u2"),
                         (v2, (H // 2, W // 2), "v2")):
         if p.dtype != torch.int32 or tuple(p.shape) != shape or \
-                p.stride(1) != 1:
+                p.stride(1) != 1 or p.stride(0) % 4 or p.data_ptr() % 16:
             raise ValueError(f"{name}: {n} {p.dtype} {tuple(p.shape)} with "
                              f"strides {p.stride()}; it needs int32, "
-                             f"{shape} and unit column stride")
+                             f"{shape}, unit column stride, a row stride "
+                             "that is a multiple of 4 and 16-byte aligned "
+                             "data")
     _stack(ringY, 4, torch.uint8, f"{name}: ringY")
     _stack(ringU, 3, torch.uint8, f"{name}: ringU")
     _stack(ringV, 3, torch.uint8, f"{name}: ringV")

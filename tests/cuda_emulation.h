@@ -1,12 +1,13 @@
 // The few CUDA features of hartallo_tpu_torch/csrc/intra_encode.cu,
-// intra_decode.cu, me_search.cu, p_encode.cu and deblock.cu's parameter
-// kernel on the CPU, for the tests tests/test_torch_*_emulated.py: one
-// std::thread per CUDA thread of a block, sleeping barriers for
+// intra_decode.cu, me_search.cu, p_encode.cu, mc_decode.cu and
+// deblock.cu's parameter kernel on the CPU, for the tests
+// tests/test_torch_*_emulated.py: one std::thread per CUDA thread of a
+// block, sleeping barriers for
 // __syncthreads and
 // __syncwarp, a per-warp slot array for the warp shuffles (with their
 // width), votes and reductions, float operations that round once each,
 // as __fadd_rn, __fmul_rn, __fdiv_rn and __fmaf_rn do, and the byte-SIMD
-// intrinsics (__vabsdiffu4, __vsadu4, __dp4a, __byte_perm,
+// intrinsics (__vabsdiffu4, __vavgu4, __vsadu4, __dp4a, __byte_perm,
 // __funnelshift_r) as integer code, atomicAdd on std::atomic_ref, and the
 // int4 and int2 vector types.  Every lane of a warp must reach each
 // __syncwarp and warp collective, as the kernels' code does.
@@ -205,6 +206,14 @@ inline unsigned __vabsdiffu4(unsigned a, unsigned b) {
     const unsigned x = emu_byte(a, i), y = emu_byte(b, i);
     r |= (x > y ? x - y : y - x) << (8 * i);
   }
+  return r;
+}
+
+// the per-byte average of a and b, rounded up
+inline unsigned __vavgu4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= ((emu_byte(a, i) + emu_byte(b, i) + 1) >> 1) << (8 * i);
   return r;
 }
 

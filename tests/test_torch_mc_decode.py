@@ -25,8 +25,9 @@ the twins on a GPU.
 - Routing on the CPU: the scan calls the residual wrapper once a batch
   and the MC and ring write wrappers once a picture; the sharded band
   step the residual and MC wrappers once a band and no ring write.
-- On a GPU (``cuda``): each kernel equals its twin at QCIF to 1080p and
-  the 120x34 band; the scan route (``qcif_6_wp``), the sharded decode
+- On a GPU (``cuda``): each kernel equals its twin at QCIF to 1080p,
+  the 120x34 band and the emulated tests' shapes, the MC also on
+  coherent motion; the scan route (``qcif_6_wp``), the sharded decode
   (``shard_96x64_8``) and ``_ilp_predict`` run with ``mc_luma_plane``,
   ``mc_chroma_plane``, ``residual_planes_wide`` and ``halfpel_planes``
   (and on the scan route ``pad_edge``) raising on a CUDA tensor.
@@ -261,14 +262,24 @@ def test_scan_and_band_step_reach_the_wrappers(monkeypatch, redrawn_batch):
 # On the GPU
 # ---------------------------------------------------------------------------
 
+# QCIF to 1080p and the band, and the shapes of the emulated tests
+# (tests/test_torch_mc_decode_kernel_emulated.py): the MC's strips of four
+# MBs that do not divide gw, one MB row or column, the ring write's tile
+# rows that end inside the slot or lie in its margin
 KERNEL_GRIDS = [("QCIF", 11, 9), ("CIF", 22, 18), ("720p", 80, 45),
-                ("1080p", 120, 68), ("band 120x34", 120, 34)]
+                ("1080p", 120, 68), ("band 120x34", 120, 34),
+                ("ragged strip 6x4", 6, 4), ("one MB row 9x1", 9, 1),
+                ("one MB column 1x5", 1, 5), ("ring tiles 5x1", 5, 1),
+                ("ring tiles 7x3", 7, 3), ("band ragged strip 6x2", 6, 2),
+                ("band 5x3", 5, 3)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("label,gw,gh", KERNEL_GRIDS,
                          ids=[g[0] for g in KERNEL_GRIDS])
 def test_cuda_kernels_equal_twins(cuda_device, label, gw, gh):
+    """Each kernel against its twin; the MC on seeded and on coherent
+    motion (one MV an MB)."""
     from hartallo_tpu_torch.decode import mc_decode_fast as M
     band = label.startswith("band")
     rec, offs = CS.residual_rec_inputs(gw, gh, 2, gw + gh)
@@ -277,11 +288,13 @@ def test_cuda_kernels_equal_twins(cuda_device, label, gw, gh):
         got = M.residual_planes_fast(trec, offs, cqo, gw=gw, gh=gh)
         want = M.residual_planes_plain(trec, offs, cqo, gw=gw, gh=gh)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    case = [torch.tensor(a, device=cuda_device)
-            for a in CS.mc_dec_inputs(gw, gh, 3, gw * gh, band=band)]
-    got = M.mc_recon_fast(*case, gw=gw, gh=gh)
-    want = M.mc_recon_plain(*case, gw=gw, gh=gh)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for coherent in (False, True):
+        case = [torch.tensor(a, device=cuda_device)
+                for a in CS.mc_dec_inputs(gw, gh, 3, gw * gh, band=band,
+                                          coherent=coherent)]
+        got = M.mc_recon_fast(*case, gw=gw, gh=gh)
+        want = M.mc_recon_plain(*case, gw=gw, gh=gh)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), coherent
     planes, rings, ws, out = CS.ring_write_inputs(gw, gh, 3, gh)
     tp = [torch.tensor(p, device=cuda_device)[PAD:-PAD, PAD:-PAD]
           for p in planes]

@@ -15,11 +15,20 @@ clamped half-pel tile, chroma slots, margin and output row against
 nvcc's build and the card stay the authority (the ``cuda`` tests of
 ``tests/test_torch_mc_decode.py`` and ``chip_smoke.py``).  Inputs:
 ``chip_smoke.residual_rec_inputs``, ``mc_dec_inputs`` and
-``ring_write_inputs`` at one MB to 5x3 MBs.  ``test_emulated_mutants_fail``
-builds three broken copies of the source (the luma clamp's upper bound
-off by one; the chroma fractions dx and dy swapped; the luma DC
-Hadamard's first stage gathering a row's lanes instead of a column's)
-and shows that each disagrees with its twin.  Tolerance: exact equality.
+``ring_write_inputs`` at one MB to 9x1 MBs: for the MC (two warps an
+MB, a block per strip of four MBs), strips that do not divide gw, one MB
+row and one MB column (the pad blocks' edge rows), and coherent motion
+(one MV an MB) on the uint8 ring and the int32 band stacks; for the
+ring write's 64 x 32 tiles, a last tile row that ends inside the slot,
+a tile row wholly in the margin, and padded pictures that end inside a
+tile (the fused output row and the margin's zeros).
+``test_emulated_mutants_fail`` builds five broken copies of the source
+(the MC's luma clamp's upper bound off by one; its chroma fractions dx
+and dy swapped; its byte rows' funnel shift in 4-bit steps instead of
+bytes; the ring write's output row taking plane b instead of G; the
+residual's luma DC Hadamard's first stage gathering a row's lanes
+instead of a column's) and shows that each disagrees with its twin.
+Tolerance: exact equality.
 """
 import ctypes
 import os
@@ -58,7 +67,9 @@ void emu_mc(const void* ry, const void* ru, const void* rv,
   const McArgs<T> a{(const T*)ry, (const T*)ru, (const T*)rv, mv, slot,
                     wp_l, wp_c, res_y, res_c, inter, oy, ou, ov,
                     ys_h, ys_w, cs_h, cs_w, gw, gh};
-  emu_launch_grid(k_mc_dec<T>, a, mc_blocks(gw, gh), 1, MC_THREADS);
+  if (MC_SMEM_BYTES > (int)sizeof(smem)) std::abort();
+  emu_launch_grid(k_mc_dec<T>, a, mc_strips(gw) + 1, mc_grid_rows(gh),
+                  MC_THREADS);
 }
 
 extern "C" void emu_mc_dec(const void* ry, const void* ru, const void* rv,
@@ -84,8 +95,8 @@ extern "C" void emu_ring_write_dec(const int32_t* y, const int32_t* u,
   const RwArgs a{y, u, v, ring_y, ring_u, ring_v, out, ys, us, vs,
                  hr, wr, hcr, wcr, gw, gh};
   if (RW_SMEM_BYTES > (int)sizeof(smem)) std::abort();
-  emu_launch_grid(k_ring_write_dec, a, (wr + RW_TW - 1) / RW_TW,
-                  rw_rows(gh, hr, hcr), RW_THREADS, 3);
+  emu_launch_grid(k_ring_write_dec, a, rw_blocks(hr, wr, hcr, wcr), 1,
+                  RW_THREADS);
 }
 """
 
@@ -218,14 +229,48 @@ def test_emulated_mc_equals_twin(emulated, gw, gh, S, band):
         np.testing.assert_array_equal(got, want, err_msg=name)
 
 
-@pytest.mark.parametrize("gw,gh,S", [(1, 1, 2), (3, 2, 3)])
-def test_emulated_ring_write_equals_twin(emulated, gw, gh, S):
-    planes, rings, ws, out = CS.ring_write_inputs(gw, gh, S, 5 + gw * gh)
-    got = run_ring_write(emulated, planes, rings, ws, out, gw, gh)
+# the MC's layout: strips of 4 MBs that do not divide gw, one MB row or
+# column (both edge rows at once), coherent motion (one MV an MB, so that
+# a block's taps fall on every byte alignment of the ring's words), on the
+# uint8 ring and the int32 band stacks
+MC_LAYOUTS = [("ragged strip 6x4", 6, 4, 3, False, False),
+              ("one MB row 9x1", 9, 1, 2, False, False),
+              ("one MB column 1x5", 1, 5, 2, False, False),
+              ("coherent 7x3", 7, 3, 3, False, True),
+              ("band ragged strip 6x2", 6, 2, 2, True, False),
+              ("band coherent 5x3", 5, 3, 2, True, True)]
+
+
+@pytest.mark.parametrize("label,gw,gh,S,band,coherent", MC_LAYOUTS,
+                         ids=[c[0] for c in MC_LAYOUTS])
+def test_emulated_mc_layout_equals_twin(emulated, label, gw, gh, S, band,
+                                        coherent):
+    case = CS.mc_dec_inputs(gw, gh, S, 70 + gw * gh, band=band,
+                            coherent=coherent)
+    for got, want, name in zip(run_mc(emulated, case, gw, gh),
+                               twin_mc(case, gw, gh), "YUV"):
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def check_ring_write(dll, gw, gh, S, seed):
+    planes, rings, ws, out = CS.ring_write_inputs(gw, gh, S, seed)
+    got = run_ring_write(dll, planes, rings, ws, out, gw, gh)
     want = twin_ring_write(planes, rings, ws, out, gw, gh)
-    for g, w, name in zip(got[0], want[0], ("ringY", "ringU", "ringV")):
-        np.testing.assert_array_equal(g, w, err_msg=name)
-    np.testing.assert_array_equal(got[1], want[1], err_msg="out")
+    same = [np.array_equal(g, w) for g, w in zip((*got[0], got[1]),
+                                                  (*want[0], want[1]))]
+    return dict(zip(("ringY", "ringU", "ringV", "out"), same))
+
+
+# the ring write's tiles, besides one MB and 3x2 MBs: one MB row (the
+# last tile row ends inside the slot, below the padded picture), four (a
+# tile row wholly in the margin), a width whose padded picture ends
+# inside a tile (the output row's luma and chroma stop there, the
+# margin's zeros start)
+@pytest.mark.parametrize("gw,gh,S", [(1, 1, 2), (3, 2, 3), (5, 1, 2),
+                                     (4, 4, 2), (7, 3, 2)])
+def test_emulated_ring_write_equals_twin(emulated, gw, gh, S):
+    same = check_ring_write(emulated, gw, gh, S, 5 + gw * gh)
+    assert all(same.values()), same
 
 
 # (label, the text replaced, its replacement, the kernel it breaks)
@@ -236,6 +281,10 @@ MUTANTS = [
      "const int dx = mvy & 7, dy = mvx & 7;", "mc"),
     ("DC Hadamard on a row's lanes", "dc, (i << 2) | hj, 16)",
      "dc, (hj << 2) | i, 16)", "residual"),
+    ("byte row's word shift in 4-bit steps", "(unsigned)(a & 3) << 3",
+     "(unsigned)(a & 3) << 2", "mc"),
+    ("output row's luma from b", "pack4(q[0][0], q[0][1], q[0][2], q[0][3])",
+     "pack4(q[1][0], q[1][1], q[1][2], q[1][3])", "ring_write"),
 ]
 
 
@@ -251,6 +300,8 @@ def test_emulated_mutants_fail(label, old, new, kernel):
         if kernel == "mc":
             case = CS.mc_dec_inputs(gw, gh, 3, 21)
             pairs = zip(run_mc(dll, case, gw, gh), twin_mc(case, gw, gh))
+        elif kernel == "ring_write":
+            pairs = [(check_ring_write(dll, gw, gh, 2, 21)["out"], True)]
         else:
             rec, offs = CS.residual_rec_inputs(gw, gh, 2, 21)
             pairs = zip(run_residual(dll, rec, offs, 0, gw, gh),

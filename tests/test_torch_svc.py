@@ -15,8 +15,9 @@ encoded and decoded by ``hartallo_tpu``.
   general route decoded: the two routes share the layer's ring.
 - On a GPU: the same decodes through ``Codec``'s default device, the
   GOP kernel launched once per kernel picture and every general-route
-  deblock equal to the kernel's plain twin; an encode on the card gives
-  the fixture's bytes.
+  deblock equal to the kernel's plain twin; each fixture's encode on the
+  card (its inter-layer prediction through the MC kernel) gives the
+  fixture's bytes.
 
 Tolerance: exact equality of bytes and MD5s.
 """
@@ -126,6 +127,8 @@ def test_cuda_svc_decode_matches_recorded_md5(cuda_device, name,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["svc_il_4", "svc_quality_4"])
+@pytest.mark.parametrize("name", ["svc_il_4", "svc_quality_4", "svc_ess_4",
+                                  "svc_respred_4", "svc_2l_3",
+                                  "svc_il_4_noilp"])
 def test_cuda_svc_encode_byte_for_byte(cuda_device, name):
     assert port_encode(name, cuda_device) == load_fixture(name)[0]

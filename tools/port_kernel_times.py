@@ -3,7 +3,7 @@ in one run.
 
     python tools/port_kernel_times.py dump PAYLOADS.npz
     python tools/port_kernel_times.py time PAYLOADS.npz [--tree DIR] [--plain]
-        [--intra-only | --me-only | --p-only | --dec-only]
+        [--intra-only | --me-only | --p-only | --dec-only | --scan-only]
 
 ``dump`` parses the fixtures with this tree's decoder (nothing is
 decoded) and stores the GOP kernel's payloads: the 16 pictures of
@@ -67,11 +67,36 @@ limit:
   the unit pictures less the launch floor, and the chain model
   (``chip_smoke.intra_dec_model``) at the all-intra sizes.
 
+- the GOP scan's residual, MC and ring write kernels
+  (``decode/mc_decode_fast``), where the tree has them, each checked
+  against its twin and timed by ``chip_smoke.scan_kernels``, on three
+  input sets: ``seeded``, ``chip_smoke.residual_rec_inputs`` (one
+  picture), ``mc_dec_inputs`` (three slots; MVs up to 2,000 quarter pels
+  out for a third of the blocks, so that most of those clamp to the
+  edge) and ``ring_write_inputs`` at ``chip_smoke.MC_DEC_TIMED`` (CIF,
+  720p, 1080p and the 120x34 band with its int32 stacks); ``fixture``,
+  the first GOP scan batch of ``1080p_8_wp`` (the stream decoded on the
+  card up to that batch), its first picture's record, residual, MVs,
+  slots, weights and inter map as ``d_gop.prepare_pictures`` builds
+  them, over seeded reference rings (at the band: its top 34 MB rows
+  over seeded int32 stacks; the ring write on the MC's output): one MV
+  and one slot an 8x8 quadrant, the motion of ``1080p_8`` with a weight
+  table added; and ``fixture_4x4``, the same with each 4x4 block's MV
+  moved by a seeded offset in -16..16 quarter pels and each quadrant's
+  slot redrawn over two references of a three-slot ring, the motion of
+  sub-8x8 partitions and several references.  Each kernel in µs per
+  picture with the wrapper (CUDA events), alone
+  (``chip_smoke.kernel_us``), the wrapper's host time
+  (``chip_smoke.host_us``), the plain twin's on the run that checks the
+  kernel against it (tolerance 0), and its bound
+  (``chip_smoke.residual_dec_bound`` / ``mc_dec_bound`` /
+  ``ring_write_bound``).
+
 ``--intra-only`` times the intra encode kernel alone, ``--me-only`` the
-motion search kernels alone, ``--p-only`` the P-picture body alone and
-``--dec-only`` the decoder's intra wavefront alone (for turns of two
-trees on one card: parent, tree, tree, parent); the payloads are then
-not read.
+motion search kernels alone, ``--p-only`` the P-picture body alone,
+``--dec-only`` the decoder's intra wavefront alone and ``--scan-only``
+the GOP scan's kernels alone (for turns of two trees on one card:
+parent, tree, tree, parent); the payloads are then not read.
 """
 from __future__ import annotations
 
@@ -214,9 +239,133 @@ def time_intra_dec(res: dict, plain: bool) -> None:
             out["model_us"][label] = intra_dec_model(gw, gh, s_us, h_us)
 
 
+SCAN_FIXTURE = "1080p_8_wp"
+# the --X-only modes: time only that part (see the top)
+ONLY = ("intra", "me", "p", "dec", "scan")
+
+
+def _scan_batch(torch):
+    """The first GOP scan batch of SCAN_FIXTURE, the stream decoded on the
+    card up to it: (packed (K, gh*gw, words) int32 on the card, the
+    ring's slots S, gw, gh, chroma_qp_off)."""
+    import numpy as np
+
+    from chip_smoke import load_fixture
+    from hartallo_tpu_torch.api import Codec, CodecConfig
+    from hartallo_tpu_torch.decode import decoder as DM
+
+    class Caught(Exception):
+        pass
+
+    def scan(packed, write_slot, has_intra, ringY, *rest, gw, gh,
+             chroma_qp_off):
+        raise Caught(np.asarray(packed, np.int32), ringY.shape[0], gw, gh,
+                     chroma_qp_off)
+    real, DM.decode_gop = DM.decode_gop, scan
+    try:
+        Codec(CodecConfig(), device="cuda").decode_annexb(
+            load_fixture(SCAN_FIXTURE)[0], tolerant=False)
+    except Caught as c:
+        packed, S, gw, gh, cqo = c.args
+        return torch.tensor(packed, device="cuda"), S, gw, gh, cqo
+    finally:
+        DM.decode_gop = real
+    raise SystemExit(f"port_kernel_times: {SCAN_FIXTURE} sent no picture "
+                     "to the GOP scan")
+
+
+def time_scan(res: dict) -> None:
+    """The GOP scan's kernels' entries of ``res`` (see the top)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import (MC_DEC_CASES, MC_DEC_TIMED, MC_KERNELS, SEED,
+                            mc_dec_inputs, residual_rec_inputs,
+                            ring_write_inputs, scan_kernels)
+    from hartallo_tpu_torch.decode import mc_decode_fast as M
+    from hartallo_tpu_torch.decode.d_gop import (_QUAD, RESIDUAL_OFFSETS,
+                                                 prepare_pictures,
+                                                 ring_shapes)
+    out = {f"{n}_{k}": res.setdefault(f"{n}_{k}", {}) for n in MC_KERNELS
+           for k in ("us", "kernel_us", "host_us", "plain_us", "bound_us")}
+
+    def cuda(a):
+        return torch.tensor(a, device="cuda")
+
+    def seeded_stacks(shapes, dtype, seed):
+        rng = np.random.default_rng(seed)
+        return [cuda(rng.integers(0, 256, s).astype(dtype)) for s in shapes]
+
+    def timed(tag, gw, gh, rec, offs, mc, planes, S):
+        rings = seeded_stacks(ring_shapes(gw, gh, S), np.uint8, SEED)
+        row = torch.empty((gh * 24, gw * 16), dtype=torch.uint8,
+                          device="cuda")
+        got = scan_kernels(torch, tag, gw, gh, rec, offs, mc,
+                           (*planes, *rings, S - 1, row))
+        for n, (_, ms, dev_us, h_us, plain_ms, (b_ms, _)) in got.items():
+            for k, v in (("us", 1e3 * ms), ("kernel_us", dev_us),
+                         ("host_us", h_us), ("plain_us", 1e3 * plain_ms),
+                         ("bound_us", 1e3 * b_ms)):
+                out[f"{n}_{k}"][tag] = v
+
+    def interiors(pl, gw, gh):
+        H, W = gh * 16, gw * 16
+        return (pl[0][32:32 + H, 32:32 + W],
+                *(p[32:32 + H // 2, 32:32 + W // 2] for p in pl[1:]))
+    for k, (label, gw, gh, band) in enumerate(MC_DEC_CASES):
+        if label not in MC_DEC_TIMED:
+            continue
+        rec, offs = residual_rec_inputs(gw, gh, 1, SEED + k)
+        mc = [cuda(a) for a in mc_dec_inputs(gw, gh, 3, SEED + k,
+                                             band=band)]
+        planes = ring_write_inputs(gw, gh, 3, SEED + k)[0]
+        timed(f"seeded {label}", gw, gh, cuda(rec), offs, mc,
+              interiors([cuda(p) for p in planes], gw, gh), 3)
+    packed, S, gw, gh, cqo = _scan_batch(torch)
+    b = prepare_pictures(packed, gw=gw, gh=gh, chroma_qp_off=cqo)
+    res["scan_fixture"] = {"name": SCAN_FIXTURE, "gw": gw, "gh": gh,
+                           "S": S, "batch": int(packed.shape[0]),
+                           "inter_mbs": int(b["inter"][0].sum())}
+    # per-4x4 motion: each block's MV moved by a seeded offset, each
+    # quadrant's slot redrawn over two references of a three-slot ring
+    rng = np.random.default_rng(SEED)
+    n_all = gh * gw * 16
+    sub = {"mv": b["mv"][0] + cuda(rng.integers(-16, 17, (n_all, 2)).astype(
+               np.int32)),
+           "slot": cuda(rng.integers(0, 2, (gh * gw, 4))[:, _QUAD].reshape(
+               n_all).astype(np.int32))}
+    for label, rows, motion in (("1080p", gh, "fixture"),
+                                ("band 120x34", 34, "fixture"),
+                                ("1080p", gh, "fixture_4x4"),
+                                ("band 120x34", 34, "fixture_4x4")):
+        S_run = S if motion == "fixture" else 3
+        n = rows * gw * 16
+        H, W = rows * 16, gw * 16
+        if rows == gh:
+            stacks = seeded_stacks(ring_shapes(gw, gh, S_run), np.uint8,
+                                   SEED)
+        else:
+            stacks = seeded_stacks(((S_run, 4, H + 64, W + 64),
+                                    (S_run, H // 2 + 64, W // 2 + 64),
+                                    (S_run, H // 2 + 64, W // 2 + 64)),
+                                   np.int32, SEED)
+        fields = {f: (sub[f] if motion == "fixture_4x4" and f in sub
+                      else b[f][0]) for f in ("mv", "slot", "wp_l", "wp_c")}
+        mc = [*stacks, *(fields[f][:n].contiguous()
+                         for f in ("mv", "slot", "wp_l", "wp_c")),
+              b["res_y"][0][:H].contiguous(),
+              b["res_c"][0][:, :H // 2].contiguous(),
+              b["inter"][0][:rows].contiguous()]
+        planes = interiors(M.mc_recon_fast(*mc, gw=gw, gh=rows), gw, rows)
+        timed(f"{motion} {label}", gw, rows,
+              packed[:1, :rows * gw].contiguous(), RESIDUAL_OFFSETS, mc,
+              planes, S_run)
+
+
 def time_kernels(path: str, tree: str, plain: bool,
-                 intra_only: bool = False, me_only: bool = False,
-                 p_only: bool = False, dec_only: bool = False) -> None:
+                 only: str | None = None) -> None:
+    """Time the kernels (see the top); ``only`` one of ONLY's keys or None
+    for all."""
     sys.path.insert(0, str(REPO))
     import numpy as np
     import torch
@@ -251,13 +400,14 @@ def time_kernels(path: str, tree: str, plain: bool,
            "refine_plain_us": {}, "refine_bound_us": {},
            "refine_seeded_us": {}, "refine_seeded_kernel_us": {},
            "refine_seeded_host_us": {}}
-    if dec_only:
+    if only == "dec":
         time_intra_dec(res, plain)
+    if only == "scan":
+        time_scan(res)
+    if only in ("dec", "scan"):
         print(json.dumps(res), flush=True)
         return
-    alone = intra_only or me_only or p_only
-    for key, (pay, gw, gh, S) in ({} if alone else
-                                  _payloads(path)).items():
+    for key, (pay, gw, gh, S) in ({} if only else _payloads(path)).items():
         K = pay["sf"].shape[0]
         rng = np.random.default_rng(SEED)
         rings = F.rings_from_numpy(*(rng.integers(0, 256, s, dtype=np.uint8)
@@ -276,7 +426,7 @@ def time_kernels(path: str, tree: str, plain: bool,
             res["gop_plain_us_per_picture"][key] = 1e3 * event_ms(
                 torch, lambda: F.decode_gop_fast_plain(*args, *rings, gw=gw,
                                                        gh=gh), 1) / K
-    for name, gw, gh, flags in () if alone else DEBLOCK_GRIDS:
+    for name, gw, gh, flags in () if only else DEBLOCK_GRIDS:
         planes, rest = deblock_inputs(gw, gh, SEED + gw, flags)
         tp = tuple(torch.tensor(x, device="cuda") for x in planes)
         ta = tuple(torch.tensor(a, device="cuda") for a in rest)
@@ -291,7 +441,7 @@ def time_kernels(path: str, tree: str, plain: bool,
             res["deblock_plain_us"][name] = 1e3 * event_ms(
                 torch, lambda: D.deblock_frame_fast_plain(tp, *ta, gw=gw,
                                                           gh=gh), 1)
-    if not (me_only or p_only) and importlib.util.find_spec(
+    if only in (None, "intra") and importlib.util.find_spec(
             "hartallo_tpu_torch.encode.intra_encode_fast") is not None:
         from hartallo_tpu_torch.encode import intra_encode_fast as IF
         grids = {}
@@ -317,7 +467,7 @@ def time_kernels(path: str, tree: str, plain: bool,
         for name, (gw, gh) in grids.items():
             res["intra_chain_floor_us"][name] = None if mb_us is None \
                 else (gw + 2 * gh - 2) * mb_us
-    if not (intra_only or p_only) and importlib.util.find_spec(
+    if only in (None, "me") and importlib.util.find_spec(
             "hartallo_tpu_torch.encode.me_fast") is not None:
         from hartallo_tpu_torch.encode import me as M
         from hartallo_tpu_torch.encode import me_fast as MF
@@ -382,11 +532,14 @@ def time_kernels(path: str, tree: str, plain: bool,
             res["refine_seeded_kernel_us"][name] = kernel_us(
                 torch, refine, 10, "k_refine", 1 if rounds else 2)
             res["refine_seeded_host_us"][name] = host_us(refine, 10)
-    if not (intra_only or me_only):
+    if only in (None, "p"):
         time_p_body(res, plain)
-    if not alone and importlib.util.find_spec(
+    if not only and importlib.util.find_spec(
             "hartallo_tpu_torch.decode.intra_recon_fast") is not None:
         time_intra_dec(res, plain)
+    if not only and importlib.util.find_spec(
+            "hartallo_tpu_torch.decode.mc_decode_fast") is not None:
+        time_scan(res)
     print(json.dumps(res), flush=True)
 
 
@@ -396,9 +549,11 @@ def main(argv) -> None:
     elif len(argv) >= 2 and argv[0] == "time":
         tree = argv[argv.index("--tree") + 1] if "--tree" in argv else \
             str(REPO)
+        only = [m for m in ONLY if f"--{m}-only" in argv]
+        if len(only) > 1:
+            raise SystemExit(__doc__)
         time_kernels(argv[1], tree, "--plain" in argv,
-                     "--intra-only" in argv, "--me-only" in argv,
-                     "--p-only" in argv, "--dec-only" in argv)
+                     only[0] if only else None)
     else:
         raise SystemExit(__doc__)
 
