@@ -68,18 +68,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on a row, intra MBs under intra MBs above-right with inter MBs
    between, and all inter), 720p, 1080p (also with one intra MB in 50)
    and the shard phase's 120x34 band (INTRA_DEC_CASES), the parameters
-   also on 5 QCIF pictures a launch and in the GOP scan's dense buffer;
+   on int16 records (the general route's, ``pack_deblock_record``), also
+   on 5 QCIF pictures a launch and in the GOP scan's dense buffer;
    every output equal;
 6d. GOP scan kernels phase: the residual (``k_residual_dec``), MC
    (``k_mc_dec``) and ring write (``k_ring_write_dec``) kernels of
    ``mc_decode.cu`` against their plain twins at QCIF, CIF, 720p, 1080p
    and the shard phase's 120x34 band (MC_DEC_CASES): the residual on two
-   pictures a launch with qp 0..51, Intra16x16 MBs and int16-extreme
-   coefficients at chroma QP offsets -12, 0 and +12; the MC on three
+   pictures a launch of int16 records with qp 0..51, Intra16x16 MBs and
+   int16-extreme coefficients at chroma QP offsets -12, 0 and +12, on
+   each of RESIDUAL_SETS (no luma block coded, 15%, all, each MB its
+   own, stray levels where TotalCoeff is 0; each set's coded fraction
+   printed); the MC on three
    slots with per-4x4 MVs up to 2,000 quarter pels outside the picture,
    and again with coherent motion (one MV an MB), and weights with logWD
    0..7, from the scan's uint8 ring and, at the band, the int32 stacks;
    the ring write on noisy rings; every output equal;
+6e. upload phase: first ``pinned_reuse_check`` (PyTorch's caching host
+   allocator holds a page-locked buffer while a copy from it is queued,
+   which ``decode/staging.py`` rests on); then ``1080p_8_wp``'s scan
+   batch (7 pictures of int16 rows) copied from the page-locked host
+   buffer to the card with one asynchronous copy
+   (``decode/staging.RowStaging``), in ms and GB/s;
 7. decode slice phase (the decode path): ``Codec(CodecConfig())``, on
    its default device, the card, decodes the CIF, 720p and 1080p
    fixtures, launch counts set to 0 just before; every frame's MD5 must
@@ -180,7 +190,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    times of a 120x1 and a 1x68 picture less the launch floor; the GOP
    scan's residual, MC and ring write kernels per picture at CIF, 720p,
    1080p and the band with their wrappers and alone; each
-   beside its bound
+   beside its bound (the residual's and the parameters' also beside
+   their bounds as counted on int32 records, before the int16 upload)
    (``gop_bound``, ``deblock_bound``, ``intra_bound``, ``me_bound``,
    ``p_bound``, ``intra_dec_bound``, ``params_dec_bound``,
    ``residual_dec_bound``, ``mc_dec_bound``, ``ring_write_bound``);
@@ -647,7 +658,7 @@ def deblock_inputs(gw, gh, seed, flags=False):
 
 def deblock_rec_inputs(gw: int, gh: int, K: int, seed: int, wide=False,
                        edge_flags=False):
-    """Seeded per-MB records of K pictures, (K, gh*gw, words) int32 numpy,
+    """Seeded per-MB records of K pictures, (K, gh*gw, words) int16 numpy,
     and the offsets of ``deblock_fast.DEBLOCK_FIELDS`` in them: kinds of
     every class (I4x4, I16, PCM, P ones, I_BL), qp 0..51, MVs in -9..9
     quarter pels (so that neighbours differ by 4 or more and less),
@@ -656,11 +667,14 @@ def deblock_rec_inputs(gw: int, gh: int, K: int, seed: int, wide=False,
     MB edge flags of slices of a few rows (no filtering across every other
     slice edge, disable_deblocking_filter_idc 2) and none at all in some
     MBs (idc 1), with ``edge_flags`` also column 0's and row 0's (the
-    twin's wrap).  With ``wide``, the record is the GOP scan's dense
-    buffer (``d_fused.DEC_FIELDS``), its other words seeded."""
+    twin's wrap).  The record is the general route's
+    (``deblock_fast.pack_deblock_record``) or, with ``wide``, the GOP
+    scan's dense buffer (``d_fused.DEC_FIELDS``), its other words
+    seeded."""
     import numpy as np
     from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
     from hartallo_tpu_torch.ops.deblock_fast import (DEBLOCK_FIELDS,
+                                                     pack_deblock_record,
                                                      record_offsets)
     rng = np.random.default_rng(seed)
     recs = []
@@ -685,14 +699,17 @@ def deblock_rec_inputs(gw: int, gh: int, K: int, seed: int, wide=False,
                 "alpha_off": rng.integers(-6, 7, (gh, gw)) * 2,
                 "beta_off": rng.integers(-6, 7, (gh, gw)) * 2,
                 "fmb_v": fv, "fmb_h": fh, "fint": fint}
-        layout = DEC_FIELDS if wide else DEBLOCK_FIELDS
+        if not wide:
+            recs.append(pack_deblock_record(vals, gw, gh))
+            continue
         recs.append(np.concatenate([
-            np.asarray(vals[name], np.int32).reshape(gh * gw, -1)
+            np.asarray(vals[name], np.int16).reshape(gh * gw, -1)
             if name in vals else
             rng.integers(-99, 100, (gh * gw, int(np.prod(shape, dtype=int))
-                                    if shape else 1)).astype(np.int32)
-            for name, shape in layout], axis=1))
-    return np.stack(recs), record_offsets(layout)[0]
+                                    if shape else 1)).astype(np.int16)
+            for name, shape in DEC_FIELDS], axis=1))
+    return np.stack(recs), \
+        record_offsets(DEC_FIELDS if wide else DEBLOCK_FIELDS)[0]
 
 
 def _coeffs(rng, shape):
@@ -709,26 +726,72 @@ def _coeffs(rng, shape):
         np.array([-32768, -32767, 32766, 32767]), shape), v)
 
 
-def residual_rec_inputs(gw: int, gh: int, K: int, seed: int):
+# the fields of ``mc_decode_fast.RESIDUAL_FIELDS``, by name (the
+# residual's seeded records are built without the package's list, so that
+# tools/port_kernel_times.py can feed them to an older tree)
+RESIDUAL_NAMES = ("luma_ac", "luma_dc", "chroma_ac", "chroma_dc", "qp",
+                  "kind", "nnz")
+# the residual's input sets (label, the fraction of luma blocks with
+# levels (None: each MB 0, 15% or all of them), stray levels in uncoded
+# blocks)
+RESIDUAL_SETS = (("mixed", None, False), ("zero-coded", 0.0, False),
+                 ("sparse", 0.15, False), ("fully coded", 1.0, False),
+                 ("stray levels", None, True))
+
+
+def residual_rec_inputs(gw: int, gh: int, K: int, seed: int, coded=None,
+                        stray=False):
     """Seeded dense buffers of K pictures for ``residual_planes_fast``:
-    (K, gh*gw, WORDS) int32 numpy of ``d_fused.DEC_FIELDS`` and the
-    offsets of ``mc_decode_fast.RESIDUAL_FIELDS`` in them.  Coefficients
-    from ``_coeffs``, qp 0..51 per MB, kinds I4x4, I16 (a third), P ones
-    and I_BL; the other words seeded."""
+    (K, gh*gw, WORDS) int16 numpy of ``d_fused.DEC_FIELDS`` and the
+    offsets of ``mc_decode_fast.RESIDUAL_FIELDS`` in them.  Kinds I4x4,
+    I16 (a third), P ones and I_BL; qp 0 or 51 in a fifth of the MBs
+    each, else 0..51.  A luma block has levels (``_coeffs``, one at least
+    nonzero, TotalCoeff their count) with probability ``coded``, or with
+    None 0, 0.15 or 1 as each MB draws (an I16 MB without levels is its
+    DC alone); elsewhere its levels are 0 and its TotalCoeff 0, as the
+    parser leaves them, or with ``stray`` seeded all the same (which the
+    kernel and its twin ignore).  Half the chroma blocks and a third of
+    the MBs' chroma DC are 0, the rest ``_coeffs``; the other words
+    seeded."""
     import numpy as np
     from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
-    from hartallo_tpu_torch.decode.mc_decode_fast import RESIDUAL_FIELDS
     from hartallo_tpu_torch.ops.deblock_fast import record_offsets
     rng = np.random.default_rng(seed)
     n = gh * gw
-    offs, words = record_offsets(DEC_FIELDS, RESIDUAL_FIELDS)
-    rec = rng.integers(-99, 100, (K, n, words)).astype(np.int32)
-    la, ld, ca, cd, qp, kind = offs
-    for o, w in ((la, 256), (ld, 16), (ca, 128), (cd, 8)):
-        rec[:, :, o:o + w] = _coeffs(rng, (K, n, w))
-    rec[:, :, qp] = rng.integers(0, 52, (K, n))
+    offs, words = record_offsets(DEC_FIELDS,
+                                 [(name, None) for name in RESIDUAL_NAMES])
+    rec = rng.integers(-99, 100, (K, n, words)).astype(np.int16)
+    la, ld, ca, cd, qp, kind, nz = offs
+    frac = rng.choice(np.array([0.0, 0.15, 1.0]), (K, n, 1)) \
+        if coded is None else np.full((K, n, 1), coded)
+    on = rng.random((K, n, 16)) < frac                    # blkIdx order
+    lac = _coeffs(rng, (K, n, 16, 16))
+    lac[..., 0] = np.where(lac[..., 0] == 0, 1, lac[..., 0])
+    lac = np.where(on[..., None] | stray, lac, 0)
+    # TotalCoeff, in raster order of the 4x4 blocks
+    count = np.where(on, (lac != 0).sum(-1), 0)
+    raster = [((b >> 3) << 3) | (((b >> 1) & 1) << 2) |
+              (((b >> 2) & 1) << 1) | (b & 1) for b in range(16)]
+    nnz = np.zeros_like(count)
+    nnz[..., raster] = count
+    cac = np.where(rng.random((K, n, 8, 1)) < 0.5, 0,
+                   _coeffs(rng, (K, n, 8, 16)))
+    cdc = np.where(rng.random((K, n, 1)) < 1 / 3, 0, _coeffs(rng, (K, n, 8)))
+    for o, v in ((la, lac), (ld, _coeffs(rng, (K, n, 16))), (ca, cac),
+                 (cd, cdc), (nz, nnz)):
+        rec[:, :, o:o + v[0, 0].size] = v.reshape(K, n, -1)
+    pick = rng.random((K, n))
+    rec[:, :, qp] = np.where(pick < 0.2, 0, np.where(
+        pick < 0.4, 51, rng.integers(0, 52, (K, n))))
     rec[:, :, kind] = rng.choice(np.array([0, 1, 1, 1, 3, 4, 8]), (K, n))
     return rec, offs
+
+
+def coded_fraction(rec, offs) -> float:
+    """The fraction of the records' luma blocks whose TotalCoeff is above
+    0 (``RESIDUAL_FIELDS`` at offs)."""
+    nz = offs[6]
+    return float((rec[:, :, nz:nz + 16] > 0).mean())
 
 
 def mc_dec_inputs(gw: int, gh: int, S: int, seed: int, band=False,
@@ -1076,19 +1139,45 @@ def intra_dec_model(gw: int, gh: int, s_us: float, h_us: float) -> float:
 
 
 def params_dec_bound(gw: int, gh: int, K: int = 1):
-    """Bound of one ``deblock_params_dec_fast`` call: bytes, the 59 words
-    of an MB's record read and its 62 int16 words written; operations,
-    about 40 a 4x4 block (its two bS and its share of the six sets)."""
+    """Bound of one ``deblock_params_dec_fast`` call: bytes, the 59 int16
+    words of an MB's record read once and its 62 int16 words written;
+    operations, about 40 a 4x4 block (its two bS and its share of the six
+    sets)."""
+    n = K * gw * gh
+    return bound(n * (59 * 2 + 62 * 2), 40 * 16 * n)
+
+
+def params_dec_bound_int32(gw: int, gh: int, K: int = 1):
+    """``params_dec_bound`` as counted before the records reached the card
+    as int16: the 59 words read as int32."""
     n = K * gw * gh
     return bound(n * (59 * 4 + 62 * 2), 40 * 16 * n)
 
 
-def residual_dec_bound(gw: int, gh: int, K: int = 1):
-    """Bound of one ``residual_planes_fast`` call on K pictures: bytes,
-    the 410 words of an MB's record it needs (coefficients, qp and kind)
-    read and its 384 int32 samples written; operations, about 12 a
-    sample (the dequant's multiply, rounding and shift, the inverse
-    transform's two stages, the DC's share)."""
+def residual_dec_bound(rec, offs):
+    """Bound of one ``residual_planes_fast`` call on the int16 records rec
+    (K, gh*gw, words) (numpy or a tensor, ``RESIDUAL_FIELDS`` at offs):
+    bytes, what these inputs need read once (each MB's qp, kind, nnz and
+    chroma levels and DC; the luma DC of an I16 MB; the 16 levels of each
+    luma block whose TotalCoeff is above 0) and its 384 int32 samples
+    written; operations, about 12 a sample (the dequant's multiply,
+    rounding and shift, the inverse transform's two stages, the DC's
+    share)."""
+    import numpy as np
+    r = np.asarray(rec.cpu() if hasattr(rec, "cpu") else rec)
+    n = r.shape[0] * r.shape[1]
+    kind, nz = offs[5], offs[6]
+    coded = int((r[:, :, nz:nz + 16] > 0).sum())
+    i16 = int((r[:, :, kind] == 1).sum())
+    read = 2 * (n * (1 + 1 + 16 + 128 + 8) + 16 * i16 + 16 * coded)
+    return bound(read + n * 384 * 4, 12 * 384 * n)
+
+
+def residual_dec_bound_int32(gw: int, gh: int, K: int = 1):
+    """``residual_dec_bound`` as counted before the records reached the
+    card as int16 and the levels of uncoded blocks were skipped: the 410
+    words of an MB's record it reads (coefficients, qp and kind) as
+    int32."""
     n = K * gw * gh
     return bound(n * (410 * 4 + 384 * 4), 12 * 384 * n)
 
@@ -1127,14 +1216,17 @@ MC_DEC_CASES = (("QCIF", 11, 9, False), ("CIF", 22, 18, False),
 MC_DEC_TIMED = ("CIF", "720p", "1080p", "band 120x34")
 
 
-def scan_kernels(torch, label, gw, gh, rec, offs, mc, rw, timed=True):
+def scan_kernels(torch, label, gw, gh, rec, offs, mc, rw, timed=True,
+                 residual_bound=None):
     """The GOP scan's three kernels on one picture's inputs, each against
     its plain twin (tolerance 0; SystemExit where they differ) and, with
-    ``timed``, timed: rec (1, gh*gw, words) int32 records with the
+    ``timed``, timed: rec (1, gh*gw, words) int16 records with the
     offsets offs of ``mc_decode_fast.RESIDUAL_FIELDS`` (chroma QP offset
     0); mc the arguments of ``mc_recon_fast``; rw those of
     ``ring_write_fast`` (the deblocked interiors, the rings, the slot and
-    the output row: the kernel writes into them, the twin into copies).
+    the output row: the kernel writes into them, the twin into copies);
+    ``residual_bound`` the residual's bound where the caller counts it
+    (else ``residual_dec_bound`` of rec).
     Returns {key: (max_abs_err, ms with the wrapper (CUDA events), µs
     alone (``kernel_us``), the wrapper's host µs (``host_us``), the
     twin's ms on its check run, (bound ms, bound by))} for MC_KERNELS;
@@ -1146,47 +1238,134 @@ def scan_kernels(torch, label, gw, gh, rec, offs, mc, rw, timed=True):
     calls = {
         "residual_dec": (M.residual_planes_fast, M.residual_planes_plain,
                          (rec, offs, 0), (rec, offs, 0),
-                         residual_dec_bound(gw, gh)),
+                         residual_bound or residual_dec_bound(rec, offs)),
         "mc_dec": (M.mc_recon_fast, M.mc_recon_plain, mc, mc,
                    mc_dec_bound(gw, gh, int(mc[-1].sum()),
                                 mc[0].element_size())),
         "ring_write_dec": (M.ring_write_fast, M.ring_write_plain, rw, twin_rw,
                            ring_write_bound(gw, gh, hr, wr, hcr, wcr))}
 
-    def outputs(f, a):               # the ring write's are its rings and row
-        r = f(*a, gw=gw, gh=gh)
-        return (*a[3:6], a[7]) if a is rw or a is twin_rw else r
-    res = {}
-    for key, (fast, twin, a, ta, bnd) in calls.items():
-        got = outputs(fast, a)
-        want = []
-        plain_ms = event_ms(torch, lambda: want.append(outputs(twin, ta)), 1,
-                            warm=False)
-        err, same, _ = outputs_diff(torch, got, want[0])
-        if not same:
-            raise SystemExit(f"the {key} kernel != plain at {label}")
+    def ring_rows(a):                # the ring write's outputs: rings, row
+        return (*a[3:6], a[7])
+    return {key: kernel_alone(torch, label, key, fast, twin, a, ta, bnd, gw,
+                              gh, timed,
+                              ring_rows if key == "ring_write_dec" else None)
+            for key, (fast, twin, a, ta, bnd) in calls.items()}
 
-        def fn():
-            fast(*a, gw=gw, gh=gh)
-        res[key] = (err, *((event_ms(torch, fn, 20),
-                            kernel_us(torch, fn, 20, DEC_KERNELS[key]),
-                            host_us(fn, 20)) if timed else (None,) * 3),
-                    plain_ms, bnd)
-    return res
+
+def kernel_alone(torch, label, key, fast, twin, a, ta, bound, gw, gh,
+                 timed=True, outputs=None):
+    """One of DEC_KERNELS' wrappers, ``fast(*a, gw=, gh=)``, against its
+    plain twin ``twin(*ta, gw=, gh=)`` (tolerance 0; SystemExit where
+    they differ; ``outputs(args)`` the outputs where the call writes into
+    its arguments) and, with ``timed``, timed.  Returns (max_abs_err, ms
+    with the wrapper (CUDA events), µs alone (``kernel_us``), the
+    wrapper's host µs (``host_us``), the twin's ms on its check run,
+    bound); the three times None without ``timed``."""
+    def run(f, args):
+        r = f(*args, gw=gw, gh=gh)
+        return r if outputs is None else outputs(args)
+    got = run(fast, a)
+    want = []
+    plain_ms = event_ms(torch, lambda: want.append(run(twin, ta)), 1,
+                        warm=False)
+    err, same, _ = outputs_diff(torch, got, want[0])
+    if not same:
+        raise SystemExit(f"the {key} kernel != plain at {label}")
+
+    def fn():
+        fast(*a, gw=gw, gh=gh)
+    return (err, *((event_ms(torch, fn, 20),
+                    kernel_us(torch, fn, 20, DEC_KERNELS[key]),
+                    host_us(fn, 20)) if timed else (None,) * 3),
+            plain_ms, bound)
+
+
+def upload_phase(torch, card):
+    """The GOP scan batch's way to the card at 1080p: the int16 rows of
+    ``1080p_8_wp``'s scan batch (its 7 P pictures, as the decoder parses
+    them) in the page-locked buffer of a ``decode/staging.RowStaging``
+    (one a batch, as the decoder takes them) and from there on the card
+    through one asynchronous copy (``upload``), ended by a synchronize;
+    the median of five after two warm-ups, host clock.  First
+    ``pinned_reuse_check``.  Returns the upload's ms."""
+    import statistics
+
+    from hartallo_tpu_torch.decode.decoder import Decoder
+    from hartallo_tpu_torch.decode.staging import RowStaging
+    pinned_reuse_check(torch)
+    dec = Decoder(device="cuda", batch_k=1 << 30)
+    dec.enqueue_annexb(load_fixture("1080p_8_wp")[0], tolerant=False)
+    rows = [j.packed for j in dec.layer.jobs if j.packed is not None]
+    nbytes = sum(r.nbytes for r in rows)
+    up_s = []
+    for i in range(7):
+        staging = RowStaging("cuda")
+        for k, r in enumerate(rows):
+            staging.row(k, r.shape)[...] = r
+        host = staging.rows(0, len(rows))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = staging.upload(host)
+        torch.cuda.synchronize()
+        if i >= 2:
+            up_s.append(time.perf_counter() - t0)
+    if not (host.is_pinned() and got.dtype == torch.int16 and
+            torch.equal(got.cpu(), host)):
+        raise SystemExit("upload phase: the staged rows are not page-locked "
+                         "or did not reach the card as they are")
+    up = statistics.median(up_s)
+    print(f"[{card}] 1080p_8_wp scan batch upload: {len(rows)} pictures, "
+          f"{nbytes / 1e6:.1f} MB of int16 rows from the page-locked buffer "
+          f"in {up * 1e3:.3f} ms ({nbytes / up / 1e9:.1f} GB/s), "
+          f"{up * 1e3 / len(rows):.3f} ms a picture", flush=True)
+    return up * 1e3
+
+
+def pinned_reuse_check(torch):
+    """What ``decode/staging.py`` rests on: PyTorch's caching host
+    allocator does not hand out page-locked memory again while a
+    ``non_blocking`` copy from it (here from a view of it, as the decoder
+    copies a run of a batch's rows) is still queued behind a busy stream;
+    once the copy has ended, the memory comes back.  SystemExit where the
+    allocator hands it out early, the copy reads rows written after it
+    was queued, or the memory does not come back."""
+    shape = (7, 8160, 524)
+    buf = torch.full(shape, 3, dtype=torch.int16, pin_memory=True)
+    ptr = buf.data_ptr()
+    torch.cuda._sleep(200_000_000)          # about 0.1 s of the stream
+    got = buf[1:].to("cuda", non_blocking=True)
+    del buf
+    early = torch.empty(shape, dtype=torch.int16, pin_memory=True)
+    early.fill_(5)
+    torch.cuda.synchronize()
+    if early.data_ptr() == ptr or not bool((got == 3).all()):
+        raise SystemExit("pinned reuse check: the page-locked buffer was "
+                         "handed out again while its copy was queued")
+    del early
+    again = [torch.empty(shape, dtype=torch.int16, pin_memory=True)
+             for _ in range(2)]
+    if ptr not in [a.data_ptr() for a in again]:
+        raise SystemExit("pinned reuse check: the page-locked buffer did "
+                         "not come back once its copy had ended")
+    print("pinned reuse check: a page-locked buffer is held while its "
+          "copy is queued and handed out again after it", flush=True)
 
 
 def mc_dec_phase(torch, card):
     """The GOP scan's residual, MC and ring write kernels against their
     plain twins (tolerance 0) on seeded inputs at MC_DEC_CASES: the
     residual on two pictures a launch at chroma QP offsets -12, 0 and 12
-    (``residual_rec_inputs``: qp 0..51, I16 MBs, int16-extreme
-    coefficients), the MC on three slots (``mc_dec_inputs``: per-4x4 MVs
+    on each of RESIDUAL_SETS' int16 records (``residual_rec_inputs``: qp
+    0..51, I16 MBs, int16-extreme coefficients; no, 15% and all luma
+    blocks coded, each MB its own, stray levels; their coded fractions
+    printed), the MC on three slots (``mc_dec_inputs``: per-4x4 MVs
     up to 2,000 quarter pels out, and coherent motion, one MV an MB;
     weights with logWD 0..7; the scan's uint8 ring, and at the band the
     int32 stacks), the ring write (``ring_write_inputs``); then
-    ``scan_kernels`` on one picture: each kernel checked again, and at
-    MC_DEC_TIMED per picture with its wrapper (CUDA events) and alone
-    (``kernel_us``), the twin (timed on its check run) and the bound.
+    ``scan_kernels`` on one picture (the mixed set): each kernel checked
+    again, and at MC_DEC_TIMED per picture with its wrapper (CUDA events)
+    and alone (``kernel_us``), the twin (timed on its check run) and the bound.
     Returns (max_abs_err, and at 1080p: the wrapper's and the twin's ms
     and the bound) for each kernel."""
     from hartallo_tpu_torch.decode import mc_decode_fast as M
@@ -1202,14 +1381,24 @@ def mc_dec_phase(torch, card):
     errs = dict.fromkeys(MC_KERNELS, 0)
     results = {}
     for k, (label, gw, gh, band) in enumerate(MC_DEC_CASES):
-        rec, offs = residual_rec_inputs(gw, gh, 2, SEED + k)
-        trec = cuda(rec)
-        for cqo in (-12, 0, 12):
-            checked("residual_dec", f"{label}, offset {cqo}",
-                    lambda r, c: M.residual_planes_fast(r, offs, c, gw=gw,
-                                                        gh=gh),
-                    lambda r, c: M.residual_planes_plain(r, offs, c, gw=gw,
-                                                         gh=gh), (trec, cqo))
+        fractions = []
+        for j, (set_label, coded, stray) in reversed(
+                list(enumerate(RESIDUAL_SETS))):
+            rec, offs = residual_rec_inputs(gw, gh, 2, SEED + k + 10 * j,
+                                            coded=coded, stray=stray)
+            trec = cuda(rec)
+            for cqo in (-12, 0, 12):
+                checked("residual_dec", f"{label}, {set_label}, offset {cqo}",
+                        lambda r, c: M.residual_planes_fast(r, offs, c,
+                                                            gw=gw, gh=gh),
+                        lambda r, c: M.residual_planes_plain(r, offs, c,
+                                                             gw=gw, gh=gh),
+                        (trec, cqo))
+            fractions.append(f"{set_label} {coded_fraction(rec, offs):.3f}")
+        # rec and trec are now the mixed set's, timed below
+        print(f"residual kernel {label}: == plain on the int16 record sets "
+              f"(their fraction of coded luma blocks): "
+              f"{', '.join(reversed(fractions))}", flush=True)
         checked("mc_dec", f"{label}, coherent motion",
                 lambda *a: M.mc_recon_fast(*a, gw=gw, gh=gh),
                 lambda *a: M.mc_recon_plain(*a, gw=gw, gh=gh),
@@ -1231,10 +1420,14 @@ def mc_dec_phase(torch, card):
         for key, (_, ms, dev_us, _, plain_ms, (b_ms, b_by)) in (
                 got.items() if timed else ()):
             dev = "not measured" if dev_us is None else f"{dev_us:.2f} us"
+            old = ""
+            if key == "residual_dec":
+                old = f"; counted as int32 words, all levels read: " \
+                    f"{residual_dec_bound_int32(gw, gh)[0] * 1e3:.3f} us"
             print(f"[{card}] GOP scan kernel {DEC_KERNELS[key]} {label}: "
                   f"{ms * 1e3:.1f} us/picture with the wrapper, kernel "
                   f"alone {dev}, plain torch {plain_ms * 1e3:.1f} us, bound "
-                  f"{b_ms * 1e3:.3f} us ({b_by})", flush=True)
+                  f"{b_ms * 1e3:.3f} us ({b_by}{old})", flush=True)
             if label == "1080p":
                 results[key] = (ms, plain_ms, b_ms, b_by)
     return errs, results
@@ -1356,7 +1549,9 @@ def dec_kernels_phase(torch, card):
         print(f"[{card}] deblock parameter kernel (decoder) {label}: "
               f"{pms * 1e3:.1f} us/picture with the wrapper, kernel alone "
               f"{pdev}, plain torch {plain_ms[label][1] * 1e3:.1f} us, "
-              f"bound {pb_ms * 1e3:.4f} us ({pb_by})", flush=True)
+              f"bound {pb_ms * 1e3:.4f} us ({pb_by}; counted as int32 "
+              f"words: {params_dec_bound_int32(gw, gh)[0] * 1e3:.4f} us)",
+              flush=True)
     ms, _, pms, _, gw, gh = timed["720p"]
     return errs, {
         "intra_dec": (ms, plain_ms["720p"][0], *intra_dec_bound(gw, gh)),
@@ -2958,6 +3153,7 @@ def main() -> int:
     p_err, p_times = p_phase(torch, card)
     dec_err, dec_times = dec_kernels_phase(torch, card)
     mc_err, mc_times = mc_dec_phase(torch, card)
+    upload_phase(torch, card)
     launches = slice_phase(torch)
     scan_twins, scan_launches = scan_phase(torch)
     gen_twins, gen_launches = general_phase(torch)

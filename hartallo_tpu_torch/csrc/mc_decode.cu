@@ -21,13 +21,19 @@
 //                     slot's over-allocated margin, and the picture's
 //                     (H * 3/2, W) byte row (U and V side by side).
 // Their plain twins are hartallo_tpu_torch/ops/wide.residual_planes_wide
-// (through decode/mc_decode_fast.residual_planes_plain),
+// (through decode/mc_decode_fast.residual_planes_plain, which counts a
+// luma block's levels only where its TotalCoeff is not 0, as the parser
+// leaves them),
 // decode/mc_decode_fast.mc_recon_plain and ring_write_plain, which these
 // kernels match bit for bit; the wrappers are decode/mc_decode_fast.py.
 //
-// What bounds them on the H100: bytes.  At 1080p the residual reads the
-// 410 coefficient and parameter words of each MB and writes 384 int32
-// samples (about 26 MB, 7.7 us at 3.35 TB/s); the MC reads the residual,
+// What bounds them on the H100: bytes.  The residual reads, of each MB's
+// int16 record as the host parsed it (d_fused.DEC_FIELDS, 524 words),
+// only what its output needs: qp, kind, nnz and the chroma levels and DC
+// always, the levels of a luma block only where its TotalCoeff is not 0,
+// the luma DC only in an I16 MB; it writes 384 int32 samples an MB (a
+// P picture at 1080p with few coded blocks: about 15 MB, 4.5 us at 3.35
+// TB/s; chip_smoke.residual_dec_bound); the MC reads the residual,
 // the per-block MVs, slots and weights and about one reference sample per
 // predicted sample, and writes three padded int32 planes (about 32 MB with
 // 80% inter MBs, 9.5 us; chip_smoke.mc_dec_bound); the ring write reads
@@ -36,14 +42,25 @@
 // chain: every output sample is a short function of inputs read once.
 //
 // Design.
-// - k_residual_dec (a first cut): a warp an MB, four MBs a block of 128
-//   threads.  Lane l < 16 takes raster 4x4 block l: the Intra16x16 DC
-//   Hadamard by width-16 shuffles (the four values of its column, then of
-//   its row), its block's 16 coefficients dequantised and inverse
-//   transformed in registers, four int4 row stores.  Lanes 16-23 take
-//   chroma block (comp, b) = ((l - 16) >> 2, (l - 16) & 3): the 2x2 DC
-//   Hadamard as a butterfly of two xor shuffles in groups of four, then
-//   the same.  Lanes 24-31 only take part in the shuffles.
+// - k_residual_dec: 16 lanes an MB, two MBs a warp, four a block of 64
+//   threads, so that a 1080p picture's MBs are all in flight at once (a
+//   warp an MB needed two waves, each waiting on its loads) and a CIF
+//   picture's blocks still spread over most SMs.  The warp stages its
+//   MBs' records in shared memory as coalesced 8-byte vectors (the
+//   1,048-byte record is 8-byte aligned, not 16), in two rounds, each
+//   loading all its vectors into registers before storing any: the
+//   chroma levels and DC, nnz, qp and kind (38 vectors and two words an
+//   MB), then the coded luma blocks' levels and an I16 MB's luma DC (each
+//   vector loaded only where its block's TotalCoeff is not 0).  Sub-lane
+//   q of an MB then takes raster luma block q: the Intra16x16 DC Hadamard
+//   by width-16 shuffles (the four values of its column, then of its
+//   row), its 16 coefficients dequantised and inverse transformed in
+//   registers, four int4 row stores; sub-lanes 0-7 also chroma block
+//   (comp, b) = (q >> 2, q & 3), the 2x2 DC Hadamard as two xor
+//   butterflies in groups of four.  A block without levels (TotalCoeff 0;
+//   chroma levels all 0) skips the dequant and transform: it is its DC
+//   alone, one value, or 0.  The QUANT_V and QP_SCALE_CHROMA tables are
+//   immediates: each MB's chain is its one or two rounds of loads.
 // - k_mc_dec: two warps an MB, a block per strip of four MBs of an MB
 //   row (a 2-D grid, no division).  The MB's two warps read its 16
 //   blocks' MVs, slots and weights once, 192 coalesced words into shared
@@ -88,19 +105,33 @@ namespace {
 constexpr int PAD = 32;
 constexpr unsigned FULL = 0xffffffffu;
 
-// ops/wide.py's tables (core/tables.py): QUANT_V[qp % 6] in raster
-// order and QP_SCALE_CHROMA
-__constant__ int c_quant_v[6][16] = {
-    {10, 13, 10, 13, 13, 16, 13, 16, 10, 13, 10, 13, 13, 16, 13, 16},
-    {11, 14, 11, 14, 14, 18, 14, 18, 11, 14, 11, 14, 14, 18, 14, 18},
-    {13, 16, 13, 16, 16, 20, 16, 20, 13, 16, 13, 16, 16, 20, 16, 20},
-    {14, 18, 14, 18, 18, 23, 18, 23, 14, 18, 14, 18, 18, 23, 18, 23},
-    {16, 20, 16, 20, 20, 25, 20, 25, 16, 20, 16, 20, 20, 25, 20, 25},
-    {18, 23, 18, 23, 23, 29, 23, 29, 18, 23, 18, 23, 23, 29, 23, 29}};
-__constant__ int c_qpc[52] = {
-    0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17,
-    18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 29, 30, 31, 32, 32, 33,
-    34, 34, 35, 35, 36, 36, 37, 37, 37, 38, 38, 38, 39, 39, 39, 39};
+// ops/wide.py's tables (core/tables.py) as immediates, not constant
+// memory (whose first read after a launch misses to the card's memory and
+// would sit on each MB's chain): QUANT_V[q6] by a position's class (0: row
+// and column even, 1: both odd, 2: else), one byte a q6; and
+// QP_SCALE_CHROMA[q] = q below 30, from 30 on one byte a q
+constexpr unsigned long long QV_CLASS0 = 0x12100e0d0b0aull;
+constexpr unsigned long long QV_CLASS1 = 0x1d1917141210ull;
+constexpr unsigned long long QV_CLASS2 = 0x171412100e0dull;
+constexpr unsigned long long QPC_30 = 0x22222120201f1e1dull;
+constexpr unsigned long long QPC_38 = 0x2625252524242323ull;
+constexpr unsigned long long QPC_46 = 0x0000272727272626ull;
+
+// QUANT_V[q6][i], raster position i (a constant once unrolled)
+__device__ __forceinline__ int quant_v(int q6, int i) {
+  const int r = i >> 2, c = i & 3;
+  const unsigned long long t =
+      ((r ^ c) & 1) ? QV_CLASS2 : (r & 1) ? QV_CLASS1 : QV_CLASS0;
+  return (int)(t >> (8 * q6)) & 255;
+}
+
+// QP_SCALE_CHROMA[q], q in 0..51
+__device__ __forceinline__ int qp_scale_chroma(int q) {
+  if (q < 30) return q;
+  const int k = q - 30;
+  const unsigned long long t = k < 8 ? QPC_30 : k < 16 ? QPC_38 : QPC_46;
+  return (int)(t >> (8 * (k & 7))) & 255;
+}
 
 // int32 arithmetic that wraps as torch's does
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -136,23 +167,34 @@ __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
 // ---------------------------------------------------------------------------
 // k_residual_dec
 // ---------------------------------------------------------------------------
-constexpr int RD_THREADS = 128;          // a warp an MB
-constexpr int RD_MBS = RD_THREADS / 32;
+constexpr int RD_LANES = 16;              // lanes an MB
+constexpr int RD_WARP_MBS = 32 / RD_LANES; // MBs a warp
+constexpr int RD_THREADS = 64;
+constexpr int RD_MBS = RD_THREADS / RD_LANES;
 
-// word offsets of the fields in an MB's record (d_fused.DEC_FIELDS):
+// int16 word offsets of the fields in an MB's record (d_fused.DEC_FIELDS):
 // luma_ac (16 blkIdx, 4, 4), luma_dc (4, 4), chroma_ac (2, 4, 4, 4),
-// chroma_dc (2, 2, 2), qp, kind
+// chroma_dc (2, 2, 2), qp, kind, nnz (4, 4: TotalCoeff, raster order); the
+// five arrays at multiples of 4 words
 struct RdFields {
-  int luma_ac, luma_dc, chroma_ac, chroma_dc, qp, kind;
+  int luma_ac, luma_dc, chroma_ac, chroma_dc, qp, kind, nnz;
 };
 
 struct RdArgs {
-  const int32_t* rec;      // (K, gh * gw, words)
+  const int16_t* rec;      // (K, gh * gw, words), words a multiple of 4,
+                           // 8-byte aligned
   int32_t* res_y;          // (K, 16 gh, 16 gw)
   int32_t* res_c;          // (K, 2, 8 gh, 8 gw)
   RdFields f;
   int words, nmb, gw, gh, cqo;
 };
+
+// an MB's staged record in shared memory, int16 words: the luma levels in
+// blkIdx order and the luma DC (coded blocks and I16 MBs only), the
+// chroma levels and DC, nnz, qp and kind
+constexpr int RS_LAC = 0, RS_LDC = 256, RS_CAC = 272, RS_CDC = 400,
+              RS_NNZ = 408, RS_QP = 424, RS_KIND = 425, RS_WORDS = 432;
+constexpr int RD_SMEM_BYTES = RD_MBS * RS_WORDS * 2;
 
 __host__ __device__ inline int rd_blocks(int nmb) {
   return (nmb + RD_MBS - 1) / RD_MBS;
@@ -163,6 +205,19 @@ __device__ __forceinline__ int dequant_w(int c, int ls, int qp) {
   const int qdiv = qp / 6;
   return qp >= 24 ? wshl(wmul(c, ls), qdiv - 4)
                   : wadd(wmul(c, ls), 1 << (3 - qdiv)) >> (4 - qdiv);
+}
+
+// a block's 16 levels dequantised in place at qp (q6 = qp % 6), each with
+// the QUANT_V entry of its position's class
+__device__ __forceinline__ void dequant16(int (&x)[16], int q6, int qp) {
+  const int ls[3] = {16 * (int)(QV_CLASS0 >> (8 * q6) & 255),
+                     16 * (int)(QV_CLASS1 >> (8 * q6) & 255),
+                     16 * (int)(QV_CLASS2 >> (8 * q6) & 255)};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = i >> 2, c = i & 3;
+    x[i] = dequant_w(x[i], ls[((r ^ c) & 1) ? 2 : (r & 1)], qp);
+  }
 }
 
 // output k of the 1-D Hadamard stage of ops/wide._had_stage
@@ -195,80 +250,200 @@ __device__ __forceinline__ void idct4x4(int (&x)[16]) {
   for (int i = 0; i < 16; ++i) x[i] = wadd(x[i], 32) >> 6;
 }
 
-// raster block (by, bx) -> blkIdx
+// raster block (by, bx) -> blkIdx, and blkIdx b -> its raster index
 __device__ __forceinline__ int raster_blk(int by, int bx) {
   return ((by >> 1) << 3) | ((bx >> 1) << 2) | ((by & 1) << 1) | (bx & 1);
 }
+__device__ __forceinline__ int blk_raster(int b) {
+  return ((b >> 3) << 3) | (((b >> 1) & 1) << 2) | (((b >> 2) & 1) << 1) |
+         (b & 1);
+}
+
+// four int16 words as one 8-byte vector (the record's words sit at
+// multiples of 4 from an 8-byte aligned start)
+__device__ __forceinline__ int2 ld_w4(const int16_t* p) {
+  return *reinterpret_cast<const int2*>(p);
+}
+__device__ __forceinline__ void st_w4(int16_t* p, int2 v) {
+  *reinterpret_cast<int2*>(p) = v;
+}
+
+// a staged block's 16 int16 levels, sign-extended (the word at the lower
+// address is the low half)
+__device__ __forceinline__ void ld_levels(const int16_t* p, int (&v)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int2 w = ld_w4(p + 4 * i);
+    v[4 * i] = (w.x << 16) >> 16;
+    v[4 * i + 1] = w.x >> 16;
+    v[4 * i + 2] = (w.y << 16) >> 16;
+    v[4 * i + 3] = w.y >> 16;
+  }
+}
+
+// whether a block's 16 levels hold a nonzero one
+__device__ __forceinline__ bool nz16(const int (&v)[16]) {
+  int o = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o |= v[i];
+  return o != 0;
+}
+
+// the 16 residual samples of a block: its levels dequantised (ac) with its
+// DC term in x[0], inverse transformed; a block without levels is its DC
+// alone, one value
+__device__ __forceinline__ void finish_block(int (&x)[16], bool ac) {
+  if (ac) {
+    idct4x4(x);
+  } else {
+    const int v = wadd(x[0], 32) >> 6;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) x[i] = v;
+  }
+}
+
+__device__ __forceinline__ void store_block(int32_t* o, size_t stride,
+                                            const int (&x)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    st4(o + i * stride, make_int4(x[4 * i], x[4 * i + 1], x[4 * i + 2],
+                                  x[4 * i + 3]));
+}
 
 __global__ void __launch_bounds__(RD_THREADS) k_residual_dec(RdArgs a) {
-  const int lane = threadIdx.x & 31;
-  const int g = blockIdx.x * RD_MBS + (threadIdx.x >> 5);
-  if (g >= a.nmb) return;                 // the whole warp
-  const int per = a.gw * a.gh;
-  const int k = g / per, m = g - k * per, my = m / a.gw, mx = m - my * a.gw;
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int g0 = blockIdx.x * RD_MBS + wi * RD_WARP_MBS;
+  if (g0 >= a.nmb) return;                // the whole warp
+  const int nw = min(RD_WARP_MBS, a.nmb - g0);   // the warp's MBs
   const RdFields& f = a.f;
-  const int32_t* r = a.rec + (size_t)g * a.words;
-  const int qp = r[f.qp];
-  const bool i16 = r[f.kind] == 1;
-  // luma DC: lane l < 16 holds raster entry (l >> 2, l & 3); the Hadamard
-  // over each column (_had_stage along dim 0), then over each row
-  const int l16 = lane & 15, hi = l16 >> 2, hj = l16 & 3;
-  const int dc = r[f.luma_dc + l16];
+  int16_t* sw = reinterpret_cast<int16_t*>(smem) +
+                wi * RD_WARP_MBS * RS_WORDS;
+  // the warp's records into shared memory as coalesced 8-byte vectors, in
+  // two rounds: first what every MB needs (the chroma levels and DC, nnz,
+  // qp and kind: 38 vectors and two words an MB), then the levels of the
+  // luma blocks whose TotalCoeff is not 0 and, in an I16 MB, the luma DC.
+  // Each round loads all its vectors into registers before it stores any
+  // (a store between two loads would hold the second behind the first).
+  constexpr int R1 = (40 * RD_WARP_MBS + 31) / 32;
+  constexpr int R2 = (68 * RD_WARP_MBS + 31) / 32;
+  int2 v[R2];
+#pragma unroll
+  for (int i = 0; i < R1; ++i) {
+    const int u = lane + 32 * i, j = u / 40, t = u - 40 * j;
+    const int16_t* r = a.rec + (size_t)(g0 + j) * a.words;
+    if (j >= nw) continue;
+    if (t < 38)
+      v[i] = ld_w4(r + (t < 32   ? f.chroma_ac + 4 * t
+                        : t < 34 ? f.chroma_dc + 4 * (t - 32)
+                                 : f.nnz + 4 * (t - 34)));
+    else
+      v[i].x = r[t == 38 ? f.qp : f.kind];
+  }
+#pragma unroll
+  for (int i = 0; i < R1; ++i) {
+    const int u = lane + 32 * i, j = u / 40, t = u - 40 * j;
+    int16_t* s = sw + j * RS_WORDS;
+    if (j >= nw) continue;
+    if (t < 38)
+      st_w4(s + (t < 32 ? RS_CAC + 4 * t
+                        : t < 34 ? RS_CDC + 4 * (t - 32)
+                                 : RS_NNZ + 4 * (t - 34)),
+            v[i]);
+    else
+      s[RS_QP + t - 38] = (int16_t)v[i].x;
+  }
+  __syncwarp();
+  unsigned need = 0;                      // bit i: round 2's vector i
+#pragma unroll
+  for (int i = 0; i < R2; ++i) {
+    const int u = lane + 32 * i, j = u / 68, t = u - 68 * j;
+    const int16_t* s = sw + j * RS_WORDS;
+    if (j >= nw ||
+        !(t < 64 ? s[RS_NNZ + blk_raster(t >> 2)] > 0 : s[RS_KIND] == 1))
+      continue;
+    need |= 1u << i;
+    v[i] = ld_w4(a.rec + (size_t)(g0 + j) * a.words +
+                 (t < 64 ? f.luma_ac + 4 * t : f.luma_dc + 4 * (t - 64)));
+  }
+#pragma unroll
+  for (int i = 0; i < R2; ++i) {
+    const int u = lane + 32 * i, j = u / 68, t = u - 68 * j;
+    if (need >> i & 1) st_w4(sw + j * RS_WORDS + RS_LAC + 4 * t, v[i]);
+  }
+  __syncwarp();
+  // lane l works on MB l >> 4 of the warp (its first where there is no
+  // such MB, storing nothing) as sub-lane q = l & 15: raster luma block
+  // (hi, hj) = (q >> 2, q & 3) and, q < 8, chroma block (comp, cb) =
+  // (q >> 2, q & 3)
+  const int j = lane >> 4, q = lane & 15;
+  const bool live = j < nw;
+  const int g = g0 + (live ? j : 0);
+  const int16_t* s = sw + (live ? j : 0) * RS_WORDS;
+  const int qp = s[RS_QP];
+  const bool i16 = s[RS_KIND] == 1;
+  const int hi = q >> 2, hj = q & 3;
+  // luma DC (I16 MBs): the Hadamard over each column (_had_stage along
+  // dim 0) by width-16 shuffles (the four values of its column), then
+  // over each row (the four of its row)
+  const int dc = i16 ? s[RS_LDC + q] : 0;
   int col[4], row[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) col[i] = __shfl_sync(FULL, dc, (i << 2) | hj, 16);
   const int gcol = had4(col[0], col[1], col[2], col[3], hi);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) row[j] = __shfl_sync(FULL, gcol, (hi << 2) | j, 16);
+  for (int c = 0; c < 4; ++c)
+    row[c] = __shfl_sync(FULL, gcol, (hi << 2) | c, 16);
   const int fl = had4(row[0], row[1], row[2], row[3], hj);
-  // chroma: lane 16 + 4 comp + b; the 2x2 DC Hadamard as two butterflies
-  const int qpc = c_qpc[clampi(0, 51, qp + a.cqo)];
-  const int cl = (lane - 16) & 7, comp = cl >> 2, cb = cl & 3;
-  const int cdc = r[f.chroma_dc + 4 * comp + cb];
+  // chroma DC: the 2x2 Hadamard as two butterflies in groups of four lanes
+  const int comp = (q >> 2) & 1, cb = q & 3;
+  const int cdc = s[RS_CDC + (q & 7)];
   int p = __shfl_xor_sync(FULL, cdc, 1);
   const int c1 = (cb & 1) ? wsub(p, cdc) : wadd(cdc, p);
   p = __shfl_xor_sync(FULL, c1, 2);
   const int fc = (cb & 2) ? wsub(p, c1) : wadd(c1, p);
-  if (lane >= 24) return;
-  int x[16];
-  if (lane < 16) {
+  if (!live) return;
+  const int per = a.gw * a.gh;
+  const int k = g / per, m = g - k * per, my = m / a.gw, mx = m - my * a.gw;
+  const int W = 16 * a.gw, Wc = 8 * a.gw;
+  // the luma block; one whose TotalCoeff is 0 has no level
+  {
+    const bool ac = s[RS_NNZ + q] > 0;
     const int q6 = qp % 6;
-    const int32_t* c = r + f.luma_ac + 16 * raster_blk(hi, hj);
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      x[i] = dequant_w(c[i], 16 * c_quant_v[q6][i], qp);
+    int x[16];
+    if (ac) {
+      ld_levels(s + RS_LAC + 16 * raster_blk(hi, hj), x);
+      dequant16(x, q6, qp);
+    }
     if (i16) {                            // 8.5.10
-      const int scale = 16 * c_quant_v[q6][0], qdiv = qp / 6;
+      const int scale = 16 * quant_v(q6, 0), qdiv = qp / 6;
       x[0] = qp >= 36 ? wshl(wmul(fl, scale), qdiv - 6)
                       : wadd(wmul(fl, scale), 1 << (5 - qdiv)) >> (6 - qdiv);
+    } else if (!ac) {
+      x[0] = 0;
     }
-  } else {
-    const int q6 = qpc % 6;
-    const int32_t* c = r + f.chroma_ac + 16 * cl;
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      x[i] = dequant_w(c[i], 16 * c_quant_v[q6][i], qpc);
+    finish_block(x, ac);
+    store_block(a.res_y + (size_t)k * 16 * a.gh * W +
+                    (size_t)(16 * my + 4 * hi) * W + 16 * mx + 4 * hj,
+                W, x);
+  }
+  if (q >= 8) return;
+  // the chroma block: skipped where its levels read 0
+  {
+    const int qpc = qp_scale_chroma(clampi(0, 51, qp + a.cqo));
+    const int cq6 = qpc % 6;
+    int x[16];
+    ld_levels(s + RS_CAC + 16 * q, x);
+    const bool ac = nz16(x);
+    if (ac) dequant16(x, cq6, qpc);
     // 8.5.11: the shift may carry past bit 31, as torch's int32 << does
-    x[0] = wshl(wmul(fc, 16 * c_quant_v[q6][0]), qpc / 6) >> 5;
+    x[0] = wshl(wmul(fc, 16 * quant_v(cq6, 0)), qpc / 6) >> 5;
+    finish_block(x, ac);
+    store_block(a.res_c + ((size_t)k * 2 + comp) * 8 * a.gh * Wc +
+                    (size_t)(8 * my + 4 * (cb >> 1)) * Wc + 8 * mx +
+                    4 * (cb & 1),
+                Wc, x);
   }
-  idct4x4(x);
-  int32_t* o;
-  size_t stride;
-  if (lane < 16) {
-    const int W = 16 * a.gw;
-    stride = W;
-    o = a.res_y + (size_t)k * 16 * a.gh * W +
-        (size_t)(16 * my + 4 * hi) * W + 16 * mx + 4 * hj;
-  } else {
-    const int Wc = 8 * a.gw;
-    stride = Wc;
-    o = a.res_c + ((size_t)k * 2 + comp) * 8 * a.gh * Wc +
-        (size_t)(8 * my + 4 * (cb >> 1)) * Wc + 8 * mx + 4 * (cb & 1);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    st4(o + i * stride, make_int4(x[4 * i], x[4 * i + 1], x[4 * i + 2],
-                                  x[4 * i + 3]));
 }
 
 // ---------------------------------------------------------------------------
@@ -700,13 +875,21 @@ __global__ void __launch_bounds__(RW_THREADS) k_ring_write_dec(RwArgs a) {
 // Plain C entry points (kernels.py loads them with ctypes).  Each
 // launches on `stream` and returns cudaGetLastError().
 
-extern "C" int hl_residual_dec(const int32_t* rec, int words,
+// rec (K, gh * gw, words) int16 records, 8-byte aligned, words and the
+// five array offsets multiples of 4 (else cudaErrorInvalidValue); offs
+// (host memory) the seven field offsets in RdFields' order.
+extern "C" int hl_residual_dec(const int16_t* rec, int words,
                                const int* offs, int32_t* res_y,
                                int32_t* res_c, int K, int gw, int gh,
                                int cqo, cudaStream_t stream) {
-  const RdFields f{offs[0], offs[1], offs[2], offs[3], offs[4], offs[5]};
+  const RdFields f{offs[0], offs[1], offs[2], offs[3], offs[4], offs[5],
+                   offs[6]};
+  if ((words | f.luma_ac | f.luma_dc | f.chroma_ac | f.chroma_dc | f.nnz) &
+          3 ||
+      reinterpret_cast<uintptr_t>(rec) & 7)
+    return (int)cudaErrorInvalidValue;
   const RdArgs a{rec, res_y, res_c, f, words, K * gw * gh, gw, gh, cqo};
-  k_residual_dec<<<rd_blocks(a.nmb), RD_THREADS, 0, stream>>>(a);
+  k_residual_dec<<<rd_blocks(a.nmb), RD_THREADS, RD_SMEM_BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

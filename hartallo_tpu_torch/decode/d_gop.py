@@ -47,6 +47,12 @@ for _name, _shape in DEC_FIELDS:
     _OFF[_name] = (_o, _o + _w, _shape)
     _o += _w
 WORDS = _o
+# the fields the MC and intra kernels read as int32, one span of the
+# record (with nnz, the deblock offsets and flags between them), widened
+# by one cast a batch; the levels before it stay int16
+_WIDE = ("kind", "i16_mode", "i4_modes", "chroma_mode", "mv", "ref_idx",
+         "wp_l", "wp_c")
+_W0, _W1 = min(_OFF[n][0] for n in _WIDE), max(_OFF[n][1] for n in _WIDE)
 # the deblock parameters' and the residual's fields in the dense buffer
 DEBLOCK_OFFSETS = record_offsets(DEC_FIELDS)[0]
 RESIDUAL_OFFSETS = record_offsets(DEC_FIELDS, RESIDUAL_FIELDS)[0]
@@ -56,7 +62,7 @@ _QUAD = np.array([(by >> 1) * 2 + (bx >> 1) for by in range(4)
 
 
 def _field(packed, name, gw, gh):
-    """packed (K, Nmb, WORDS) -> (K, gh, gw) + field shape."""
+    """packed (K, Nmb, WORDS) -> (K, gh, gw) + field shape (a view)."""
     o0, o1, shape = _OFF[name]
     return packed[:, :, o0:o1].reshape((packed.shape[0], gh, gw) + shape)
 
@@ -79,17 +85,22 @@ def decode_gop(packed, write_slot, has_intra, ringY, ringU, ringV,
                *, gw: int, gh: int, chroma_qp_off: int):
     """Decode K pictures from their dense buffers.
 
-    packed (K, gh*gw, WORDS) int16 (``d_fused.pack_slice_arrays``);
-    write_slot (K,) ring slot of each recon (the last slot is the
-    non-reference trash slot); has_intra (K,) bool; ringY (S, 4, Hr, Wr),
-    ringU/ringV (S, Hcr, Wcr) uint8 on the decoder's device.
+    packed (K, gh*gw, WORDS) int16 (``d_fused.pack_slice_arrays``' rows),
+    as it is: on a CUDA decoder a tensor on the rings' device, uploaded
+    once (``decode/staging.py``); an int16 array or host tensor is copied
+    there; write_slot (K,) ring slot of each recon (the last slot is the
+    non-reference trash slot); has_intra (K,) bool; ringY (S, 4, Hr,
+    Wr), ringU/ringV (S, Hcr, Wcr) uint8 on the decoder's device.
 
     The ring is state: it is updated IN PLACE, picture by picture (slot
     write_slot[k] after picture k), and returned.  Returns (out (K,
     H*3//2, W) uint8 with U and V side by side per row, ringY, ringU,
     ringV)."""
     dev = ringY.device
-    packed = torch.as_tensor(np.asarray(packed), device=dev).to(torch.int32)
+    packed = torch.as_tensor(packed, device=dev)
+    if packed.dtype != torch.int16:
+        raise ValueError(f"decode_gop: packed is {packed.dtype}; the "
+                         "records are int16")
     write_slot = [int(s) for s in np.asarray(write_slot)]
     has_intra = [bool(h) for h in np.asarray(has_intra)]
     K, H, W = packed.shape[0], gh * 16, gw * 16
@@ -107,8 +118,10 @@ def decode_gop(packed, write_slot, has_intra, ringY, ringU, ringV,
 def prepare_pictures(packed, *, gw: int, gh: int, chroma_qp_off: int):
     """The work of K pictures that needs no reference: residual planes,
     deblock parameters and the MC and intra inputs, batched over the
-    pictures.  packed (K, gh*gw, WORDS) int32 on the device, contiguous;
-    returns a dict that ``reconstruct_picture`` reads: per picture the
+    pictures.  packed (K, gh*gw, WORDS) int16 on the device, contiguous,
+    read as it is by the residual and parameter kernels; only the span of
+    fields that the MC and intra kernels read as int32 is widened.
+    Returns a dict that ``reconstruct_picture`` reads: per picture the
     residual planes, the deblock rows, the per-4x4-block MVs, slots and
     weights (each 8x8 quadrant's spread to its four blocks, contiguous),
     the inter mask and the intra maps."""
@@ -118,8 +131,13 @@ def prepare_pictures(packed, *, gw: int, gh: int, chroma_qp_off: int):
 
     def fld(name):
         return _field(packed, name, gw, gh)
+    widened = packed[:, :, _W0:_W1].to(torch.int32)
 
-    kind = fld("kind")
+    def wide(name):
+        o0, o1, shape = _OFF[name]
+        return widened[:, :, o0 - _W0:o1 - _W0].reshape((K, gh, gw) + shape)
+
+    kind = wide("kind")
     res_y, res_c = residual_planes_fast(packed, RESIDUAL_OFFSETS,
                                         chroma_qp_off, gw=gw, gh=gh)
     quad = _quad(dev)
@@ -127,15 +145,16 @@ def prepare_pictures(packed, *, gw: int, gh: int, chroma_qp_off: int):
         "res_y": res_y, "res_c": res_c,
         "aux": deblock_params_dec_fast(packed, DEBLOCK_OFFSETS,
                                        chroma_qp_off, gw=gw, gh=gh),
-        "mv": fld("mv").reshape(K, N, 2).contiguous(),
-        "slot": fld("ref_idx")[..., quad].reshape(K, N),
-        "wp_l": fld("wp_l").reshape(K, gh, gw, 4, 3)[:, :, :, quad]
+        "mv": wide("mv").reshape(K, N, 2),
+        "slot": wide("ref_idx")[..., quad].reshape(K, N),
+        "wp_l": wide("wp_l").reshape(K, gh, gw, 4, 3)[:, :, :, quad]
         .reshape(K, N, 3),
-        "wp_c": fld("wp_c").reshape(K, gh, gw, 4, 2, 3)[:, :, :, quad]
+        "wp_c": wide("wp_c").reshape(K, gh, gw, 4, 2, 3)[:, :, :, quad]
         .reshape(K, N, 2, 3),
         "inter": (kind >= 3) & (kind != 8),
-        **{name: fld(name) for name in ("kind", "i16_mode", "i4_modes",
-                                        "chroma_mode")},
+        "kind": kind,
+        **{name: wide(name) for name in ("i16_mode", "i4_modes",
+                                         "chroma_mode")},
         **{name: fld(name) != 0 for name in ("avail_l", "avail_t",
                                              "avail_tr")},
     }

@@ -13,7 +13,10 @@ routes:
   the JAX package's) goes to ``d_gop_fast.decode_gop_fast``: the CUDA
   kernel on a CUDA device, its plain torch twin on the CPU; any other to
   the GOP scan ``d_gop.decode_gop``, as in the JAX package (for example
-  a P picture with explicit weighted prediction).  Unlike the JAX
+  a P picture with explicit weighted prediction), whose int16 rows are
+  packed straight into a host buffer, page-locked on a CUDA device, and
+  reach the device through one asynchronous copy a batch
+  (``decode/staging.py``; plain memory on the CPU).  Unlike the JAX
   package, the kernel takes a picture with any number of intra MBs or
   residual blocks (every 720p and 1080p IDR picture, which the Pallas
   kernel's capacities send to the scan);
@@ -72,14 +75,15 @@ from hartallo_tpu_torch.decode.sliceheader import SliceHeader, \
     parse_slice_header
 from hartallo_tpu_torch.util import log
 from hartallo_tpu_torch.decode import d_pool
-from hartallo_tpu_torch.decode.d_fused import pack_slice_arrays
-from hartallo_tpu_torch.decode.d_gop import (decode_gop, ring_shapes,
+from hartallo_tpu_torch.decode.d_fused import pack_slice_rows
+from hartallo_tpu_torch.decode.d_gop import (WORDS, decode_gop, ring_shapes,
                                              split_gop_out)
 from hartallo_tpu_torch.decode.d_gop_fast import (decode_gop_fast,
                                                   payload_to, stack_payload)
 from hartallo_tpu_torch.decode.intra_recon import (PAD, availability_masks,
                                                    availability_tr)
 from hartallo_tpu_torch.decode.intra_recon_fast import intra_reconstruct_fast
+from hartallo_tpu_torch.decode.staging import RowStaging
 from hartallo_tpu_torch.encode.p_body_fast import halfpel_planes_fast
 from hartallo_tpu_torch.ops.deblock_fast import (RECORD_OFFSETS,
                                                  deblock_frame_aux_fast,
@@ -105,13 +109,15 @@ class _Layer:
         self.ring_key = None             # (gw, gh, S, chroma_qp_off)
         self.jobs = []                   # queued _Job records
         self.pending_sync = []           # Frames to upload into the ring
+        self.staging = None              # staging.RowStaging of scan rows
 
 
 class _Job:
     __slots__ = ("packed", "wslot", "has_intra", "out", "gw", "gh", "fast")
 
     def __init__(self, packed, wslot, has_intra, gw, gh, fast=None):
-        self.packed = packed             # dense buffer (scan route) or None
+        self.packed = packed             # its rows in the batch's staging
+        #                                  buffer (scan route) or None
         self.wslot = wslot
         self.has_intra = has_intra
         self.out = None                  # (_BatchOut, row index)
@@ -509,9 +515,10 @@ class Decoder:
                                         al=al, at=at, atr=atr)
             except OverflowError:
                 fast = None
-        packed = None if fast is not None else pack_slice_arrays(
+        packed = None if fast is not None else pack_slice_rows(
             sd, al, at, fmb_v, fmb_h, filter_internal, wp_l=wp_l,
-            wp_c=wp_c, atr=atr)
+            wp_c=wp_c, atr=atr, out=self._staging(layer).row(
+                len(layer.jobs), (gh * gw, WORDS)))
         job = _Job(packed, wslot, bool((~mb_is_inter).any()), gw, gh,
                    fast=fast)
         layer.jobs.append(job)
@@ -583,6 +590,7 @@ class Decoder:
         if not layer.jobs:
             return
         jobs, layer.jobs = layer.jobs, []
+        staging, layer.staging = layer.staging, None
         gw, gh, S, cqoff = layer.ring_key
         if layer.ring is None:
             layer.ring = tuple(torch.zeros(s, dtype=torch.uint8,
@@ -601,14 +609,14 @@ class Decoder:
                     ring[f.slot].zero_()
                     ring[f.slot, :p.shape[0], :p.shape[1]] = \
                         p.to(torch.uint8)
-        runs = []
-        for j in jobs:
+        runs = []                       # (kernel route, jobs, first index)
+        for i, j in enumerate(jobs):
             kind = j.fast is not None
             if runs and runs[-1][0] == kind:
                 runs[-1][1].append(j)
             else:
-                runs.append((kind, [j]))
-        for kind, run in runs:
+                runs.append((kind, [j], i))
+        for kind, run, i0 in runs:
             if kind:
                 p = payload_to(stack_payload([j.fast for j in run]),
                                self.device)
@@ -619,7 +627,7 @@ class Decoder:
                 self.stats["kernel_pictures"] += len(run)
             else:
                 outs, ringY, ringU, ringV = decode_gop(
-                    np.stack([j.packed for j in run]),
+                    staging.upload(staging.rows(i0, i0 + len(run))),
                     [j.wslot for j in run], [j.has_intra for j in run],
                     ringY, ringU, ringV, gw=gw, gh=gh, chroma_qp_off=cqoff)
                 self.stats["scan_pictures"] += len(run)
@@ -627,6 +635,13 @@ class Decoder:
             for i, j in enumerate(run):
                 j.out = (batch, i)
         layer.ring = (ringY, ringU, ringV)
+
+    def _staging(self, layer: _Layer) -> RowStaging:
+        """The host buffer of the layer's queued scan rows (made at the
+        batch's first, a batch's worth of rows)."""
+        if layer.staging is None:
+            layer.staging = RowStaging(self.device, min(self.batch_k, 8))
+        return layer.staging
 
     def _materialize_ring_frames(self, layer: _Layer) -> None:
         """Give every in-ring DPB frame its own padded planes (for the
@@ -851,6 +866,6 @@ class Decoder:
             "alpha_off": sd.alpha_off, "beta_off": sd.beta_off,
             "fmb_v": fmb_v, "fmb_h": fmb_h, "fint": fint}, gw, gh)
         aux = deblock_params_dec_fast(
-            self._tensor(rec)[None], RECORD_OFFSETS,
+            torch.as_tensor(rec, device=self.device)[None], RECORD_OFFSETS,
             pps.chroma_qp_index_offset, gw=gw, gh=gh)[0]
         return deblock_frame_aux_fast(planes, aux, gw=gw, gh=gh)

@@ -5,9 +5,11 @@ Counterparts of the XLA of ``hartallo_tpu/decode/d_gop.py``'s scan, in
 ``csrc/mc_decode.cu``:
 
 - ``residual_planes_fast`` -> ``hl_residual_dec``, one launch for the K
-  pictures of a batch; twin ``residual_planes_plain``, the fields of the
-  dense buffer through ``ops/wide.residual_planes_wide`` (the flat
-  dequant, the luma and chroma DC, the inverse transform);
+  pictures of a batch, on their int16 records as uploaded; twin
+  ``residual_planes_plain``, the fields of the dense buffer through
+  ``ops/wide.residual_planes_wide`` (the flat dequant, the luma and
+  chroma DC, the inverse transform), a luma block's levels only where
+  its TotalCoeff is above 0;
 - ``mc_recon_fast`` -> ``hl_mc_dec``, one launch a picture; twin
   ``mc_recon_plain`` (``ops/wide.mc_luma_plane`` and ``mc_chroma_plane``,
   the residual added and clipped where the MB is inter, 0 elsewhere, the
@@ -39,60 +41,73 @@ from hartallo_tpu_torch.core.tables import QP_SCALE_CHROMA
 from hartallo_tpu_torch.decode.intra_recon import PAD
 from hartallo_tpu_torch.encode.me_fast import _check, _device
 from hartallo_tpu_torch.encode.p_body_fast import _on, _stream, _tensor
+from hartallo_tpu_torch.ops.deblock_fast import check_record
 from hartallo_tpu_torch.ops.wide import (halfpel_planes, mc_chroma_plane,
                                          mc_grids, mc_luma_plane, pad_edge,
                                          residual_planes_wide)
 
 # kernel launches in this process, by wrapper
 LAUNCHES = {"residual_dec": 0, "mc_dec": 0, "ring_write_dec": 0}
-# the per-MB words the residual reads, as (name, shape) in the order of
-# ``d_fused.DEC_FIELDS``
+# the per-MB int16 words the residual reads, as (name, shape) in the order
+# of ``d_fused.DEC_FIELDS``; the kernel reads the five arrays as 8-byte
+# vectors, so their offsets and the record's words are multiples of 4
 RESIDUAL_FIELDS = (("luma_ac", (16, 4, 4)), ("luma_dc", (4, 4)),
                    ("chroma_ac", (2, 4, 4, 4)), ("chroma_dc", (2, 2, 2)),
-                   ("qp", ()), ("kind", ()))
+                   ("qp", ()), ("kind", ()), ("nnz", (4, 4)))
+# blkIdx b -> the raster index of its 4x4 block
+_BLK_RASTER = torch.tensor([((b >> 3) << 3) | (((b >> 1) & 1) << 2) |
+                            (((b >> 2) & 1) << 1) | (b & 1)
+                            for b in range(16)])
 
 
 def residual_planes_plain(rec, offsets, chroma_qp_off: int, *, gw: int,
                           gh: int):
-    """The plain twin of ``residual_planes_fast``: the record's fields
-    through ``residual_planes_wide``.  Returns res_y (K, H, W), res_c (K,
-    2, H/2, W/2) int32."""
+    """The plain twin of ``residual_planes_fast``: the record's fields,
+    widened to int32, through ``residual_planes_wide``; a luma block's
+    levels count only where its TotalCoeff (``nnz``) is above 0, as the
+    parser leaves them (an uncoded block's levels are 0).  Returns res_y
+    (K, H, W), res_c (K, 2, H/2, W/2) int32."""
+    check_record("residual_planes_plain", rec, gw, gh, offsets,
+                 RESIDUAL_FIELDS)
     M = rec.shape[0] * rec.shape[1]
     f = {}
     for (name, shape), o in zip(RESIDUAL_FIELDS, offsets):
         n = int(np.prod(shape, dtype=int)) if shape else 1
-        f[name] = rec[:, :, o:o + n].reshape(M, n)
+        f[name] = rec[:, :, o:o + n].reshape(M, n).to(torch.int32)
+    coded = (f["nnz"] > 0)[:, _BLK_RASTER.to(rec.device)]
     qpc_table = torch.as_tensor(QP_SCALE_CHROMA, dtype=torch.int32,
                                 device=rec.device)
     return residual_planes_wide(
-        f["luma_ac"].reshape(M, 16, 16), f["luma_dc"],
-        f["chroma_ac"].reshape(M, 2, 4, 16), f["chroma_dc"].reshape(M, 2, 4),
-        f["qp"].reshape(M), (f["kind"] == 1).reshape(M), chroma_qp_off,
-        qpc_table, gw, gh)
+        (f["luma_ac"].reshape(M, 16, 16) * coded[..., None]),
+        f["luma_dc"], f["chroma_ac"].reshape(M, 2, 4, 16),
+        f["chroma_dc"].reshape(M, 2, 4), f["qp"].reshape(M),
+        (f["kind"] == 1).reshape(M), chroma_qp_off, qpc_table, gw, gh)
 
 
 def residual_planes_fast(rec, offsets, chroma_qp_off: int, *, gw: int,
                          gh: int):
     """The residual planes of K pictures from their per-MB records: rec
-    (K, gh*gw, words) int32, contiguous, with ``RESIDUAL_FIELDS`` at
-    ``offsets`` (``ops/deblock_fast.record_offsets(fields,
-    RESIDUAL_FIELDS)``); every MB's qp in 0..51.  CUDA
-    tensors -> one ``hl_residual_dec`` launch; CPU tensors ->
-    ``residual_planes_plain``.  Returns res_y (K, H, W), res_c (K, 2, H/2,
-    W/2) int32."""
+    (K, gh*gw, words) int16, contiguous, as the host parsed them, with
+    ``RESIDUAL_FIELDS`` at ``offsets`` (``ops/deblock_fast
+    .record_offsets(fields, RESIDUAL_FIELDS)``; the arrays' offsets and
+    words multiples of 4); every MB's qp in 0..51.  CUDA tensors -> one
+    ``hl_residual_dec`` launch; CPU tensors -> ``residual_planes_plain``.
+    Another dtype, shape or layout raises ``ValueError`` on either.
+    Returns res_y (K, H, W), res_c (K, 2, H/2, W/2) int32."""
     name = "residual_planes_fast"
+    check_record(name, rec, gw, gh, offsets, RESIDUAL_FIELDS)
     device = _device(name, (rec,))
     if device is None:
         return residual_planes_plain(rec, offsets, chroma_qp_off, gw=gw,
                                      gh=gh)
     from hartallo_tpu_torch import kernels
-    if rec.dtype != torch.int32 or not rec.is_contiguous() or \
-            rec.dim() != 3 or rec.shape[1] != gh * gw or \
-            len(offsets) != len(RESIDUAL_FIELDS):
-        raise ValueError(f"{name}: rec {rec.dtype} {tuple(rec.shape)}; it "
-                         f"needs a contiguous int32 (K, {gh * gw}, words) "
-                         f"tensor and {len(RESIDUAL_FIELDS)} offsets")
     K, _, words = rec.shape
+    if (words | offsets[0] | offsets[1] | offsets[2] | offsets[3] |
+            offsets[6]) % 4 or rec.data_ptr() % 8:
+        raise ValueError(f"{name}: {words} words a record, offsets "
+                         f"{tuple(offsets)}; the kernel reads 8-byte "
+                         "vectors: words and the arrays' offsets must be "
+                         "multiples of 4, the data 8-byte aligned")
     H, W = gh * 16, gw * 16
     flat = torch.empty(K * H * W * 3 // 2, dtype=torch.int32, device=device)
     res_y = flat[:K * H * W].view(K, H, W)

@@ -13,9 +13,10 @@ launches the same kernel on parameters gathered already (the encoder's
 in-loop deblock, whose ``csrc/p_encode.cu`` kernel gathers them, and the
 decoder, whose parameters ``deblock_params_dec_fast`` gathers).
 ``deblock_params_dec_fast`` launches ``k_deblock_params_dec`` of
-``csrc/deblock.cu`` on the per-MB words the decoder parsed, K pictures a
-launch; on CPU tensors it runs ``deblock_params_dec_plain``.  There
-is no other branch: a failed build or launch raises.
+``csrc/deblock.cu`` on the per-MB int16 words the decoder parsed, as
+uploaded, K pictures a launch; on CPU tensors it runs
+``deblock_params_dec_plain``.  There is no other branch: a failed build
+or launch raises.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from hartallo_tpu_torch.ops.wide import compute_bs_grids
 LAUNCHES = 0         # frames deblocked by the CUDA kernel in this process
 PARAMS_LAUNCHES = 0  # launches of the decoder's parameter kernel
 NAUX = 62
-# The per-MB int32 words the decoder's deblock parameters read, as
+# The per-MB int16 words the decoder's deblock parameters read, as
 # (name, shape) in the order of ``d_fused.DEC_FIELDS`` (where the GOP
 # scan's dense buffer holds them, among others); the general route packs
 # a record of these alone (``pack_deblock_record``).
@@ -55,18 +56,39 @@ def record_offsets(fields, wanted=DEBLOCK_FIELDS) -> tuple:
     return tuple(offs[name] for name, _ in wanted), o
 
 
-# the offsets of ``pack_deblock_record``'s record
-RECORD_OFFSETS = record_offsets(DEBLOCK_FIELDS)[0]
+# each field's words
+_SIZES = tuple(int(np.prod(shape, dtype=int)) if shape else 1
+               for _, shape in DEBLOCK_FIELDS)
+# the offsets of ``pack_deblock_record``'s record, and its words: the
+# fields and one zero word, so that a record is 8-byte vectors (the
+# kernel stages records as such)
+RECORD_OFFSETS, _FIELD_WORDS = record_offsets(DEBLOCK_FIELDS)
+RECORD_WORDS = (_FIELD_WORDS + 3) // 4 * 4
 
 
 def pack_deblock_record(values: dict, gw: int, gh: int) -> np.ndarray:
-    """Host: the (gh*gw, words) int32 record of ``DEBLOCK_FIELDS`` from
-    numpy arrays of shape (gh, gw) + the field's shape (``nnz`` per MB in
-    raster order of its 4x4 blocks)."""
-    return np.concatenate(
-        [np.asarray(values[name], np.int32).reshape(
-            gh * gw, int(np.prod(shape, dtype=int)) if shape else 1)
-         for name, shape in DEBLOCK_FIELDS], axis=1)
+    """Host: the (gh*gw, RECORD_WORDS) int16 record of ``DEBLOCK_FIELDS``
+    from numpy arrays of shape (gh, gw) + the field's shape (``nnz`` per
+    MB in raster order of its 4x4 blocks), zeros after the fields."""
+    rec = np.zeros((gh * gw, RECORD_WORDS), np.int16)
+    for (name, _), o, n in zip(DEBLOCK_FIELDS, RECORD_OFFSETS, _SIZES):
+        rec[:, o:o + n] = np.asarray(values[name]).reshape(gh * gw, n)
+    return rec
+
+
+def check_record(name: str, rec, gw: int, gh: int, offsets,
+                 fields) -> None:
+    """Raise ``ValueError`` unless rec is a contiguous int16 (K, gh*gw,
+    words) tensor and ``offsets`` has one offset for each of
+    ``fields``."""
+    if not isinstance(rec, torch.Tensor) or rec.dtype != torch.int16 or \
+            not rec.is_contiguous() or rec.dim() != 3 or \
+            rec.shape[1] != gh * gw or len(offsets) != len(fields):
+        got = f"{getattr(rec, 'dtype', type(rec))} " \
+            f"{tuple(getattr(rec, 'shape', ()))}"
+        raise ValueError(f"{name}: rec {got}; it needs a contiguous int16 "
+                         f"(K, {gh * gw}, words) tensor and {len(fields)} "
+                         "offsets")
 
 
 @lru_cache(maxsize=None)
@@ -87,12 +109,16 @@ def deblock_params_dec_plain(rec, offsets, chroma_qp_off: int, *, gw: int,
     the GOP scan and the general route, ``compute_bs_grids`` (I4x4, I16,
     PCM and I_BL intra), the left and top QP and chroma QP maps (the edge
     MB its own) and ``edge_params`` with the per-MB offsets, batched over
-    the K pictures.  Returns (K, gh, gw, NAUX) int16."""
+    the K pictures, on the int16 records' fields widened to int32.
+    Returns (K, gh, gw, NAUX) int16."""
+    check_record("deblock_params_dec_plain", rec, gw, gh, offsets,
+                 DEBLOCK_FIELDS)
     K = rec.shape[0]
     f = {}
     for (name, shape), o in zip(DEBLOCK_FIELDS, offsets):
         n = int(np.prod(shape, dtype=int)) if shape else 1
-        f[name] = rec[:, :, o:o + n].reshape((K, gh, gw) + shape)
+        f[name] = rec[:, :, o:o + n].to(torch.int32).reshape(
+            (K, gh, gw) + shape)
     kind = f["kind"]
     nnz = f["nnz"].permute(0, 1, 3, 2, 4).reshape(K, 4 * gh, 4 * gw)
     mvg = f["mv"].permute(0, 1, 3, 2, 4, 5).reshape(K, 4 * gh, 4 * gw, 2)
@@ -134,24 +160,31 @@ def edge_rows(bs_v, bs_h, qp, chroma_qp_off: int, alpha_off, beta_off):
 def deblock_params_dec_fast(rec, offsets, chroma_qp_off: int, *, gw: int,
                             gh: int):
     """The decoder's deblock parameter rows of K pictures, (K, gh, gw,
-    NAUX) int16, from their per-MB records: rec (K, gh*gw, words) int32,
-    contiguous, with ``DEBLOCK_FIELDS`` at ``offsets`` (``record_offsets``).
-    CUDA tensors -> one ``hl_deblock_params_dec`` launch; CPU tensors ->
-    ``deblock_params_dec_plain``."""
-    dev = _device("deblock_params_dec_fast", (rec,))
+    NAUX) int16, from their per-MB records: rec (K, gh*gw, words) int16,
+    contiguous, as the host parsed them, with ``DEBLOCK_FIELDS`` at
+    ``offsets`` (``record_offsets``; words a multiple of 4, the fields
+    within 128 words of each other).  CUDA tensors -> one
+    ``hl_deblock_params_dec`` launch; CPU tensors ->
+    ``deblock_params_dec_plain``.  Another dtype, shape or layout raises
+    ``ValueError`` on either."""
+    name = "deblock_params_dec_fast"
+    check_record(name, rec, gw, gh, offsets, DEBLOCK_FIELDS)
+    dev = _device(name, (rec,))
     if dev is None:
         return deblock_params_dec_plain(rec, offsets, chroma_qp_off, gw=gw,
                                         gh=gh)
     global PARAMS_LAUNCHES
     from hartallo_tpu_torch import kernels
-    if rec.dtype != torch.int32 or \
-            not rec.is_contiguous() or rec.dim() != 3 or \
-            rec.shape[1] != gh * gw or len(offsets) != len(DEBLOCK_FIELDS):
-        raise ValueError(f"deblock_params_dec_fast: rec {rec.dtype} "
-                         f"{tuple(rec.shape)} on {rec.device}; it needs a "
-                         f"contiguous int32 (K, {gh * gw}, words) tensor and "
-                         f"{len(DEBLOCK_FIELDS)} offsets")
     K, _, words = rec.shape
+    lo = min(offsets) // 4 * 4
+    hi = (max(o + n for o, n in zip(offsets, _SIZES)) + 3) // 4 * 4
+    if words % 4 or hi > words or hi - lo > 128 or \
+            rec.data_ptr() % 8:
+        raise ValueError(f"{name}: {words} words a record, offsets "
+                         f"{tuple(offsets)}; the kernel stages 8-byte "
+                         "vectors of the words from the lowest field's to "
+                         "the highest's (at most 128): words must be a "
+                         "multiple of 4, the data 8-byte aligned")
     aux = torch.empty((K, gh, gw, NAUX), dtype=torch.int16, device=dev)
     offs = (ctypes.c_int * len(offsets))(*offsets)
     with torch.cuda.device(dev):

@@ -73,15 +73,17 @@ def gather(bands: Sequence[torch.Tensor], device=None) -> torch.Tensor:
     return torch.cat([b.to(dev) for b in bands])
 
 
-def _split(a, mesh: Mesh, dim: int = 0):
-    """Cut ``a`` (numpy or tensor) into len(mesh.devices) equal int32
-    bands along ``dim``, band i on devices[i]."""
+def _split(a, mesh: Mesh, dim: int = 0, dtype=torch.int32):
+    """Cut ``a`` (numpy or tensor) into len(mesh.devices) equal ``dtype``
+    bands along ``dim``, band i on devices[i]: one copy a band, which runs
+    asynchronously where ``a`` is page-locked host memory (on a device
+    that ``a`` is on already, with its dtype, the band is a view)."""
     n = len(mesh.devices)
     if a.shape[dim] % n:
         raise ValueError(f"{a.shape[dim]} rows do not split into {n} bands")
     h = a.shape[dim] // n
     t = torch.as_tensor(a)
-    return tuple(t.narrow(dim, i * h, h).to(dev, torch.int32)
+    return tuple(t.narrow(dim, i * h, h).to(dev, dtype, non_blocking=True)
                  for i, dev in enumerate(mesh.devices))
 
 
@@ -167,8 +169,11 @@ def decode_frame_step_sharded(mesh: Mesh, packed, ringY, ringU, ringV,
                               chroma_qp_off: int, has_intra: bool, S: int):
     """One picture of the decode pipeline row-sharded over the mesh.
 
-    packed (gh*gw, WORDS) the picture's dense buffer
-    (``d_fused.pack_slice_arrays``, MB raster order); ringY/U/V the
+    packed (gh*gw, WORDS) int16, the picture's dense buffer
+    (``d_fused.pack_slice_arrays``, MB raster order; numpy or a host
+    tensor, which the decoder stages page-locked: each band is one
+    asynchronous copy of its rows, read as int16 by the kernels);
+    ringY/U/V the
     UNPADDED reference rings (S, H, W) / (S, H/2, W/2) int32, each a
     tuple of per-band (S, H/n, ...) tensors on the bands' devices (cut a
     whole ring with ``_split(ring, mesh, dim=1)``).  The packed
@@ -188,11 +193,14 @@ def decode_frame_step_sharded(mesh: Mesh, packed, ringY, ringU, ringV,
     assert gh % n == 0, (gh, n)
     gh_l = gh // n
     rings = (ringY, ringU, ringV)
-    packed = np.asarray(packed)
-    pk = _split(packed, mesh)
+    packed = torch.as_tensor(packed)
+    if packed.dtype != torch.int16:
+        raise ValueError(f"decode_frame_step_sharded: packed is "
+                         f"{packed.dtype}; the records are int16")
+    pk = _split(packed, mesh, dtype=torch.int16)
     # a band without an Intra4x4 or Intra16x16 MB skips the intra
     # wavefront, which would leave its planes as they are
-    kind = packed[:, _OFF["kind"][0]].reshape(n, gh_l * gw)
+    kind = packed[:, _OFF["kind"][0]].reshape(n, gh_l * gw).numpy()
     band_intra = [has_intra and bool(np.isin(k, (0, 1)).any())
                   for k in kind]
     H, W = gh_l * 16, gw * 16
@@ -279,7 +287,8 @@ class ShardedDecoder(Decoder):
 
     def _flush(self, layer) -> None:
         jobs, layer.jobs = layer.jobs, []
-        for job in jobs:
+        staging, layer.staging = layer.staging, None
+        for i, job in enumerate(jobs):
             gw, gh, S, cqoff = layer.ring_key
             if self.rings is None:
                 n, H, W = len(self.mesh.devices), gh * 16, gw * 16
@@ -288,8 +297,9 @@ class ShardedDecoder(Decoder):
                                       device=d) for d in self.mesh.devices)
                     for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2)))
             y, uv, *self.rings = decode_frame_step_sharded(
-                self.mesh, job.packed, *self.rings, job.wslot, gw=gw, gh=gh,
-                chroma_qp_off=cqoff, has_intra=job.has_intra, S=S)
+                self.mesh, staging.rows(i, i + 1)[0], *self.rings,
+                job.wslot, gw=gw, gh=gh, chroma_qp_off=cqoff,
+                has_intra=job.has_intra, S=S)
             job.out = (_BatchOut(torch.cat([gather(y, self.device),
                                             gather(uv, self.device)])[None]),
                        0)

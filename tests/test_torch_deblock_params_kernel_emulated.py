@@ -17,10 +17,12 @@ authority (the ``cuda`` tests of ``tests/test_torch_intra_decode.py`` and
 three pictures a launch, in the general route's record and in the GOP
 scan's dense buffer, with slice-edge flags, nonzero per-MB offsets,
 ``fint`` false on some MBs, refIdx that differ across edges, and edge
-flags on column 0 and row 0.  ``test_emulated_mutants_fail`` builds two
-broken copies of the source (the internal edges gated by the MB edge
-flags; the top neighbour read from the picture's first row instead of
-the row above) and shows that each disagrees with the twin.  Tolerance:
+flags on column 0 and row 0, all as int16 records as uploaded.
+``test_emulated_mutants_fail`` builds four broken copies of the source
+(the internal edges gated by the MB edge flags; the top neighbour read
+from the picture's first row instead of the row above; a strip's left
+neighbour staged from the strip's first MB; an int16 alpha offset
+read as unsigned) and shows that each disagrees with the twin.  Tolerance:
 exact equality.
 """
 import ctypes
@@ -42,14 +44,13 @@ HARNESS = r"""
 #include "cuda_emulation.h"
 #include "deblock_params_body.inc"
 
-extern "C" void emu_deblock_params_dec(const int32_t* rec, int words,
+extern "C" void emu_deblock_params_dec(const int16_t* rec, int words,
                                        const int* offs, const int32_t* tab,
                                        int16_t* aux, int K, int gw, int gh,
                                        int cqo) {
-  const Fields f{offs[0], offs[1], offs[2], offs[3], offs[4],
-                 offs[5], offs[6], offs[7], offs[8], offs[9]};
-  const DdArgs a{rec, tab, aux, f, words, gw, gh, cqo};
-  if (DD_SMEM_BYTES > (int)sizeof(smem)) std::abort();
+  DdArgs a;
+  if (!dd_args(rec, words, offs, tab, aux, gw, gh, cqo, &a)) std::abort();
+  if (dd_smem_bytes(a.span) > (int)sizeof(smem)) std::abort();
   emu_launch_grid(k_deblock_params_dec, a, dd_strips(gw), gh, DD_THREADS,
                   K);
 }
@@ -93,7 +94,8 @@ def emulated():
 
 def run(dll, rec, offsets, cqo, gw, gh):
     from hartallo_tpu_torch.ops import deblock_fast as D
-    rec = np.ascontiguousarray(rec, np.int32)
+    rec = np.ascontiguousarray(rec, np.int16)
+    assert rec.ctypes.data % 8 == 0
     K = rec.shape[0]
     offs = (ctypes.c_int * len(offsets))(*offsets)
     tab = D._param_tables("cpu").numpy().copy()
@@ -136,6 +138,10 @@ MUTANTS = [
     ("internal edges gated by the MB edge flags", "(bx ? fi : fv)", "fv"),
     ("the top neighbour from row 0", "(my ? my - 1 : a.gh - 1) * gw",
      "0 * gw"),
+    ("a strip's left neighbour staged from its first MB",
+     "my * gw + (mx0 ? mx0 - 1 : gw - 1)", "my * gw + mx0"),
+    ("an int16 alpha offset read as unsigned", "aoff = rq[f.aoff]",
+     "aoff = (uint16_t)rq[f.aoff]"),
 ]
 
 

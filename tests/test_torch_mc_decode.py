@@ -6,11 +6,12 @@ the twins on a GPU.
 
 - The twins (``decode/mc_decode_fast``): ``residual_planes_plain``
   equals the JAX ``ops/wide.residual_planes_wide`` on
-  ``chip_smoke.residual_rec_inputs`` (int16-extreme coefficients, qp
-  0..51, I16 MBs) at chroma QP offsets -12, 0 and 12; ``mc_recon_plain``
-  equals the JAX scan step's MC lines (``mc_luma_plane``,
-  ``mc_chroma_plane`` twice, the masked clipped residual add and the
-  zero pad, ``decode/d_gop.py:183-191``) on ``chip_smoke.mc_dec_inputs``
+  ``chip_smoke.residual_rec_inputs``' int16 records (int16-extreme
+  coefficients, qp 0..51, I16 MBs; ``test_torch_int16_records.py``
+  holds it on each coded set) at chroma QP offsets -12, 0 and 12;
+  ``mc_recon_plain`` equals the JAX scan step's MC lines
+  (``mc_luma_plane``, ``mc_chroma_plane`` twice, the masked clipped
+  residual add and the zero pad, ``decode/d_gop.py:183-191``) on ``chip_smoke.mc_dec_inputs``
   (per-4x4 MVs up to 2,000 quarter pels out, three slots, weights with
   logWD 0..7; the uint8 ring and the int32 band stacks);
   ``ring_write_plain`` equals the JAX step's ring write and output
@@ -26,7 +27,8 @@ the twins on a GPU.
   and the MC and ring write wrappers once a picture; the sharded band
   step the residual and MC wrappers once a band and no ring write.
 - On a GPU (``cuda``): each kernel equals its twin at QCIF to 1080p,
-  the 120x34 band and the emulated tests' shapes, the MC also on
+  the 120x34 band and the emulated tests' shapes, the residual on each
+  of ``chip_smoke.RESIDUAL_SETS``' int16 records, the MC also on
   coherent motion; the scan route (``qcif_6_wp``), the sharded decode
   (``shard_96x64_8``) and ``_ilp_predict`` run with ``mc_luma_plane``,
   ``mc_chroma_plane``, ``residual_planes_wide`` and ``halfpel_planes``
@@ -52,8 +54,8 @@ def _jax_residual(rec, offs, cqo, gw, gh):
     from hartallo_tpu.core.tables import QP_SCALE_CHROMA
     from hartallo_tpu.ops.wide import residual_planes_wide
     M = rec.shape[0] * rec.shape[1]
-    la, ld, ca, cd, qp, kind = offs
-    r = jnp.asarray(rec)
+    la, ld, ca, cd, qp, kind, _ = offs
+    r = jnp.asarray(rec.astype(np.int32))
     return residual_planes_wide(
         r[:, :, la:la + 256].reshape(M, 16, 16),
         r[:, :, ld:ld + 16].reshape(M, 16),
@@ -282,12 +284,15 @@ def test_cuda_kernels_equal_twins(cuda_device, label, gw, gh):
     motion (one MV an MB)."""
     from hartallo_tpu_torch.decode import mc_decode_fast as M
     band = label.startswith("band")
-    rec, offs = CS.residual_rec_inputs(gw, gh, 2, gw + gh)
-    trec = torch.tensor(rec, device=cuda_device)
-    for cqo in (-12, 0, 12):
-        got = M.residual_planes_fast(trec, offs, cqo, gw=gw, gh=gh)
-        want = M.residual_planes_plain(trec, offs, cqo, gw=gw, gh=gh)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for set_label, coded, stray in CS.RESIDUAL_SETS:
+        rec, offs = CS.residual_rec_inputs(gw, gh, 2, gw + gh, coded=coded,
+                                           stray=stray)
+        trec = torch.tensor(rec, device=cuda_device)
+        for cqo in (-12, 0, 12):
+            got = M.residual_planes_fast(trec, offs, cqo, gw=gw, gh=gh)
+            want = M.residual_planes_plain(trec, offs, cqo, gw=gw, gh=gh)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                (set_label, cqo)
     for coherent in (False, True):
         case = [torch.tensor(a, device=cuda_device)
                 for a in CS.mc_dec_inputs(gw, gh, 3, gw * gh, band=band,

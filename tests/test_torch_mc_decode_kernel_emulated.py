@@ -22,12 +22,20 @@ row and one MB column (the pad blocks' edge rows), and coherent motion
 ring write's 64 x 32 tiles, a last tile row that ends inside the slot,
 a tile row wholly in the margin, and padded pictures that end inside a
 tile (the fused output row and the margin's zeros).
-``test_emulated_mutants_fail`` builds five broken copies of the source
+The residual runs on the int16 records of
+``chip_smoke.residual_rec_inputs``' coded sets (no luma block with
+levels, 15%, all of them, each MB its own, I16 MBs with their DC alone,
+qp 0 and 51, levels at the int16 range's ends) and with stray levels in
+blocks whose TotalCoeff is 0.
+``test_emulated_mutants_fail`` builds eight broken copies of the source
 (the MC's luma clamp's upper bound off by one; its chroma fractions dx
 and dy swapped; its byte rows' funnel shift in 4-bit steps instead of
 bytes; the ring write's output row taking plane b instead of G; the
 residual's luma DC Hadamard's first stage gathering a row's lanes
-instead of a column's) and shows that each disagrees with its twin.
+instead of a column's; the residual skipping coded luma blocks (nnz
+read in blkIdx order), reading an int16 level as unsigned, and skipping
+a chroma block whose first level is 0 but not its others) and shows
+that each disagrees with its twin.
 Tolerance: exact equality.
 """
 import ctypes
@@ -49,12 +57,14 @@ HARNESS = r"""
 #include "cuda_emulation.h"
 #include "mc_body.inc"
 
-extern "C" void emu_residual_dec(const int32_t* rec, int words,
+extern "C" void emu_residual_dec(const int16_t* rec, int words,
                                  const int* offs, int32_t* res_y,
                                  int32_t* res_c, int K, int gw, int gh,
                                  int cqo) {
-  const RdFields f{offs[0], offs[1], offs[2], offs[3], offs[4], offs[5]};
+  const RdFields f{offs[0], offs[1], offs[2], offs[3], offs[4], offs[5],
+                   offs[6]};
   const RdArgs a{rec, res_y, res_c, f, words, K * gw * gh, gw, gh, cqo};
+  if (RD_SMEM_BYTES > (int)sizeof(smem)) std::abort();
   emu_launch_grid(k_residual_dec, a, rd_blocks(a.nmb), 1, RD_THREADS);
 }
 
@@ -151,7 +161,7 @@ def run_residual(dll, rec, offs, cqo, gw, gh):
     res_y = _aligned(np.full((K, gh * 16, gw * 16), -1, np.int32))
     res_c = _aligned(np.full((K, 2, gh * 8, gw * 8), -1, np.int32))
     dll.emu_residual_dec(rec.ctypes.data, rec.shape[2],
-                         (ctypes.c_int * 6)(*offs), res_y.ctypes.data,
+                         (ctypes.c_int * 7)(*offs), res_y.ctypes.data,
                          res_c.ctypes.data, K, gw, gh, cqo)
     return res_y, res_c
 
@@ -217,6 +227,25 @@ def test_emulated_residual_equals_twin(emulated, gw, gh, K, cqo):
     for got, want in zip(run_residual(emulated, rec, offs, cqo, gw, gh),
                          twin_residual(rec, offs, cqo, gw, gh)):
         np.testing.assert_array_equal(got, want)
+
+
+# the int16 records' sets (chip_smoke.RESIDUAL_SETS: each MB its own
+# coded fraction, no luma block with levels, 15%, all; I16 MBs with their
+# DC alone among them), and stray levels in blocks whose TotalCoeff is 0
+RESIDUAL_SETS = CS.RESIDUAL_SETS
+
+
+@pytest.mark.parametrize("label,coded,stray", RESIDUAL_SETS,
+                         ids=[c[0] for c in RESIDUAL_SETS])
+def test_emulated_residual_coded_sets_equal_twin(emulated, label, coded,
+                                                 stray):
+    gw, gh, K = 6, 2, 2
+    rec, offs = CS.residual_rec_inputs(gw, gh, K, 90 + len(label),
+                                       coded=coded, stray=stray)
+    for cqo in (-12, 5):
+        for got, want in zip(run_residual(emulated, rec, offs, cqo, gw, gh),
+                             twin_residual(rec, offs, cqo, gw, gh)):
+            np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("band", [False, True], ids=["uint8 ring",
@@ -285,6 +314,14 @@ MUTANTS = [
      "(unsigned)(a & 3) << 2", "mc"),
     ("output row's luma from b", "pack4(q[0][0], q[0][1], q[0][2], q[0][3])",
      "pack4(q[1][0], q[1][1], q[1][2], q[1][3])", "ring_write"),
+    ("a coded block skipped (nnz read in blkIdx order)",
+     "s[RS_NNZ + blk_raster(t >> 2)] > 0", "s[RS_NNZ + (t >> 2)] > 0",
+     "residual"),
+    ("an int16 level read as unsigned", "v[4 * i] = (w.x << 16) >> 16;",
+     "v[4 * i] = w.x & 0xffff;", "residual"),
+    ("a chroma block skipped although nonzero",
+     "for (int i = 0; i < 16; ++i) o |= v[i];",
+     "for (int i = 0; i < 1; ++i) o |= v[i];", "residual"),
 ]
 
 

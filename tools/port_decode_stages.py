@@ -9,9 +9,14 @@ each ended by ``torch.cuda.synchronize`` and counted without the wrapped
 stages nested in it): host CAVLC parse, host enqueue (MV derivation and
 payload packing), the host part of the flushes (payload upload and
 launches), the kernel route, and the GOP-scan route split into its
-stages (where the tree has them): ``scan_loop`` (the scan's own loop:
-the batch's upload, and on a tree without a ring write kernel the ring
-write's eager ops), ``scan_batch_rest`` (the batch's eager work),
+stages (where the tree has them): ``scan_upload`` (the batch's one
+asynchronous int16 copy from the page-locked host buffer to the card,
+``staging.RowStaging.upload``, ended by the synchronize; the rows are
+packed into that buffer in ``enqueue``, and on a tree without it their
+``np.stack`` counts in ``flush``), ``scan_loop`` (the scan's own loop: on a
+tree without ``scan_upload`` also the batch's upload and widening, and
+on a tree without a ring write kernel the ring write's eager ops),
+``scan_batch_rest`` (the batch's eager work),
 ``scan_residual`` (the residual kernel, or the eager
 ``residual_planes_wide``), ``scan_deblock_params``, ``scan_mc`` (the MC
 kernel; on a tree without it, ``reconstruct_picture`` less its nested
@@ -21,15 +26,16 @@ kernel, or the half-pel stack launch that a tree without it makes
 there); then the output fetch.  A ``shard_*`` fixture is decoded by
 ``decode_gops_grouped`` on ``Mesh(("cuda:0",) * 4)`` in 2 groups,
 its band step (``band_step``) split the same way (``band_halfpel``: the
-band's reference stacks).  Then one decode under ``torch.profiler`` for
-the device's busy share and its heaviest kernels, and the device
-operations (kernels, copies, fills) that the scan route or the band step
-launches per picture (its runtime calls inside its window; hand kernels
-apart).  Prints three JSON objects per fixture, in ms per frame, with the
-card's name and power limit.  ``--tree`` imports ``hartallo_tpu_torch``
-from a checkout of another commit, so that two trees are split with the
-same wrappers on one card (run them in turns in one command).  Needs a
-CUDA device.
+band's reference stacks; ``band_upload``: its bands' copies of the
+picture's rows, ``shard._split``).  Then one decode under
+``torch.profiler`` for the device's busy share and its heaviest
+kernels, and the device operations (kernels, copies, fills) that the
+scan route or the band step launches per picture (its runtime calls
+inside its window; hand kernels apart).  Prints three JSON objects per
+fixture, in ms per frame, with the card's name and power limit.
+``--tree`` imports ``hartallo_tpu_torch`` from a checkout of another
+commit, so that two trees are split with the same wrappers on one card
+(run them in turns in one command).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -68,6 +74,10 @@ def stages(name: str, runs: int) -> dict:
     import hartallo_tpu_torch.decode.decoder as DM
     import hartallo_tpu_torch.parallel.shard as S
 
+    try:
+        from hartallo_tpu_torch.decode.staging import RowStaging
+    except ImportError:                    # a tree without the staging
+        RowStaging = None
     nf = json.loads((FIXTURES / f"{name}.json").read_text())["frames"]
     decode = decoder(name)
     decode()                                               # warm-up
@@ -80,7 +90,9 @@ def stages(name: str, runs: int) -> dict:
                (DM.Decoder, "_flush", "flush"),
                (DM, "decode_gop_fast", "kernel_route"),
                (DM, "decode_gop", "scan_loop"),
+               (RowStaging, "upload", "scan_upload"),
                (S, "decode_frame_step_sharded", "band_step"),
+               (S, "_split", "band_upload"),
                (S, "halfpel_planes_fast", "band_halfpel"),
                (G, "prepare_pictures", "scan_batch_rest"),
                (S, "prepare_pictures", "scan_batch_rest"),

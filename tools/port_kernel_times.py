@@ -90,7 +90,15 @@ limit:
   (``chip_smoke.host_us``), the plain twin's on the run that checks the
   kernel against it (tolerance 0), and its bound
   (``chip_smoke.residual_dec_bound`` / ``mc_dec_bound`` /
-  ``ring_write_bound``).
+  ``ring_write_bound``).  Besides, at each seeded size, the residual
+  alone on a zero-coded, a sparse (15%) and a fully coded record
+  (``residual_rec_inputs(coded=)``), and the decoder's deblock parameter
+  kernel (``deblock_params_dec_fast``) on the scan's dense buffer
+  (``deblock_rec_inputs(wide=True)``) and on the fixture's first
+  picture, each checked against its twin and timed the same way (bound
+  ``chip_smoke.params_dec_bound``).  The records are int16; a tree whose
+  wrappers take them as int32 (older than the int16 upload) is fed them
+  widened, with the same bounds.
 
 ``--intra-only`` times the intra encode kernel alone, ``--me-only`` the
 motion search kernels alone, ``--p-only`` the P-picture body alone,
@@ -246,7 +254,7 @@ ONLY = ("intra", "me", "p", "dec", "scan")
 
 def _scan_batch(torch):
     """The first GOP scan batch of SCAN_FIXTURE, the stream decoded on the
-    card up to it: (packed (K, gh*gw, words) int32 on the card, the
+    card up to it: (packed (K, gh*gw, words) int16 on the card, the
     ring's slots S, gw, gh, chroma_qp_off)."""
     import numpy as np
 
@@ -259,7 +267,8 @@ def _scan_batch(torch):
 
     def scan(packed, write_slot, has_intra, ringY, *rest, gw, gh,
              chroma_qp_off):
-        raise Caught(np.asarray(packed, np.int32), ringY.shape[0], gw, gh,
+        rows = packed.cpu() if isinstance(packed, torch.Tensor) else packed
+        raise Caught(np.asarray(rows, np.int16), ringY.shape[0], gw, gh,
                      chroma_qp_off)
     real, DM.decode_gop = DM.decode_gop, scan
     try:
@@ -280,17 +289,54 @@ def time_scan(res: dict) -> None:
     import torch
 
     from chip_smoke import (MC_DEC_CASES, MC_DEC_TIMED, MC_KERNELS, SEED,
-                            mc_dec_inputs, residual_rec_inputs,
+                            deblock_rec_inputs, kernel_alone,
+                            mc_dec_inputs, params_dec_bound,
+                            residual_dec_bound, residual_rec_inputs,
                             ring_write_inputs, scan_kernels)
     from hartallo_tpu_torch.decode import mc_decode_fast as M
-    from hartallo_tpu_torch.decode.d_gop import (_QUAD, RESIDUAL_OFFSETS,
+    from chip_smoke import RESIDUAL_NAMES
+    from hartallo_tpu_torch.decode.d_fused import DEC_FIELDS
+    from hartallo_tpu_torch.decode.d_gop import (_QUAD, DEBLOCK_OFFSETS,
                                                  prepare_pictures,
                                                  ring_shapes)
-    out = {f"{n}_{k}": res.setdefault(f"{n}_{k}", {}) for n in MC_KERNELS
+    from hartallo_tpu_torch.ops import deblock_fast as D
+    out = {f"{n}_{k}": res.setdefault(f"{n}_{k}", {})
+           for n in (*MC_KERNELS, "deblock_params_dec")
            for k in ("us", "kernel_us", "host_us", "plain_us", "bound_us")}
+    # a tree whose kernels read the int16 records as uploaded (and the
+    # residual nnz); an older one reads them widened to int32
+    int16 = len(M.RESIDUAL_FIELDS) == 7
+    RES_OFFS = D.record_offsets(DEC_FIELDS,
+                                [(n, None) for n in RESIDUAL_NAMES])[0]
 
     def cuda(a):
         return torch.tensor(a, device="cuda")
+
+    def record(rec, offs):
+        """A record as the tree's wrappers take it: (rec, offs)."""
+        if int16:
+            return rec, offs
+        return rec.to(torch.int32), offs[:6] if len(offs) == 7 else offs
+
+    def put(key, tag, got):
+        """A ``chip_smoke.kernel_alone`` result into ``out``."""
+        _, ms, dev_us, h_us, plain_ms, (b_ms, _) = got
+        for k, v in (("us", 1e3 * ms), ("kernel_us", dev_us),
+                     ("host_us", h_us), ("plain_us", 1e3 * plain_ms),
+                     ("bound_us", 1e3 * b_ms)):
+            out[f"{key}_{k}"][tag] = v
+
+    def alone(key, fast, twin, tag, rec, offs, bound, gw, gh):
+        """One kernel on one picture's record (the tree's layout), checked
+        against its twin and timed."""
+        a = (*record(rec, offs), 0)
+        put(key, tag, kernel_alone(torch, tag, key, fast, twin, a, a, bound,
+                                   gw, gh))
+
+    def params(tag, gw, gh, rec, offs):
+        alone("deblock_params_dec", D.deblock_params_dec_fast,
+              D.deblock_params_dec_plain, tag, rec, offs,
+              params_dec_bound(gw, gh), gw, gh)
 
     def seeded_stacks(shapes, dtype, seed):
         rng = np.random.default_rng(seed)
@@ -300,13 +346,11 @@ def time_scan(res: dict) -> None:
         rings = seeded_stacks(ring_shapes(gw, gh, S), np.uint8, SEED)
         row = torch.empty((gh * 24, gw * 16), dtype=torch.uint8,
                           device="cuda")
-        got = scan_kernels(torch, tag, gw, gh, rec, offs, mc,
-                           (*planes, *rings, S - 1, row))
-        for n, (_, ms, dev_us, h_us, plain_ms, (b_ms, _)) in got.items():
-            for k, v in (("us", 1e3 * ms), ("kernel_us", dev_us),
-                         ("host_us", h_us), ("plain_us", 1e3 * plain_ms),
-                         ("bound_us", 1e3 * b_ms)):
-                out[f"{n}_{k}"][tag] = v
+        got = scan_kernels(torch, tag, gw, gh, *record(rec, offs), mc,
+                           (*planes, *rings, S - 1, row),
+                           residual_bound=residual_dec_bound(rec, offs))
+        for n, r in got.items():
+            put(n, tag, r)
 
     def interiors(pl, gw, gh):
         H, W = gh * 16, gw * 16
@@ -321,8 +365,20 @@ def time_scan(res: dict) -> None:
         planes = ring_write_inputs(gw, gh, 3, SEED + k)[0]
         timed(f"seeded {label}", gw, gh, cuda(rec), offs, mc,
               interiors([cuda(p) for p in planes], gw, gh), 3)
+        # the residual alone on the coded sets; the parameters on the
+        # scan's dense buffer
+        for coded, tag in ((0.0, "zero-coded"), (0.15, "sparse"),
+                           (1.0, "fully coded")):
+            rec, offs = residual_rec_inputs(gw, gh, 1, SEED + k,
+                                            coded=coded)
+            alone("residual_dec", M.residual_planes_fast,
+                  M.residual_planes_plain, f"{tag} {label}", cuda(rec), offs,
+                  residual_dec_bound(rec, offs), gw, gh)
+        rec, offs = deblock_rec_inputs(gw, gh, 1, SEED + k, wide=True)
+        params(f"seeded {label}", gw, gh, cuda(rec), offs)
     packed, S, gw, gh, cqo = _scan_batch(torch)
-    b = prepare_pictures(packed, gw=gw, gh=gh, chroma_qp_off=cqo)
+    b = prepare_pictures(packed if int16 else packed.to(torch.int32), gw=gw,
+                         gh=gh, chroma_qp_off=cqo)
     res["scan_fixture"] = {"name": SCAN_FIXTURE, "gw": gw, "gh": gh,
                            "S": S, "batch": int(packed.shape[0]),
                            "inter_mbs": int(b["inter"][0].sum())}
@@ -358,8 +414,11 @@ def time_scan(res: dict) -> None:
               b["inter"][0][:rows].contiguous()]
         planes = interiors(M.mc_recon_fast(*mc, gw=gw, gh=rows), gw, rows)
         timed(f"{motion} {label}", gw, rows,
-              packed[:1, :rows * gw].contiguous(), RESIDUAL_OFFSETS, mc,
+              packed[:1, :rows * gw].contiguous(), RES_OFFS, mc,
               planes, S_run)
+        if motion == "fixture":
+            params(f"fixture {label}", gw, rows,
+                   packed[:1, :rows * gw].contiguous(), DEBLOCK_OFFSETS)
 
 
 def time_kernels(path: str, tree: str, plain: bool,
