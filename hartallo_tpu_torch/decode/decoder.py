@@ -48,6 +48,51 @@ default) an undecodable NAL unit is logged and skipped, as in the JAX
 package and the reference (for example an MVC slice extension, which
 ``nal.parse_nal_header`` rejects).
 
+Spans and counters (``hartallo_tpu_torch.tracing``).  A decode call on
+the batched route runs as these spans, one after another and none
+inside another: under ``torch.profiler`` each is a ``record_function``
+range, after ``tracing.enable()`` each adds its count and duration to
+``tracing.snapshot()["spans"]``, and otherwise each costs a fraction of
+a microsecond.
+
+- ``decode.nal``: ``find_nal_units``, and per NAL the emulation-
+  prevention strip, the NAL header, the parameter sets and the PPS probe
+  of a slice, up to its slice header;
+- ``decode.parse``: the calls of ``parse_slice_header`` and
+  ``SliceDecoder.decode_slice_data`` (the native CAVLC parse), nothing
+  else;
+- ``decode.prepare``: the decoder's own work between those calls and the
+  enqueue's: picture boundary, ``SliceData.create``, FMO order,
+  completeness, route choice (``_reconstruct``, ``d_pool.eligible``),
+  reference list and ring slots, weight arrays, availability and filter
+  masks, POC, DPB, the queued job;
+- ``decode.enqueue``: the calls of ``mv.derive_mvs``, ``d_pool.pack_fast``
+  and ``pack_slice_rows`` with its staging row, nothing else;
+- ``decode.upload``: a batch's payload made and handed to the device
+  (``stack_payload`` and ``payload_to``, or ``RowStaging.upload``);
+- ``decode.launch``: the rest of ``_flush``: the ring, the general-route
+  references synced into it, ``decode_gop_fast`` / ``decode_gop``, the
+  output's bookkeeping;
+- ``decode.fetch``: a batch's frames copied to the host
+  (``_BatchOut.fetch``; a general-route frame's in
+  ``_PlanesFrame.resolve``);
+- ``decode.output``: one frame cut out of its batch (``split_gop_out``).
+
+A flush that ``batch_k`` queued pictures start runs after the
+picture's enqueue spans have closed.  The general route, the encoder and
+``parallel/shard.py`` have no spans of their own.  Counters
+(``tracing.add``, always on):
+
+- ``decode.batches``: batch runs that ``_flush`` launched (consecutive
+  pictures of one route);
+- ``decode.upload_bytes``: the bytes of each batch's payload or scan
+  rows handed to the device (the kernels' constant tables, a few KB a
+  launch, are not counted);
+- ``decode.fetch_bytes``: the bytes of output frames copied to the host
+  (a whole batch at a time).
+
+On a CPU decoder the same bytes are counted, though nothing is copied.
+
 Reference parity: ``hl_codec_264.c:79-397`` (_decode),
 ``hl_codec_264_nal.c`` (slice pipeline), ``hl_codec_264_decode_avc.c``
 (per-picture order), ``hl_codec_264_decode_svc.c`` (Annex-G layer
@@ -60,6 +105,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from hartallo_tpu_torch import tracing
 from hartallo_tpu_torch.api import DecodeResult
 from hartallo_tpu_torch.bitio import BitReader, find_nal_units, \
     strip_emulation_prevention
@@ -136,7 +182,9 @@ class _BatchOut:
 
     def fetch(self) -> np.ndarray:
         if self.host is None:
-            self.host = self.dev.cpu().numpy()
+            with tracing.span("decode.fetch"):
+                self.host = self.dev.cpu().numpy()
+                tracing.add("decode.fetch_bytes", self.host.nbytes)
             self.dev = None
         return self.host
 
@@ -157,7 +205,9 @@ class BatchSlot:
 
     def resolve(self) -> np.ndarray:
         batch, i = self._row()
-        return split_gop_out(batch.fetch()[i], self.gw, self.gh)
+        host = batch.fetch()
+        with tracing.span("decode.output"):
+            return split_gop_out(host[i], self.gw, self.gh)
 
 
 class _PlanesFrame:
@@ -169,7 +219,11 @@ class _PlanesFrame:
         self.planes = planes
 
     def resolve(self) -> np.ndarray:
-        return torch.cat([p.reshape(-1) for p in self.planes]).cpu().numpy()
+        with tracing.span("decode.fetch"):
+            host = torch.cat([p.reshape(-1) for p in self.planes]).cpu() \
+                .numpy()
+            tracing.add("decode.fetch_bytes", host.nbytes)
+        return host
 
 
 def _materialize(result: DecodeResult) -> DecodeResult:
@@ -242,7 +296,9 @@ class Decoder:
         decoded whenever ``batch_k`` pictures of a layer are queued);
         returns the pending results, each frame a lazy handle."""
         results = []
-        for s0, e0 in find_nal_units(data):
+        with tracing.span("decode.nal"):
+            units = find_nal_units(data)
+        for s0, e0 in units:
             try:
                 r = self.decode_nal_deferred(data[s0:e0])
             except Exception as e:                      # noqa: BLE001
@@ -260,55 +316,54 @@ class Decoder:
             self._flush(layer)
 
     def decode_nal_deferred(self, nal_bytes: bytes) -> DecodeResult:
-        r = BitReader(strip_emulation_prevention(nal_bytes))
-        hdr = N.parse_nal_header(r)
+        with tracing.span("decode.nal"):
+            r = BitReader(strip_emulation_prevention(nal_bytes))
+            hdr = N.parse_nal_header(r)
+            params = self._take_nal(r, hdr)
+        if params is None:
+            return DecodeResult()
+        return self._decode_slice(r, hdr, *params)
+
+    def _take_nal(self, r: BitReader, hdr: N.NalHeader):
+        """Keep a parameter set, or a prefix NAL's SVC extension; drop a
+        slice above ``tid_max``.  For a slice to decode, return its (sps,
+        pps); else None."""
         if hdr.type == N.NAL_SPS:
             sps = SPS.parse(r)
             if sps.seq_parameter_set_id in self.sps_map:
                 self._fmo_cache.clear()
             self.sps_map[sps.seq_parameter_set_id] = sps
-            return DecodeResult()
+            return None
         if hdr.type == N.NAL_SUBSET_SPS:
             self._svc_seen = True
             sps = parse_subset_sps(r)
             self.sps_map[sps.seq_parameter_set_id] = sps
-            return DecodeResult()
+            return None
         if hdr.type == N.NAL_PPS:
             pps = PPS.parse(r)
             if pps.pic_parameter_set_id in self.pps_map:
                 self._fmo_cache.clear()
             self.pps_map[pps.pic_parameter_set_id] = pps
-            return DecodeResult()
+            return None
         if hdr.type == N.NAL_PREFIX:
             # prefix NAL of the following base-layer slice: its SVC
             # extension header carries the temporal_id
             self._prefix_svc = hdr.svc
-            return DecodeResult()
-        if hdr.type in (N.NAL_SLICE, N.NAL_SLICE_IDR, N.NAL_SLICE_EXT):
-            svc = hdr.svc if hdr.type == N.NAL_SLICE_EXT else \
-                self._prefix_svc
-            self._prefix_svc = None
-            if svc is not None:
-                tid = svc.temporal_id
-            else:
-                # plain AVC: non-reference P slices are the disposable
-                # (temporal_id > 0) set
-                tid = 1 if (hdr.ref_idc == 0 and
-                            hdr.type == N.NAL_SLICE) else 0
-            if self.tid_max >= 0 and tid > self.tid_max:
-                return DecodeResult()    # droppable temporal layer
-            return self._decode_slice(r, hdr)
-        return DecodeResult()
-
-    # ------------------------------------------------------------------
-    def _decode_slice(self, r: BitReader, nh: N.NalHeader) -> DecodeResult:
-        svc_ext = nh.type == N.NAL_SLICE_EXT
-        if svc_ext:
+            return None
+        if hdr.type not in (N.NAL_SLICE, N.NAL_SLICE_IDR, N.NAL_SLICE_EXT):
+            return None
+        svc = hdr.svc if hdr.type == N.NAL_SLICE_EXT else self._prefix_svc
+        self._prefix_svc = None
+        if svc is not None:
+            tid = svc.temporal_id
+        else:
+            # plain AVC: non-reference P slices are the disposable
+            # (temporal_id > 0) set
+            tid = 1 if (hdr.ref_idc == 0 and hdr.type == N.NAL_SLICE) else 0
+        if self.tid_max >= 0 and tid > self.tid_max:
+            return None                  # droppable temporal layer
+        if hdr.type == N.NAL_SLICE_EXT:
             self._svc_seen = True
-        dqid = nh.svc.dqid if (svc_ext and nh.svc) else 0
-        no_ilp = nh.svc.no_inter_layer_pred_flag if (svc_ext and nh.svc) \
-            else 1
-        quality_id = nh.svc.quality_id if (svc_ext and nh.svc) else 0
         # pic_parameter_set_id is the 3rd ue(v) of every slice header
         probe = BitReader(r.data)
         probe.pos = r.pos
@@ -319,54 +374,71 @@ class Decoder:
         sps = self.sps_map.get(pps.seq_parameter_set_id) if pps else None
         if pps is None or sps is None:
             raise ValueError(f"slice references unknown PPS {pps_id}")
-        sh = parse_slice_header(
-            r, sps, pps, nal_ref_idc=nh.ref_idc, is_idr=nh.is_idr,
-            svc_ext=svc_ext, no_inter_layer_pred=bool(no_ilp),
-            quality_id=quality_id)
-        gw, gh = sps.pic_width_in_mbs, sps.pic_height_in_mbs
-        layer = self._layer(dqid)
-        # picture boundary (7.4.1.2.4 subset): frame_num change, or a slice
-        # whose first MB was already decoded (FMO slice groups need not
-        # contain MB 0, so first_mb == 0 alone is not a boundary)
-        new_pic = layer.cur is None
-        if not new_pic and layer.hdr is not None:
-            if sh.frame_num != layer.hdr.frame_num:
-                new_pic = True
-            else:
-                a = sh.first_mb_in_slice
-                if layer.cur.slice_id[a // gw, a % gw] >= 0:
-                    new_pic = True
-        if new_pic:
-            layer.cur = SliceData.create(gw, gh)
-            layer.hdr = sh
-            layer.nal = nh
-        sd = layer.cur
-        svc_il = svc_ext and not no_ilp
-        scan_order = None
-        if pps.num_slice_groups_minus1 > 0:
-            # FMO: non-raster MB visit order per the slice-group map
-            # (8.2.2), identical for every slice of the picture: cached
-            from hartallo_tpu_torch.decode.fmo import (mb_to_slice_group_map,
-                                                       slice_scan_order)
-            key = (pps.pic_parameter_set_id, sps.seq_parameter_set_id,
-                   sh.slice_group_change_cycle)
-            sg_map = self._fmo_cache.get(key)
-            if sg_map is None:
-                sg_map = mb_to_slice_group_map(sps, pps,
-                                               sh.slice_group_change_cycle)
-                self._fmo_cache[key] = sg_map
-            scan_order = slice_scan_order(sg_map, sh.first_mb_in_slice)
-        sid = sd._slice_count
-        SliceDecoder(sps, pps, sd).decode_slice_data(
-            r, sh, svc_inter_layer=svc_il, scan_order=scan_order)
-        sd.wp[sid] = sh.pred_weights
+        return sps, pps
 
-        if (sd.mb_kind >= 0).all():
+    # ------------------------------------------------------------------
+    def _decode_slice(self, r: BitReader, nh: N.NalHeader, sps: SPS,
+                      pps: PPS) -> DecodeResult:
+        svc_ext = nh.type == N.NAL_SLICE_EXT
+        dqid = nh.svc.dqid if (svc_ext and nh.svc) else 0
+        no_ilp = nh.svc.no_inter_layer_pred_flag if (svc_ext and nh.svc) \
+            else 1
+        quality_id = nh.svc.quality_id if (svc_ext and nh.svc) else 0
+        with tracing.span("decode.parse"):
+            sh = parse_slice_header(
+                r, sps, pps, nal_ref_idc=nh.ref_idc, is_idr=nh.is_idr,
+                svc_ext=svc_ext, no_inter_layer_pred=bool(no_ilp),
+                quality_id=quality_id)
+        with tracing.span("decode.prepare"):
+            gw, gh = sps.pic_width_in_mbs, sps.pic_height_in_mbs
+            layer = self._layer(dqid)
+            # picture boundary (7.4.1.2.4 subset): frame_num change, or a
+            # slice whose first MB was already decoded (FMO slice groups
+            # need not contain MB 0, so first_mb == 0 alone is not a
+            # boundary)
+            new_pic = layer.cur is None
+            if not new_pic and layer.hdr is not None:
+                if sh.frame_num != layer.hdr.frame_num:
+                    new_pic = True
+                else:
+                    a = sh.first_mb_in_slice
+                    if layer.cur.slice_id[a // gw, a % gw] >= 0:
+                        new_pic = True
+            if new_pic:
+                layer.cur = SliceData.create(gw, gh)
+                layer.hdr = sh
+                layer.nal = nh
+            sd = layer.cur
+            svc_il = svc_ext and not no_ilp
+            scan_order = None
+            if pps.num_slice_groups_minus1 > 0:
+                # FMO: non-raster MB visit order per the slice-group map
+                # (8.2.2), identical for every slice of the picture: cached
+                from hartallo_tpu_torch.decode.fmo import (
+                    mb_to_slice_group_map, slice_scan_order)
+                key = (pps.pic_parameter_set_id, sps.seq_parameter_set_id,
+                       sh.slice_group_change_cycle)
+                sg_map = self._fmo_cache.get(key)
+                if sg_map is None:
+                    sg_map = mb_to_slice_group_map(
+                        sps, pps, sh.slice_group_change_cycle)
+                    self._fmo_cache[key] = sg_map
+                scan_order = slice_scan_order(sg_map, sh.first_mb_in_slice)
+            sid = sd._slice_count
+            slice_decoder = SliceDecoder(sps, pps, sd)
+        with tracing.span("decode.parse"):
+            slice_decoder.decode_slice_data(
+                r, sh, svc_inter_layer=svc_il, scan_order=scan_order)
+        with tracing.span("decode.prepare"):
+            sd.wp[sid] = sh.pred_weights
+            if not (sd.mb_kind >= 0).all():
+                return DecodeResult()
             if svc_il and (bool((sd.mb_kind == MB_PBL).any()) or
                            bool(sd.motion_pred_l0.any())):
                 self._infer_inter_layer_motion(sd, sps, layer.hdr, dqid)
-            frame, poc = self._reconstruct(sps, pps, layer.hdr, layer.nal,
-                                           sd, layer, dqid)
+        frame, poc = self._reconstruct(sps, pps, layer.hdr, layer.nal, sd,
+                                       layer, dqid)
+        with tracing.span("decode.prepare"):
             # per-picture motion state for a following enhancement
             # layer's G.8.6.1 inference (base_mode_flag)
             layer.last_motion = (
@@ -390,7 +462,6 @@ class Decoder:
                 return DecodeResult()
             return DecodeResult(frame=frame, width=sps.width,
                                 height=sps.height, dqid=dqid, poc=poc)
-        return DecodeResult()
 
     # ------------------------------------------------------------------
     def _infer_inter_layer_motion(self, sd: SliceData, sps: SPS,
@@ -424,14 +495,16 @@ class Decoder:
     def _reconstruct(self, sps: SPS, pps: PPS, sh: SliceHeader,
                      nh: N.NalHeader, sd: SliceData, layer: _Layer,
                      dqid: int):
-        has_pcm = bool((sd.mb_kind == MB_PCM).any())
-        has_ibl = bool((sd.mb_kind == MB_IBL).any())
-        nonflat = effective_weight4x4(sps, pps) is not None
-        has_respred = bool(sd.res_pred.any())
-        qref = (dqid & 15) > 0 and \
-            bool(((sd.mb_kind >= 3) & (sd.mb_kind != MB_IBL)).any())
-        if not has_pcm and not has_ibl and not nonflat \
-                and not has_respred and not qref:
+        with tracing.span("decode.prepare"):
+            has_pcm = bool((sd.mb_kind == MB_PCM).any())
+            has_ibl = bool((sd.mb_kind == MB_IBL).any())
+            nonflat = effective_weight4x4(sps, pps) is not None
+            has_respred = bool(sd.res_pred.any())
+            qref = (dqid & 15) > 0 and \
+                bool(((sd.mb_kind >= 3) & (sd.mb_kind != MB_IBL)).any())
+            batched = not (has_pcm or has_ibl or nonflat or has_respred or
+                           qref)
+        if batched:
             return self._enqueue_batched(sps, pps, sh, nh, sd, layer)
         return self._reconstruct_general(sps, pps, sh, nh, sd, layer, dqid)
 
@@ -451,84 +524,99 @@ class Decoder:
             self._flush(layer)
             layer.ring_key = key
             layer.ring = None
-        # frames decoded before the ring existed need slots
-        for f in layer.dpb.frames:
-            if f.slot < 0:
-                used = {g.slot for g in layer.dpb.frames if g.slot >= 0}
-                f.slot = next(s for s in range(S - 1) if s not in used)
-
-        has_inter = bool(((sd.mb_kind >= 3) & (sd.mb_kind != MB_IBL)).any())
+        with tracing.span("decode.prepare"):
+            # frames decoded before the ring existed need slots
+            for f in layer.dpb.frames:
+                if f.slot < 0:
+                    used = {g.slot for g in layer.dpb.frames if g.slot >= 0}
+                    f.slot = next(s for s in range(S - 1) if s not in used)
+            mb_is_inter = (sd.mb_kind >= 3) & (sd.mb_kind != MB_IBL)
+            has_inter = bool(mb_is_inter.any())
         if has_inter:
             from hartallo_tpu_torch.decode.mv import derive_mvs
-            derive_mvs(sd)
+            with tracing.span("decode.enqueue"):
+                derive_mvs(sd)
+        with tracing.span("decode.prepare"):
+            if has_inter:
+                wp_l, wp_c = self._reference_slots(sps, sh, sd, layer)
+            else:
+                wp_l = wp_c = None
+                sd.ref_idx = np.zeros_like(sd.ref_idx, dtype=np.int32)
+            constrained = bool(pps.constrained_intra_pred_flag)
+            al, at = availability_masks(sd.slice_id, constrained,
+                                        mb_is_inter)
+            atr = availability_tr(sd.slice_id, constrained, mb_is_inter)
+            fmb_v, fmb_h, filter_internal = self._filter_flags(sd)
+
             layer.dpb.max_refs = sps.max_num_ref_frames
-            reflist = layer.dpb.ref_list_p(
-                sh.frame_num, sps.max_frame_num,
-                mods=sh.ref_pic_list_mods_l0,
-                num_active=sh.num_ref_idx_l0_active_minus1 + 1)
-            if not reflist:
-                raise ValueError("P slice without reference frames")
-            for f in reflist:
-                # frames of the general route go into the ring before this
-                # batch runs (they may leave the DPB before the flush:
-                # recorded now)
-                if not f.in_ring and f.planes_pad is not None:
-                    layer.pending_sync.append(f)
-                    f.in_ring = True
-            wp_l, wp_c = self._weight_arrays(sd, len(reflist))
-            slot_of = np.array([f.slot for f in reflist], np.int32)
-            # the list-index view, for a following layer's G.8.6.1
-            # inference (the slots below are ring-local)
-            sd.ref_idx_list = sd.ref_idx.copy()
-            sd.ref_idx = slot_of[np.clip(sd.ref_idx.astype(np.int64), 0,
-                                         len(reflist) - 1)]
-        else:
-            wp_l = wp_c = None
-            sd.ref_idx = np.zeros_like(sd.ref_idx, dtype=np.int32)
-
-        mb_is_inter = (sd.mb_kind >= 3) & (sd.mb_kind != MB_IBL)
-        constrained = bool(pps.constrained_intra_pred_flag)
-        al, at = availability_masks(sd.slice_id, constrained, mb_is_inter)
-        atr = availability_tr(sd.slice_id, constrained, mb_is_inter)
-        fmb_v, fmb_h, filter_internal = self._filter_flags(sd)
-
-        layer.dpb.max_refs = sps.max_num_ref_frames
-        mmco5 = any(m.op == 5 for m in (sh.mmcos or []))
-        poc = layer.poc.compute(sps, sh, nh.ref_idc, nh.is_idr, mmco5)
-        wslot = S - 1                                      # trash
-        if nh.ref_idc != 0:
-            fr = Frame(frame_num=sh.frame_num, poc=poc, planes_pad=None,
-                       in_ring=True)
-            layer.dpb.add(fr, mmcos=sh.mmcos or None, idr=nh.is_idr,
-                          long_term_reference_flag=sh
-                          .long_term_reference_flag)
-            used = {f.slot for f in layer.dpb.frames
-                    if f is not fr and f.slot >= 0}
-            wslot = next(s for s in range(S - 1) if s not in used)
-            fr.slot = wslot
+            mmco5 = any(m.op == 5 for m in (sh.mmcos or []))
+            poc = layer.poc.compute(sps, sh, nh.ref_idc, nh.is_idr, mmco5)
+            wslot = S - 1                                  # trash
+            if nh.ref_idc != 0:
+                fr = Frame(frame_num=sh.frame_num, poc=poc, planes_pad=None,
+                           in_ring=True)
+                layer.dpb.add(fr, mmcos=sh.mmcos or None, idr=nh.is_idr,
+                              long_term_reference_flag=sh
+                              .long_term_reference_flag)
+                used = {f.slot for f in layer.dpb.frames
+                        if f is not fr and f.slot >= 0}
+                wslot = next(s for s in range(S - 1) if s not in used)
+                fr.slot = wslot
+            kernel = not self.dense_packed and \
+                d_pool.eligible(sd, wp_l) is None
 
         fast = None
-        if not self.dense_packed and d_pool.eligible(sd, wp_l) is None:
-            try:
-                fast = d_pool.pack_fast(sd, fmb_v, fmb_h, filter_internal,
-                                        wslot, pps.chroma_qp_index_offset,
-                                        al=al, at=at, atr=atr)
-            except OverflowError:
-                fast = None
-        packed = None if fast is not None else pack_slice_rows(
-            sd, al, at, fmb_v, fmb_h, filter_internal, wp_l=wp_l,
-            wp_c=wp_c, atr=atr, out=self._staging(layer).row(
-                len(layer.jobs), (gh * gw, WORDS)))
-        job = _Job(packed, wslot, bool((~mb_is_inter).any()), gw, gh,
-                   fast=fast)
-        layer.jobs.append(job)
-        # the job, not its BatchSlot: a slot holds the decoder, and a layer
-        # holding a slot would keep the decoder and its rings on the device
-        # alive until the cyclic garbage collector ran
-        layer.last_recon = job
+        with tracing.span("decode.enqueue"):
+            if kernel:
+                try:
+                    fast = d_pool.pack_fast(
+                        sd, fmb_v, fmb_h, filter_internal, wslot,
+                        pps.chroma_qp_index_offset, al=al, at=at, atr=atr)
+                except OverflowError:
+                    fast = None
+            packed = None if fast is not None else pack_slice_rows(
+                sd, al, at, fmb_v, fmb_h, filter_internal, wp_l=wp_l,
+                wp_c=wp_c, atr=atr, out=self._staging(layer).row(
+                    len(layer.jobs), (gh * gw, WORDS)))
+        with tracing.span("decode.prepare"):
+            job = _Job(packed, wslot, bool((~mb_is_inter).any()), gw, gh,
+                       fast=fast)
+            layer.jobs.append(job)
+            # the job, not its BatchSlot: a slot holds the decoder, and a
+            # layer holding a slot would keep the decoder and its rings on
+            # the device alive until the cyclic garbage collector ran
+            layer.last_recon = job
         if len(layer.jobs) >= self.batch_k:
             self._flush(layer)
         return BatchSlot(self, layer, job), poc
+
+    def _reference_slots(self, sps: SPS, sh: SliceHeader, sd: SliceData,
+                         layer: _Layer):
+        """A P picture's reference list: its refIdx turned into ring slots
+        (the list's view kept as ``sd.ref_idx_list``), general-route
+        references queued for the ring; returns its weight arrays."""
+        layer.dpb.max_refs = sps.max_num_ref_frames
+        reflist = layer.dpb.ref_list_p(
+            sh.frame_num, sps.max_frame_num,
+            mods=sh.ref_pic_list_mods_l0,
+            num_active=sh.num_ref_idx_l0_active_minus1 + 1)
+        if not reflist:
+            raise ValueError("P slice without reference frames")
+        for f in reflist:
+            # frames of the general route go into the ring before this
+            # batch runs (they may leave the DPB before the flush:
+            # recorded now)
+            if not f.in_ring and f.planes_pad is not None:
+                layer.pending_sync.append(f)
+                f.in_ring = True
+        wp_l, wp_c = self._weight_arrays(sd, len(reflist))
+        slot_of = np.array([f.slot for f in reflist], np.int32)
+        # the list-index view, for a following layer's G.8.6.1
+        # inference (the slots below are ring-local)
+        sd.ref_idx_list = sd.ref_idx.copy()
+        sd.ref_idx = slot_of[np.clip(sd.ref_idx.astype(np.int64), 0,
+                                     len(reflist) - 1)]
+        return wp_l, wp_c
 
     @staticmethod
     def _filter_flags(sd: SliceData):
@@ -589,51 +677,62 @@ class Decoder:
         decode order on the one ring."""
         if not layer.jobs:
             return
-        jobs, layer.jobs = layer.jobs, []
-        staging, layer.staging = layer.staging, None
-        gw, gh, S, cqoff = layer.ring_key
-        if layer.ring is None:
-            layer.ring = tuple(torch.zeros(s, dtype=torch.uint8,
-                                           device=self.device)
-                               for s in ring_shapes(gw, gh, S))
-        ringY, ringU, ringV = layer.ring
-        sync, layer.pending_sync = layer.pending_sync, []
-        for f in sync:
-            if f.slot >= 0 and f.planes_pad is not None:
-                hp = halfpel_planes_fast(f.planes_pad[0])
-                ringY[f.slot].zero_()
-                ringY[f.slot, :, :hp.shape[1], :hp.shape[2]] = \
-                    hp.to(torch.uint8)
-                for ring, p in ((ringU, f.planes_pad[1]),
-                                (ringV, f.planes_pad[2])):
-                    ring[f.slot].zero_()
-                    ring[f.slot, :p.shape[0], :p.shape[1]] = \
-                        p.to(torch.uint8)
-        runs = []                       # (kernel route, jobs, first index)
-        for i, j in enumerate(jobs):
-            kind = j.fast is not None
-            if runs and runs[-1][0] == kind:
-                runs[-1][1].append(j)
-            else:
-                runs.append((kind, [j], i))
+        with tracing.span("decode.launch"):
+            jobs, layer.jobs = layer.jobs, []
+            staging, layer.staging = layer.staging, None
+            gw, gh, S, cqoff = layer.ring_key
+            if layer.ring is None:
+                layer.ring = tuple(torch.zeros(s, dtype=torch.uint8,
+                                               device=self.device)
+                                   for s in ring_shapes(gw, gh, S))
+            ringY, ringU, ringV = layer.ring
+            sync, layer.pending_sync = layer.pending_sync, []
+            for f in sync:
+                if f.slot >= 0 and f.planes_pad is not None:
+                    hp = halfpel_planes_fast(f.planes_pad[0])
+                    ringY[f.slot].zero_()
+                    ringY[f.slot, :, :hp.shape[1], :hp.shape[2]] = \
+                        hp.to(torch.uint8)
+                    for ring, p in ((ringU, f.planes_pad[1]),
+                                    (ringV, f.planes_pad[2])):
+                        ring[f.slot].zero_()
+                        ring[f.slot, :p.shape[0], :p.shape[1]] = \
+                            p.to(torch.uint8)
+            runs = []                   # (kernel route, jobs, first index)
+            for i, j in enumerate(jobs):
+                kind = j.fast is not None
+                if runs and runs[-1][0] == kind:
+                    runs[-1][1].append(j)
+                else:
+                    runs.append((kind, [j], i))
         for kind, run, i0 in runs:
-            if kind:
-                p = payload_to(stack_payload([j.fast for j in run]),
-                               self.device)
-                outs, ringY, ringU, ringV = decode_gop_fast(
-                    p["smb"], p["aux"], p["sf"], p["tags"], p["vals"],
-                    p["ilist"], p["ivals"], ringY, ringU, ringV,
-                    gw=gw, gh=gh)
-                self.stats["kernel_pictures"] += len(run)
-            else:
-                outs, ringY, ringU, ringV = decode_gop(
-                    staging.upload(staging.rows(i0, i0 + len(run))),
-                    [j.wslot for j in run], [j.has_intra for j in run],
-                    ringY, ringU, ringV, gw=gw, gh=gh, chroma_qp_off=cqoff)
-                self.stats["scan_pictures"] += len(run)
-            batch = _BatchOut(outs)
-            for i, j in enumerate(run):
-                j.out = (batch, i)
+            with tracing.span("decode.upload"):
+                if kind:
+                    payload = stack_payload([j.fast for j in run])
+                    tracing.add("decode.upload_bytes",
+                                sum(a.nbytes for a in payload.values()))
+                    p = payload_to(payload, self.device)
+                else:
+                    rows = staging.rows(i0, i0 + len(run))
+                    tracing.add("decode.upload_bytes", rows.nbytes)
+                    rows = staging.upload(rows)
+            with tracing.span("decode.launch"):
+                if kind:
+                    outs, ringY, ringU, ringV = decode_gop_fast(
+                        p["smb"], p["aux"], p["sf"], p["tags"], p["vals"],
+                        p["ilist"], p["ivals"], ringY, ringU, ringV,
+                        gw=gw, gh=gh)
+                    self.stats["kernel_pictures"] += len(run)
+                else:
+                    outs, ringY, ringU, ringV = decode_gop(
+                        rows, [j.wslot for j in run],
+                        [j.has_intra for j in run], ringY, ringU, ringV,
+                        gw=gw, gh=gh, chroma_qp_off=cqoff)
+                    self.stats["scan_pictures"] += len(run)
+                tracing.add("decode.batches")
+                batch = _BatchOut(outs)
+                for i, j in enumerate(run):
+                    j.out = (batch, i)
         layer.ring = (ringY, ringU, ringV)
 
     def _staging(self, layer: _Layer) -> RowStaging:
@@ -703,7 +802,8 @@ class Decoder:
         ry = ru = rv = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev)
         if has_inter:
             from hartallo_tpu_torch.decode.mv import derive_mvs
-            derive_mvs(sd)
+            with tracing.span("decode.enqueue"):
+                derive_mvs(sd)
             layer.dpb.max_refs = sps.max_num_ref_frames
             reflist = layer.dpb.ref_list_p(
                 sh.frame_num, sps.max_frame_num,
