@@ -2,8 +2,10 @@
 
 Copy of ``hartallo_tpu/decode/d_pool.py`` (pure numpy) that takes the
 quarter-pel case table ``_QPT`` from the port's ``ops/wide.py``, since
-the JAX package's ``ops/wide.py`` imports jax.  ``pack_fast`` is
-unchanged.  The Pallas kernel's static capacities are dropped: the batch
+the JAX package's ``ops/wide.py`` imports jax.  The JAX package's
+``pack_fast`` is ``pack_fast_py`` here, unchanged; ``pack_fast`` builds
+the same bytes in one native C pass (``native/packc.c``).  The Pallas
+kernel's static capacities are dropped: the batch
 cap ``kmax`` (a TPU scalar-memory limit), the intra-list capacity
 ``nimax`` (its SMEM list) and the residual-pool capacity ``nrmax``.  The
 CUDA kernel and its twin take each batch's own intra and residual
@@ -34,10 +36,12 @@ from typing import Optional
 
 import numpy as np
 
+from hartallo_tpu_torch import tracing
 from hartallo_tpu_torch.core import tables as T
 from hartallo_tpu_torch.core.tables import (DEBLOCK_ALPHA, DEBLOCK_BETA,
                                             DEBLOCK_TC0, LUMA_4x4_BLK_XY,
                                             QP_SCALE_CHROMA)
+from hartallo_tpu_torch.native import pack as native_pack
 
 PAD = 32
 MAX_RES = 16000          # |residual| bound for int16 work planes
@@ -306,7 +310,26 @@ def pack_fast(sd, fmb_v, fmb_h, fint, wslot: int, chroma_qp_off: int,
     Precondition: ``eligible`` returned None (sd.ref_idx is slot-mapped,
     derive_mvs has run).  al/at/atr: intra neighbour availability masks
     (gh, gw) bool; may be None for all-inter pictures.
+
+    One native pass over the MBs (``native/packc.c``) when its library
+    loads, counted in ``decode.pack_native``; ``pack_fast_py`` otherwise.
+    Both give the same bytes and raise OverflowError on the same pictures.
     """
+    if not native_pack.available():
+        return pack_fast_py(sd, fmb_v, fmb_h, fint, wslot, chroma_qp_off,
+                            al=al, at=at, atr=atr)
+    smb, aux, tags, vals, counts, ilist, ivals = native_pack.pack_frame(
+        sd, fmb_v, fmb_h, fint, chroma_qp_off, al, at, atr)
+    tracing.add("decode.pack_native")
+    return FastFrame(smb=smb, aux=aux, tags=tags, vals=vals, counts=counts,
+                     wslot=int(wslot), ref_slot=int(sd.ref_idx.flat[0]),
+                     ilist=ilist, ivals=ivals)
+
+
+def pack_fast_py(sd, fmb_v, fmb_h, fint, wslot: int, chroma_qp_off: int,
+                 al=None, at=None, atr=None) -> FastFrame:
+    """``pack_fast`` in numpy over whole arrays: the oracle of the native
+    pass, and the path where its library does not load."""
     gh, gw = sd.gh, sd.gw
     n = gh * gw
 

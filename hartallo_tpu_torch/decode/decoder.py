@@ -89,7 +89,9 @@ picture's enqueue spans have closed.  The general route, the encoder and
   rows handed to the device (the kernels' constant tables, a few KB a
   launch, are not counted);
 - ``decode.fetch_bytes``: the bytes of output frames copied to the host
-  (a whole batch at a time).
+  (a whole batch at a time);
+- ``decode.pack_native``: kernel-route pictures whose payload
+  ``d_pool.pack_fast`` built in its native pass (``native/packc.c``).
 
 On a CPU decoder the same bytes are counted, though nothing is copied.
 

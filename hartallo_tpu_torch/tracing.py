@@ -14,7 +14,8 @@ A span names one host phase of a call:
   (a fraction of a microsecond a span).
 
 A counter (``add(name, n)``) is a process-wide integer, always on; the
-decoder adds to one once a batch or a fetch, never per macroblock.
+decoder adds to one once a batch, a fetch or a packed picture, never per
+macroblock.
 
 Operators read the table without a profiler:
 
